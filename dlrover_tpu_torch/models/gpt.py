@@ -1,0 +1,283 @@
+"""GPT-2-class decoder in PyTorch — counterpart of ``dlrover_tpu/models/gpt.py``.
+
+Same config, same parameters and the same numerics as the JAX model:
+
+- params fp32; Dense, embedding and the tied head compute in ``dtype``
+  (bf16 by default: the weight is cast, the product runs in bf16);
+- LayerNorm takes its statistics in fp32 (E[x^2] - E[x]^2, clipped at 0,
+  as flax does) and casts its output to ``dtype``; the residual stream
+  is ``dtype``; logits are upcast to fp32 only inside ``loss_fn``;
+- GELU is the tanh approximation; ``qkv`` splits into contiguous thirds,
+  each reshaped to (heads, head_dim);
+- Dense kernels keep flax's ``[in, out]`` layout (``y = x @ kernel +
+  bias``), so weights carry across without transposes
+  (``models/convert.py``); init is normal(0.02) for Dense and the token
+  embedding, normal(0.01) for the position embedding.
+
+``attn_impl="pallas"`` runs the hand-written flash-attention kernels
+(``ops/attention.py``), ``"xla"`` the plain einsum softmax. Dense blocks
+only in this slice: MoE, pipeline stages, int8 MLP, remat and ring /
+Ulysses attention raise ``NotImplementedError``.
+"""
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    d_ff: int = 0  # 0 -> 4 * d_model
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = False
+    remat_policy: str = "nothing"
+    # Layers run as a Python loop here; kept so JAX configs carry over.
+    scan_layers: bool = True
+    scan_unroll: int = 1
+    attn_impl: str = "xla"  # "xla" | "pallas" | "ring" | "ulysses"
+    # TPU tile hints of the JAX kernel; the CUDA kernels pick 64 x 64.
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    mlp_precision: str = "bf16"
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+    pipeline_repeats: int = 1
+
+    def __post_init__(self):
+        if self.pipeline_stages > 1:
+            chunks = self.pipeline_stages * max(self.pipeline_repeats, 1)
+            if self.num_layers % chunks:
+                raise ValueError(
+                    f"num_layers {self.num_layers} not divisible by "
+                    f"pipeline_stages*repeats {chunks}"
+                )
+
+    @property
+    def ff_dim(self) -> int:
+        return self.d_ff or 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    def flops_per_token(self) -> float:
+        """Approx training FLOPs/token (6*N_active params + attention)."""
+        n = self.param_count(active=True)
+        attn = 12 * self.num_layers * self.d_model * self.max_seq_len
+        return 6 * n + attn
+
+    def param_count(self, active: bool = False) -> int:
+        """Total params; ``active=True`` counts only the top-k experts a
+        token visits (the MoE FLOPs basis)."""
+        d, f, v, l = self.d_model, self.ff_dim, self.vocab_size, self.num_layers
+        if self.num_experts > 0:
+            n_ffn = self.moe_top_k if active else self.num_experts
+            mlp = n_ffn * (2 * d * f + f + d) + d * self.num_experts
+        else:
+            mlp = 2 * d * f
+        per_layer = 4 * d * d + mlp + 4 * d  # qkvo + ffn/moe + ln
+        return v * d + self.max_seq_len * d + l * per_layer + d
+
+    @staticmethod
+    def tiny():
+        return GPTConfig(vocab_size=256, max_seq_len=64, num_layers=2,
+                         num_heads=2, d_model=32)
+
+
+def _check_supported(cfg: GPTConfig):
+    later = {
+        "num_experts > 0 (MoE)": cfg.num_experts > 0,
+        "pipeline_stages > 1": cfg.pipeline_stages > 1,
+        f"attn_impl={cfg.attn_impl!r}": cfg.attn_impl in ("ring", "ulysses"),
+    }
+    for what, hit in later.items():
+        if hit:
+            raise NotImplementedError(
+                f"{what} comes with the sequence/expert/pipeline-parallel "
+                "slice of the port (ROADMAP queue 1)"
+            )
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True comes with the remat slice of the port "
+            "(ROADMAP queue 1)"
+        )
+    if cfg.mlp_precision != "bf16":
+        raise NotImplementedError(
+            f"mlp_precision={cfg.mlp_precision!r} comes with the int8 "
+            "matmul slice of the port (ROADMAP queue 1)"
+        )
+    if cfg.attn_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel [in, out]`` and ``bias`` in
+    ``param_dtype``; the product runs in ``dtype``."""
+
+    def __init__(self, d_in: int, d_out: int, cfg: GPTConfig, device):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.kernel = nn.Parameter(
+            torch.empty(d_in, d_out, dtype=cfg.param_dtype, device=device)
+        )
+        self.bias = nn.Parameter(
+            torch.zeros(d_out, dtype=cfg.param_dtype, device=device)
+        )
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.kernel.normal_(0.0, 0.02, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(
+            self.dtype
+        )
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=dtype)``: fp32 statistics, output cast
+    to ``dtype``; ``weight`` is flax's ``scale``."""
+
+    def __init__(self, d: int, cfg: GPTConfig, device, eps: float = 1e-5):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch.ones(d, dtype=cfg.param_dtype, device=device)
+        )
+        self.bias = nn.Parameter(
+            torch.zeros(d, dtype=cfg.param_dtype, device=device)
+        )
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
+
+
+def _attention(q, k, v, cfg: GPTConfig):
+    """Causal attention. q, k, v: [B, S, H, D]."""
+    if cfg.attn_impl == "pallas":
+        from dlrover_tpu_torch.ops.attention import flash_attention
+
+        return flash_attention(
+            q, k, v, causal=True,
+            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        )
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = q.shape[1]
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.ln1 = LayerNorm(d, cfg, device)
+        self.qkv = Dense(d, 3 * d, cfg, device)
+        self.proj = Dense(d, d, cfg, device)
+        self.ln2 = LayerNorm(d, cfg, device)
+        self.up = Dense(d, cfg.ff_dim, cfg, device)
+        self.down = Dense(cfg.ff_dim, d, cfg, device)
+
+    def forward(self, x):
+        cfg = self.cfg
+        b, s, d = x.shape
+        h, hd = cfg.num_heads, cfg.head_dim
+        q, k, v = self.qkv(self.ln1(x)).split(d, dim=-1)
+        attn = _attention(
+            q.reshape(b, s, h, hd), k.reshape(b, s, h, hd),
+            v.reshape(b, s, h, hd), cfg,
+        ).reshape(b, s, d)
+        x = x + self.proj(attn)
+        y = F.gelu(self.up(self.ln2(x)), approximate="tanh")
+        return x + self.down(y)
+
+
+class GPT(nn.Module):
+    """Decoder-only LM. ``forward(tokens[B,S]) -> logits[B,S,V]``.
+
+    Built on ``device`` (the card unless the caller names another) and
+    initialized from ``generator`` (a seeded ``torch.Generator`` on that
+    device; seed 0 when omitted).
+    """
+
+    def __init__(self, cfg: GPTConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.wte = nn.Embedding(
+            cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, device=device
+        )
+        self.wpe = nn.Parameter(torch.empty(
+            cfg.max_seq_len, cfg.d_model, dtype=cfg.param_dtype,
+            device=device,
+        ))
+        self.blocks = nn.ModuleList(
+            Block(cfg, device) for _ in range(cfg.num_layers)
+        )
+        self.ln_f = LayerNorm(cfg.d_model, cfg, device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.wte.weight.normal_(0.0, 0.02, generator=generator)
+            self.wpe.normal_(0.0, 0.01, generator=generator)
+        for m in self.modules():
+            if isinstance(m, (Dense, LayerNorm)):
+                m.reset_parameters(generator)
+
+    def forward(self, tokens):
+        cfg = self.cfg
+        s = tokens.shape[1]
+        x = self.wte(tokens).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_f(x)
+        # Tied output head: logits via the embedding table, in dtype.
+        return x @ self.wte.weight.to(cfg.dtype).t()
+
+
+def loss_fn(logits, tokens):
+    """Next-token cross entropy; logits[B,S,V], tokens[B,S]: logsumexp
+    minus the target logit, in fp32."""
+    targets = tokens[:, 1:]
+    logits = logits[:, :-1].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - tgt)

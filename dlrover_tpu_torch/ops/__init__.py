@@ -1,0 +1,28 @@
+"""Kernels of the port: hand-written Hopper CUDA beside plain PyTorch.
+
+Counterpart of ``dlrover_tpu/ops``. Ported so far: flash attention
+(forward, dQ, dK/dV). Ring and Ulysses attention, MoE and int8 matmuls
+come in later slices.
+"""
+
+from dlrover_tpu_torch.ops.attention import (  # noqa: F401
+    LAUNCHES,
+    FlashAttentionFunction,
+    flash_attention,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+    reference_attention,
+    reset_launch_counts,
+)
+
+__all__ = [
+    "LAUNCHES",
+    "FlashAttentionFunction",
+    "flash_attention",
+    "flash_bwd_dkv",
+    "flash_bwd_dq",
+    "flash_fwd",
+    "reference_attention",
+    "reset_launch_counts",
+]

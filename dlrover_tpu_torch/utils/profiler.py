@@ -1,0 +1,99 @@
+"""Step statistics and MFU for the port — the part of
+``dlrover_tpu/utils/profiler.py`` the trainer uses: the device's peak
+FLOP/s, ``StepStats`` and ``PhaseBreakdown``. Trace capture and module
+cost analysis come with the observability slice.
+"""
+
+from collections import deque
+from typing import Dict, Optional
+
+import torch
+
+# Peak dense bf16 tensor-core FLOP/s by device-name substring (NVIDIA's
+# data sheets, SXM parts, no sparsity).
+_PEAK_FLOPS = (
+    ("h100", 989e12),
+    ("h200", 989e12),
+)
+
+
+def device_peak_flops(device: Optional[torch.device] = None) -> float:
+    """Published bf16 dense peak of a CUDA device; 0.0 when unknown or
+    not a card (MFU is then not reported)."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return 0.0
+    name = torch.cuda.get_device_name(device).lower()
+    for key, peak in _PEAK_FLOPS:
+        if key in name:
+            return peak
+    return 0.0
+
+
+def mfu(tokens_per_s: float, flops_per_token: float, peak: float) -> float:
+    """Model FLOP utilization; 0.0 when the peak is unknown."""
+    return tokens_per_s * flops_per_token / peak if peak else 0.0
+
+
+class StepStats:
+    """Bounded step-time accumulator: the ``window`` newest samples;
+    ``count`` is the total number of observations."""
+
+    def __init__(self, window: int = 1024):
+        self.times: deque = deque(maxlen=window)
+        self._total = 0
+        self._window_sum = 0.0
+
+    def add(self, dt: float):
+        if len(self.times) == self.times.maxlen:
+            self._window_sum -= self.times[0]
+        self.times.append(dt)
+        self._window_sum += dt
+        self._total += 1
+
+    @property
+    def count(self) -> int:
+        return self._total
+
+    @property
+    def mean(self) -> float:
+        return self._window_sum / len(self.times) if self.times else 0.0
+
+    def percentile(self, p: float) -> float:
+        if not self.times:
+            return 0.0
+        xs = sorted(self.times)
+        idx = min(len(xs) - 1, int(p / 100 * len(xs)))
+        return xs[idx]
+
+
+class PhaseBreakdown:
+    """Per-step wall time split into input / compute / collective /
+    readback from host segments the loop measures anyway (no extra
+    syncs). The collective share is the lag-1 fence's excess over its
+    rolling minimum; compute is dispatch plus that floor."""
+
+    KEYS = ("input_s", "compute_s", "collective_s", "readback_s")
+
+    def __init__(self, window: int = 256, fence_window: int = 16):
+        self._fences: deque = deque(maxlen=fence_window)
+        self.stats: Dict[str, StepStats] = {
+            k: StepStats(window) for k in self.KEYS
+        }
+        self.last: Dict[str, float] = {}
+
+    def split(self, input_s: float, dispatch_s: float, fence_s: float,
+              readback_s: float = 0.0) -> Dict[str, float]:
+        self._fences.append(fence_s)
+        base = min(self._fences)
+        collective = max(0.0, fence_s - base)
+        phases = {
+            "input_s": input_s,
+            "compute_s": dispatch_s + (fence_s - collective),
+            "collective_s": collective,
+            "readback_s": readback_s,
+        }
+        for k, v in phases.items():
+            self.stats[k].add(v)
+        self.last = phases
+        return phases

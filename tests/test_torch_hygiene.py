@@ -1,0 +1,112 @@
+"""Rules the PyTorch port keeps: no JAX, the card by default, sm_90a.
+
+- No module of ``dlrover_tpu_torch/``, and not ``chip_smoke.py``, imports
+  jax, flax, optax or anything of ``dlrover_tpu``.
+- Entry points run on CUDA unless the caller asks for the CPU; without
+  a card they raise instead of falling back.
+- The kernel build targets Hopper's ``sm_90a`` (checked without nvcc).
+"""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from dlrover_tpu_torch.accel import auto_accelerate
+from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
+from dlrover_tpu_torch.ops import build
+from dlrover_tpu_torch.optim import adamw
+from dlrover_tpu_torch.train import init_training
+from dlrover_tpu_torch.train.data import DevicePrefetchIterator
+from dlrover_tpu_torch.train.trainer import Trainer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
+
+
+def port_sources():
+    pkg = os.path.join(REPO, "dlrover_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", list(port_sources()), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_jax_or_reference_package_imports(path):
+    bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_walk_sees_the_whole_package():
+    names = {os.path.relpath(p, REPO) for p in port_sources()}
+    assert "dlrover_tpu_torch/ops/attention.py" in names
+    assert "dlrover_tpu_torch/train/trainer.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def loss(module, params, batch):
+    return loss_fn(module(batch), batch)
+
+
+def tiny_model():
+    return GPT(GPTConfig.tiny(), device="cpu")
+
+
+def test_trainer_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(tiny_model(), adamw(1e-3), loss,
+                torch.zeros(2, 8, dtype=torch.long))
+
+
+def test_auto_accelerate_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        auto_accelerate(tiny_model(), adamw(1e-3),
+                        torch.zeros(2, 8, dtype=torch.long), loss)
+
+
+def test_other_entry_points_raise_without_cuda(no_cuda):
+    for make in (lambda: init_training(),
+                 lambda: GPT(GPTConfig.tiny()),
+                 lambda: DevicePrefetchIterator(iter([]))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_build_command_targets_sm90a():
+    cmd = build.nvcc_command("flash_attn", "/dev/null")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and cmd[-1] == build.source_path("flash_attn")
+    assert os.path.exists(cmd[-1])
+
+
+def test_library_name_follows_the_source():
+    path = build.library_path("flash_attn")
+    assert os.path.dirname(path) == build.BUILD_DIR
+    assert os.path.basename(path).startswith("libflash_attn-")
+
+
+def test_build_dir_is_ignored_by_git():
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        ignored = f.read().split()
+    assert "build/" in ignored
