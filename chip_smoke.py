@@ -8,13 +8,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 2. hold each kernel against its plain PyTorch version on the card, at
    the GPT-2 124M attention shape (batch*heads 16*12, seq 1024, head_dim
    64, bf16, causal), plus a non-causal and a ragged-sequence case;
-3. time each kernel, its plain version and, as a yardstick the port
-   never calls, PyTorch's scaled_dot_product_attention; compute each
-   kernel's bound from its bytes and FLOPs;
+3. time each kernel, its plain version and, as yardsticks the port
+   never calls, PyTorch's scaled_dot_product_attention and ATen's flash
+   backward; compute each kernel's bound from its bytes and FLOPs;
 4. check the GPT's kernel path against its einsum path on a small input,
    then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
-   the seed, one fixed batch) through ``Trainer.fit`` and check that
-   every kernel ran 12 times a step and that the loss is finite and falls;
+   the seed, one fixed batch) through ``Trainer.fit``: 2 warm-up steps,
+   then a window of 10 whose tokens over its wall time, fence to fence,
+   give tokens/s; check that every kernel ran 12 times a step in the
+   window and that the loss is finite and falls;
    then trace 3 more steps with torch.profiler: device time by kernel
    group and the card's busy share;
 5. print the card, a ``{"kernels": [...]}`` line, and last
@@ -57,10 +59,16 @@ KERNELS = (
     ("flash_bwd_dkv", "dlrover_tpu/ops/attention.py:230"),
 )
 # Kernel vs plain: bf16 outputs, and bf16 P / dS operands of the tensor-
-# core products where the plain version keeps fp32: max |err| must stay
-# under 2e-2 of the largest reference magnitude (and 1e-3 on the fp32
-# logsumexp).
-REL_TOL, LSE_TOL = 2e-2, 1e-3
+# core products where the plain version keeps fp32. Every 64-row tile of
+# every output must agree with the plain version's to attn.TILE_REL_TOL
+# (1e-2) in the Frobenius norm, and the fp32 logsumexp to LSE_TOL.
+LSE_TOL = 1e-3
+# The GPT's kernel path against its einsum path: the Frobenius norm of
+# the logits' difference over that of the einsum path's logits. The two
+# paths round P to bf16 at different places; two layers of bf16 compute
+# carry that to about 7e-3 on the logits.
+MODEL_TOL = 2e-2
+WARMUP = 2
 GPT2 = dict(vocab_size=50257, max_seq_len=1024, num_layers=12, num_heads=12,
             d_model=768, attn_impl="pallas")
 BATCH, SEQ, STEPS = 16, 1024, 10
@@ -94,30 +102,33 @@ def run_kernels(q, k, v, do, causal):
 
 def compare(q, k, v, do, causal, label):
     """Each kernel against its plain version on the same inputs; returns
-    the max abs error per kernel."""
+    the max abs error per kernel. Fails on a tile error over the limit."""
     o, lse, delta, dq, dk, dv = run_kernels(q, k, v, do, causal)
     o_ref, lse_ref = attn._fwd_plain(q, k, v, causal)
     dq_ref = attn._bwd_dq_plain(q, k, v, do, lse, delta, causal)
     dk_ref, dv_ref = attn._bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    errs = {}
-    for name, pairs in (("flash_fwd", [(o, o_ref)]),
-                        ("flash_bwd_dq", [(dq, dq_ref)]),
-                        ("flash_bwd_dkv", [(dk, dk_ref), (dv, dv_ref)])):
-        worst = 0.0
-        for got, ref in pairs:
+    errs, report = {}, {}
+    for name, pairs in (("flash_fwd", {"o": (o, o_ref)}),
+                        ("flash_bwd_dq", {"dq": (dq, dq_ref)}),
+                        ("flash_bwd_dkv", {"dk": (dk, dk_ref),
+                                           "dv": (dv, dv_ref)})):
+        errs[name] = 0.0
+        for out, (got, ref) in pairs.items():
             check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = max(1.0, ref.float().abs().max().item())
-            check(err <= REL_TOL * scale,
-                  f"{name} {label}: max |err| {err} > {REL_TOL} * {scale}")
-            worst = max(worst, err)
-        errs[name] = worst
-    lse_err = (lse - lse_ref).abs().max().item()
-    check(lse_err <= LSE_TOL, f"flash_fwd {label}: lse |err| {lse_err}")
-    log(f"[kernels] {label}: max |err| " + json.dumps(
-        {**{k: float(e) for k, e in errs.items()}, "lse": lse_err})
-        + f" (tolerance {REL_TOL} x max(1, max |ref|); lse {LSE_TOL})")
+            abs_err = (got.float() - ref.float()).abs().max().item()
+            rel = attn.tile_rel_err(got, ref)
+            report[out] = {"tile_rel_err": rel, "max_abs_err": abs_err,
+                           "max_abs_ref": ref.float().abs().max().item()}
+            errs[name] = max(errs[name], abs_err)
+    report["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item()}
+    log(f"[kernels] {label}: " + json.dumps(report)
+        + f" (limits: tile_rel_err <= {attn.TILE_REL_TOL}, lse max_abs_err"
+        f" <= {LSE_TOL})")
+    for out, r in report.items():
+        limit = LSE_TOL if out == "lse" else attn.TILE_REL_TOL
+        err = r["max_abs_err"] if out == "lse" else r["tile_rel_err"]
+        check(err <= limit, f"{out} {label}: error {err} > {limit}")
     return errs
 
 
@@ -194,10 +205,18 @@ def time_kernels(q, k, v, do):
     def sdpa_fwd_bwd():
         sdpa(*leaves, is_causal=True).backward(dot)
 
-    yard = {"sdpa_fwd_ms": out["flash_fwd"]["library_ms"],
-            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd)}
+    # One ATen call computes dQ, dK and dV from q, k, v, O, lse and dO:
+    # the yardstick of the dQ + dK/dV pair (its own forward's O and lse).
+    aten = torch.ops.aten
+    fo, flse, cq, ck, mq, mk, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+    bwd_ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, fo, flse, cq, ck, mq, mk, 0.0, True, seed, offset))
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        out[name]["library_ms"] = None  # no one PyTorch call computes it
+        out[name]["library_ms"] = bwd_ms
+    yard = {"sdpa_fwd_ms": out["flash_fwd"]["library_ms"],
+            "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd),
+            "aten_flash_bwd_ms": bwd_ms}
     return out, yard
 
 
@@ -229,13 +248,13 @@ def model_check(seed):
     check(a.shape == (2, 256, small["vocab_size"]), f"logits shape {a.shape}")
     check(bool(torch.isfinite(a).all()), "non-finite logits")
     err = (a.float() - b.float()).abs().max().item()
-    scale = b.float().abs().max().item()
-    check(err <= REL_TOL * max(1.0, scale),
-          f"kernel path vs einsum path: max |err| {err}")
+    rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
     la, lb = float(loss_fn(a, toks)), float(loss_fn(b, toks))
+    log(f"[model] kernel vs einsum path: logits ||err|| / ||ref|| {rel:.3e} "
+        f"(limit {MODEL_TOL}), max |err| {err:.3e}, loss {la:.5f} vs "
+        f"{lb:.5f} (limit 1e-2)")
+    check(rel <= MODEL_TOL, f"kernel path vs einsum path: logits {rel}")
     check(abs(la - lb) <= 1e-2, f"loss {la} vs einsum path {lb}")
-    log(f"[model] kernel vs einsum path: logits max |err| {err:.3e} "
-        f"(|max| {scale:.3f}), loss {la:.5f} vs {lb:.5f}")
 
 
 def train(seed, steps):
@@ -247,32 +266,37 @@ def train(seed, steps):
     rec = Record()
     trainer = Trainer(model, adamw(3e-4), token_loss, batch,
                       spec="auto", callbacks=[rec, LoggingCallback(every=5)])
+    trainer.fit(iter([batch] * WARMUP), steps=WARMUP)  # outside the window
+    first = float(rec.losses[0])
+    rec.losses, rec.step_s = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attn.reset_launch_counts()
     t0 = time.perf_counter()
     out = trainer.fit(iter([batch] * steps), steps=steps)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    window_s = time.perf_counter() - t0
     launches = dict(attn.LAUNCHES)
     losses = [float(x) for x in rec.losses]
-    log(f"[train] losses {losses}")
+    log(f"[train] loss at init {first}; window losses {losses}")
     check(out["step"] == steps, f"fit stopped at {out['step']}")
     for name, count in launches.items():
         check(count == cfg.num_layers * steps,
               f"{name} launched {count} times, want {cfg.num_layers * steps}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    steady = rec.step_s[2:] or rec.step_s
-    step_s = statistics.median(steady)
-    tok_s = BATCH * SEQ / step_s
+    # End to end: every token of the window over its whole wall time,
+    # fence to fence. The per-step median is the loop's own statistic.
+    tok_s = BATCH * SEQ * steps / window_s
     peak = device_peak_flops(torch.device("cuda"))
     stats = {
-        "steps": steps, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+        "steps": steps, "window_s": window_s,
+        "step_ms": window_s / steps * 1e3, "tokens_per_s": tok_s,
         "mfu": mfu(tok_s, cfg.flops_per_token(), peak or PEAK_BF16),
+        "median_step_gap_ms": statistics.median(rec.step_s) * 1e3,
         "flops_per_token": cfg.flops_per_token(),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "fit_wall_s": wall, "first_loss": losses[0], "last_loss": losses[-1],
+        "first_loss": losses[0], "last_loss": losses[-1],
         "launches": launches,
     }
     log("[train] " + json.dumps(stats))
@@ -280,12 +304,11 @@ def train(seed, steps):
 
 
 def profile_window(trainer, batch, steps=3):
-    """Device time by kernel over ``steps`` more training steps
+    """Device time by kernel over ``steps`` more steps of the warm trainer
     (torch.profiler, CUDA activity): the share of the window's wall time
     the card spent in kernels, and the kernels grouped by what they do."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.fit(iter([batch] * 2), steps=2)  # warm, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -341,10 +364,10 @@ def main():
     torch.cuda.set_device(0)
 
     t0 = time.perf_counter()
-    built = build.build_all(["flash_attn"])
+    _, nvcc_s = build.build("flash_attn")
     attn._lib()
-    log(f"[build] {json.dumps(built)} ({time.perf_counter() - t0:.1f}s "
-        "with loading)")
+    log(f"[build] flash_attn: nvcc {nvcc_s:.1f}s, "
+        f"{time.perf_counter() - t0:.1f}s with loading")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     q, k, v, do = qkv_do(gen, BATCH, SEQ)

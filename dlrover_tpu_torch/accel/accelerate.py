@@ -23,7 +23,8 @@ from dlrover_tpu_torch.common.log import logger
 class ParallelSpec:
     """Mesh degrees (the JAX package's Strategy object, same fields).
     ``zero`` flags ZeRO-1 optimizer-state sharding over ``data``;
-    ``collectives`` maps an axis to its collective algorithm."""
+    ``collectives`` maps an axis to its collective algorithm, which has
+    a meaning only across devices (a later slice)."""
 
     data: int = 1
     fsdp: int = 1
@@ -38,19 +39,6 @@ class ParallelSpec:
         for name in ("data", "fsdp", "tensor", "seq", "expert", "pipe"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} degree must be >= 1")
-        coll = self.collectives
-        if isinstance(coll, dict):
-            coll = coll.items()
-        norm = tuple(sorted(
-            (str(axis), str(strategy)) for axis, strategy in (coll or ())
-        ))
-        for axis, strategy in norm:
-            if strategy not in ("bw", "lat"):
-                raise ValueError(
-                    f"unknown collective strategy {strategy!r} for axis "
-                    f"{axis!r} (want 'bw' or 'lat')"
-                )
-        object.__setattr__(self, "collectives", norm)
 
     @property
     def total(self) -> int:

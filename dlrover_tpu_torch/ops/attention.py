@@ -119,6 +119,30 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: A kernel's output may differ from its plain version's by at most this
+#: share of the reference, in the Frobenius norm of every 64-row tile.
+TILE_REL_TOL = 1e-2
+
+
+def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest ``||got - ref|| / ||ref||`` (Frobenius) over the 64-row
+    tiles along S of each (batch, head) of a ``[B, S, H, D]`` output.
+
+    Taken tile by tile, the error of a kernel that mishandles a few
+    tiles (a dropped kv tile, a mask off by one) is not averaged away by
+    the rest; relative to each tile's own size, it does not depend on
+    how large the values of other rows are.
+    """
+    b, s, h, d = ref.shape
+    tile = 64  # the kernels' tile
+    pad = (0, 0, 0, 0, 0, -s % tile)
+    diff = torch.nn.functional.pad(got.float() - ref.float(), pad)
+    ref = torch.nn.functional.pad(ref.float(), pad)
+    num = diff.reshape(b, -1, tile, h, d).square().sum((2, 4))
+    den = ref.reshape(b, -1, tile, h, d).square().sum((2, 4))
+    return (num / den.clamp_min(1e-30)).sqrt().max().item()
+
+
 # ------------------------------------------------------- CUDA kernels
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

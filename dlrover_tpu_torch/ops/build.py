@@ -83,27 +83,6 @@ def build(name: str) -> Tuple[str, float]:
     return out, dt
 
 
-def build_all(names: Sequence[str]) -> Dict[str, float]:
-    """Build several sources at once, one ``nvcc`` each, in parallel."""
-    results: Dict[str, object] = {}
-
-    def run(n):
-        try:
-            results[n] = build(n)[1]
-        except BaseException as e:  # re-raised below, in the caller
-            results[n] = e
-
-    threads = [threading.Thread(target=run, args=(n,)) for n in names]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for n in names:
-        if isinstance(results[n], BaseException):
-            raise results[n]
-    return {n: results[n] for n in names}
-
-
 def load_library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build (at first use) and load ``lib<name>``; ``signatures`` maps
     each C entry to its ctypes argument types. Every entry returns an
