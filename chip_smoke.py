@@ -4,22 +4,39 @@
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
-1. build the CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card, at
-   the GPT-2 124M attention shape (batch*heads 16*12, seq 1024, head_dim
-   64, bf16, causal), plus a non-causal and a ragged-sequence case;
-3. time each kernel, its plain version and, as yardsticks the port
+1. build the CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` with nvcc,
+   one process per source, all at once; print nvcc's seconds and each
+   kernel's registers and spills;
+2. hold each kernel against its plain PyTorch version on the card:
+   flash attention at the GPT-2 124M shape (batch*heads 16*12, seq 1024,
+   head_dim 64, bf16, causal), at GPT-2 xl's (4*25), non-causal and at a
+   ragged sequence; 8-bit Adam, unfused and fused, element by element,
+   on a chunked [48, 1600, 4800] leaf, the [50257, 1600] embedding, a
+   ragged leaf, a flat stacked bias whose blocks straddle layers and a
+   leaf of crafted blocks (a rounding tie, all zeros, the 0.5 floor);
+3. time each flash kernel, its plain version and, as yardsticks the port
    never calls, PyTorch's scaled_dot_product_attention and ATen's flash
    backward; compute each kernel's bound from its bytes and FLOPs;
 4. check the GPT's kernel path against its einsum path on a small input,
    then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
-   the seed, one fixed batch) through ``Trainer.fit``: 2 warm-up steps,
-   then a window of 10 whose tokens over its wall time, fence to fence,
-   give tokens/s; check that every kernel ran 12 times a step in the
-   window and that the loss is finite and falls;
-   then trace 3 more steps with torch.profiler: device time by kernel
-   group and the card's busy share;
-5. print the card, a ``{"kernels": [...]}`` line, and last
+   the seed, one fixed batch, AdamW) through ``Trainer.fit``: 2 warm-up
+   steps, then a window of 10 whose tokens over its wall time, fence to
+   fence, give tokens/s; check that every flash kernel ran 12 times a
+   step in the window and that the loss is finite and falls; then trace
+   3 more steps with torch.profiler: device time by kernel group, the
+   card's busy share of the traced time and the kernels' time over the
+   window's step;
+5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024) with the
+   port's fused ``adam8bit(2e-4)`` the same way (2 warm-up steps, a
+   window of 5, 3 traced): every flash kernel 48 times a step, the fused
+   8-bit Adam kernel once a leaf a step, the unfused one never; then 2
+   steps of the optax-style loop (``update``, then apply), where the
+   unfused kernel runs once a leaf a step and the fused one never;
+6. time one whole 8-bit Adam step over the 1.5B params (the kernels'
+   launches alone, and through the wrappers), and the largest leaf
+   alone, for each kernel and for the plain version, beside the bound
+   from the bytes each must move;
+7. print the card, a ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero and prints no result. Float32 matmuls
@@ -27,12 +44,14 @@ and convolutions run without TF32 wherever a comparison is made.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,7 +59,8 @@ import torch
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
-from dlrover_tpu_torch.optim import adamw
+from dlrover_tpu_torch.optim import adam8bit, adamw
+from dlrover_tpu_torch.optim import low_bit as lowbit
 from dlrover_tpu_torch.train.trainer import (
     LoggingCallback,
     Trainer,
@@ -49,15 +69,20 @@ from dlrover_tpu_torch.train.trainer import (
 from dlrover_tpu_torch.utils.profiler import device_peak_flops, mfu
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
-SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attn.cu"
-# Each kernel (named as its launch counter) and the Pallas kernel it
-# replaces.
+FLASH_SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attn.cu"
+ADAM8_SOURCE = "dlrover_tpu_torch/ops/csrc/adam8bit.cu"
+# Each kernel (named as its launch counter), its source and the Pallas
+# kernel it replaces.
 KERNELS = (
-    ("flash_fwd", "dlrover_tpu/ops/attention.py:61"),
-    ("flash_bwd_dq", "dlrover_tpu/ops/attention.py:179"),
-    ("flash_bwd_dkv", "dlrover_tpu/ops/attention.py:230"),
+    ("flash_fwd", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:61"),
+    ("flash_bwd_dq", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:179"),
+    ("flash_bwd_dkv", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:230"),
+    ("adam8", ADAM8_SOURCE, "dlrover_tpu/optim/low_bit.py:79"),
+    ("adam8_fused", ADAM8_SOURCE, "dlrover_tpu/optim/low_bit.py:131"),
 )
+FLASH = [k[0] for k in KERNELS[:3]]
 # Kernel vs plain: bf16 outputs, and bf16 P / dS operands of the tensor-
 # core products where the plain version keeps fp32. Every 64-row tile of
 # every output must agree with the plain version's to attn.TILE_REL_TOL
@@ -72,6 +97,14 @@ WARMUP = 2
 GPT2 = dict(vocab_size=50257, max_seq_len=1024, num_layers=12, num_heads=12,
             d_model=768, attn_impl="pallas")
 BATCH, SEQ, STEPS = 16, 1024, 10
+# The JAX package's large preset (bench.py section_large) less remat,
+# which is a later slice of the port; the step fits 80 GB without it.
+XL = dataclasses.replace(GPTConfig.gpt2_xl(), remat=False,
+                         param_dtype=torch.bfloat16, attn_impl="pallas")
+XL_BATCH, XL_STEPS, XL_UNFUSED_STEPS, XL_LR = 4, 5, 2, 2e-4
+# fp32 operations per value of each 8-bit Adam kernel (its bound by
+# operations, under the bound by bytes by about 8x).
+ADAM8_OPS = {"adam8": 21, "adam8_fused": 23}
 
 
 def check(ok: bool, what: str):
@@ -81,6 +114,33 @@ def check(ok: bool, what: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def reset_counts():
+    attn.reset_launch_counts()
+    lowbit.reset_launch_counts()
+
+
+def read_counts():
+    return {**attn.LAUNCHES, **lowbit.LAUNCHES}
+
+
+def build_kernels():
+    """Both sources at once, one nvcc each; returns nvcc's seconds."""
+    t0 = time.perf_counter()
+    names = ("flash_attn", "adam8bit")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build.build, names)))
+    attn._lib()
+    lowbit._lib()
+    for name, (_, secs, ptxas) in built.items():
+        log(f"[build] {name}: nvcc {secs:.1f}s")
+        for line in ptxas.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all sources in {time.perf_counter() - t0:.1f}s with "
+        "loading")
 
 
 def qkv_do(gen, b, s, h=12, d=64):
@@ -257,56 +317,99 @@ def model_check(seed):
     check(abs(la - lb) <= 1e-2, f"loss {la} vs einsum path {lb}")
 
 
-def train(seed, steps):
-    cfg = GPTConfig(**GPT2)
+def train(label, cfg, optimizer, batch_size, steps, seed):
+    """``cfg`` from random weights (the seed) on one fixed batch through
+    ``Trainer.fit``: 2 warm-up steps, then a window of ``steps`` in which
+    every flash kernel runs once a layer a step, the fused 8-bit Adam
+    kernel its launches a step (none with AdamW), the unfused one never,
+    and the loss is finite and falls."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = GPT(cfg, device="cuda", generator=gen)
     batch = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)
+        0, cfg.vocab_size, (batch_size, SEQ), dtype=np.int64)
     rec = Record()
-    trainer = Trainer(model, adamw(3e-4), token_loss, batch,
+    trainer = Trainer(model, optimizer, token_loss, batch,
                       spec="auto", callbacks=[rec, LoggingCallback(every=5)])
     trainer.fit(iter([batch] * WARMUP), steps=WARMUP)  # outside the window
     first = float(rec.losses[0])
     rec.losses, rec.step_s = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = trainer.fit(iter([batch] * steps), steps=steps)
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
-    launches = dict(attn.LAUNCHES)
+    launches = read_counts()
     losses = [float(x) for x in rec.losses]
-    log(f"[train] loss at init {first}; window losses {losses}")
-    check(out["step"] == steps, f"fit stopped at {out['step']}")
+    log(f"[train {label}] loss at init {first}; window losses {losses}")
+    check(out["step"] == steps, f"{label}: fit stopped at {out['step']}")
+    per_step = getattr(trainer.state["opt"], "launches_per_step", 0)
+    want = {name: cfg.num_layers * steps for name in FLASH}
+    want.update(adam8=0, adam8_fused=per_step * steps)
     for name, count in launches.items():
-        check(count == cfg.num_layers * steps,
-              f"{name} launched {count} times, want {cfg.num_layers * steps}")
-    check(all(math.isfinite(x) for x in losses), "non-finite loss")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(count == want[name],
+              f"{label}: {name} launched {count} times, want {want[name]}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
     # End to end: every token of the window over its whole wall time,
     # fence to fence. The per-step median is the loop's own statistic.
-    tok_s = BATCH * SEQ * steps / window_s
+    tok_s = batch_size * SEQ * steps / window_s
     peak = device_peak_flops(torch.device("cuda"))
     stats = {
-        "steps": steps, "window_s": window_s,
+        "steps": steps, "batch": [batch_size, SEQ], "window_s": window_s,
         "step_ms": window_s / steps * 1e3, "tokens_per_s": tok_s,
         "mfu": mfu(tok_s, cfg.flops_per_token(), peak or PEAK_BF16),
         "median_step_gap_ms": statistics.median(rec.step_s) * 1e3,
         "flops_per_token": cfg.flops_per_token(),
+        "params": sum(p.numel() for p in model.parameters()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "first_loss": losses[0], "last_loss": losses[-1],
         "launches": launches,
     }
-    log("[train] " + json.dumps(stats))
-    return launches, trainer, batch
+    log(f"[train {label}] " + json.dumps(stats))
+    return launches, trainer, batch, stats["step_ms"]
 
 
-def profile_window(trainer, batch, steps=3):
+def train_unfused(trainer, batch, steps):
+    """More steps of the 8-bit Adam run through the optax-style contract:
+    gradients, ``update`` (the unfused kernel, once a leaf a step), then
+    apply; the fused kernel never runs."""
+    opt = trainer.state["opt"]
+    toks = torch.from_numpy(batch).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = []
+    for _ in range(steps):
+        lv = token_loss(trainer.module, None, toks)
+        lv.backward()
+        grads = {n: p.grad for n, p in opt.params.items()}
+        updates, _ = opt.tx.update(grads, opt.state, opt.params)
+        with torch.no_grad():
+            for n, p in opt.params.items():
+                p.add_(updates[n])
+                p.grad = None
+        losses.append(lv.detach())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    want = {name: XL.num_layers * steps for name in FLASH}
+    want.update(adam8=opt.launches_per_step * steps, adam8_fused=0)
+    log(f"[train gpt2-xl unfused] " + json.dumps(
+        {"steps": steps, "losses": losses, "launches": launches}))
+    for name, count in launches.items():
+        check(count == want[name],
+              f"unfused: {name} launched {count} times, want {want[name]}")
+    check(all(math.isfinite(x) for x in losses), "unfused: non-finite loss")
+    return launches
+
+
+def profile_window(label, trainer, batch, window_step_ms, steps=3):
     """Device time by kernel over ``steps`` more steps of the warm trainer
-    (torch.profiler, CUDA activity): the share of the window's wall time
-    the card spent in kernels, and the kernels grouped by what they do."""
+    (torch.profiler, CUDA activity): the share of the traced wall time the
+    card spent in kernels, the kernels' time over the step of the window
+    without the profiler (whose host-side tracing slows a step of many
+    small ops), and the kernels grouped by what they do."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -337,11 +440,12 @@ def profile_window(trainer, batch, steps=3):
             group = "elementwise / reductions"
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
-    log("[profile] " + json.dumps({
+    log(f"[profile {label}] " + json.dumps({
         "steps": steps,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "kernel_ms_per_step": total / steps / 1e3,
         "device_busy_share": total / wall_us,
+        "kernel_share_of_window_step": total / steps / 1e3 / window_step_ms,
         "groups_ms_per_step": {g: t / steps / 1e3 for g, t in
                                sorted(groups.items(), key=lambda x: -x[1])},
         "top_kernels_ms_per_step": [
@@ -349,6 +453,185 @@ def profile_window(trainer, batch, steps=3):
             for e in top
         ],
     }))
+
+
+# ------------------------------------------------------- 8-bit Adam
+
+
+def adam8_cases(gen):
+    """(label, grads, params, prior m, prior v, JAX leaf shape, hyper) of
+    each check, made one at a time: bf16 leaves of the 1.5B model's
+    shapes over a random prior state, and a crafted fp32 leaf."""
+    hp = lowbit._Hyper(XL_LR, 0.9, 0.999, 1e-8, 0.0, 256)
+
+    def rand(shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def leaf(label, member, layers=0):
+        shape = ((layers,) if layers else ()) + member
+        qm = lowbit._quantize_leaf(rand(shape, 1e-3, torch.float32), 256)
+        qv = lowbit._quantize_leaf(
+            rand(shape, 1e-3, torch.float32).abs(), 256)
+        n = max(layers, 1)
+        return (label, [rand(member, 1e-2) for _ in range(n)],
+                [rand(member, 2e-2) for _ in range(n)], qm, qv, shape, hp)
+
+    yield leaf("chunked [48, 1600, 4800]", (1600, 4800), 48)
+    yield leaf("wte [50257, 1600]", (50257, 1600))
+    yield leaf("ragged [777, 333]", (777, 333))
+    yield leaf("straddling bias [48, 4800]", (4800,), 48)
+    yield crafted_case()
+
+
+def crafted_case():
+    """A ragged fp32 leaf of 5 x 256 + 100 values: block 0 holds exact
+    round-half ties of m (b1 0.5, a fresh block, m = g / 2, absmax 127:
+    2.5 -> 2, -2.5 -> -2, 0.5 -> 0); block 1 is all zeros; in block 2 a
+    small |g| sits under a large one, so sqrt(v) rounds to 0 and the 0.5
+    floor decides; blocks 3-5 are random over a random state. Weight
+    decay 0.5 moves fp32 params by many ulps."""
+    rng = np.random.default_rng(0)
+    n = 5 * 256 + 100
+    g = rng.standard_normal(n).astype(np.float32)
+    g[:256] = rng.integers(-40, 40, 256) * 2
+    g[:4] = [254, 5, -5, 1]
+    g[256:512] = 0.0
+    g[512:768] = 1e-3
+    g[512] = 1.0
+    m = rng.standard_normal((6, 256)) * 0.1
+    s = np.abs(rng.standard_normal((6, 256))) * 0.3
+    m[:3], s[:3] = 0.0, 0.0
+    m[5, 100:], s[5, 100:] = 0.0, 0.0
+    cuda = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device="cuda")
+    return ("crafted tie / zero / floor blocks, fp32, wd 0.5", [cuda(g)],
+            [cuda(rng.standard_normal(n))], lowbit._quantize(cuda(m), 256),
+            lowbit._quantize(cuda(s), 256), (n,),
+            lowbit._Hyper(1e-2, 0.5, 0.999, 1e-8, 0.5, 256))
+
+
+def check_adam8(gen):
+    """Both kernels against the plain version, element by element, on
+    each case; returns the largest |err| of each kernel's output."""
+    errs = {"adam8": 0.0, "adam8_fused": 0.0}
+    limits = json.dumps(lowbit.ADAM8_LIMITS)
+    for label, g, p, qm, qv, shape, hp in adam8_cases(gen):
+        bc = 1 - torch.tensor([hp.b1, hp.b2], device="cuda") ** 3.0
+        for name, fused in (("adam8", False), ("adam8_fused", True)):
+            got, ref = lowbit.kernel_and_plain(g, qm, qv, bc, shape, hp,
+                                               p=p if fused else None)
+            torch.cuda.synchronize()
+            e = lowbit.adam8_errors(got, ref)
+            log(f"[kernels] {name} {label}: {json.dumps(e)} (limits: "
+                f"{limits}, out within one ulp + {lowbit.OUT_REL} relative)")
+            bad = lowbit.adam8_failures(e)
+            check(not bad, f"{name} {label}: {bad}")
+            errs[name] = max(errs[name], e["max_abs_err"])
+            del got, ref
+        del g, p, qm, qv
+        torch.cuda.empty_cache()
+    return errs
+
+
+def adam8_work(opt, paths):
+    """Bytes each 8-bit Adam kernel must move over ``paths`` (each input
+    read once, each output written once: g; p read and written, or u
+    written; both int8 moments and their per-block scales read and
+    written) and its fp32 operations; the bound is the larger time."""
+    out = {}
+    for name in ("adam8", "adam8_fused"):
+        nbytes = ops = 0
+        for path in paths:
+            leaf = opt._leaves[path]
+            values = math.prod(leaf.shape)
+            blocks = opt.state.m[path].scale.numel()
+            esize = opt.params[leaf.names[0]].element_size()
+            nbytes += values * esize * (3 if name == "adam8_fused" else 2)
+            nbytes += 2 * 2 * blocks * 256 + 2 * 2 * blocks * 4 + 8
+            ops += ADAM8_OPS[name] * values
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FP32
+        out[name] = {"bytes": nbytes, "ops": ops,
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
+
+
+def time_adam8(opt, seed):
+    """One whole step of each kernel over every leaf of the bound 1.5B
+    optimizer (its launches alone, on segments made beforehand; and
+    through the wrappers, with their host work and the gather / scatter
+    of the stacked biases and norms), the largest leaf alone, and the
+    plain version on the same leaves (block layout made outside the
+    timing); random bf16 gradients from the seed."""
+    hp = opt.tx.hp
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    grads = {n: (torch.randn(p.shape, generator=gen, device="cuda")
+                 * 1e-3).to(p.dtype) for n, p in opt.params.items()}
+    bc = 1 - torch.tensor([hp.b1, hp.b2], device="cuda") ** 3.0
+    paths = list(opt._leaves)
+    largest = max(paths, key=lambda k: math.prod(opt._leaves[k].shape))
+    members = {path: ([grads[n] for n in leaf.names],
+                      [opt.params[n] for n in leaf.names])
+               for path, leaf in opt._leaves.items()}
+    segs = {}
+    for path, leaf in opt._leaves.items():
+        g, p = members[path]
+        g_segs = lowbit._segments(g, leaf.shape)
+        segs[path] = (g_segs, lowbit._segments(p, leaf.shape),
+                      [torch.empty_like(t) for t in g_segs])
+
+    def launches(fused, which):
+        for path in which:
+            g_segs, p_segs, u_segs = segs[path]
+            lowbit._launch(fused, g_segs, p_segs if fused else u_segs,
+                           opt.state.m[path], opt.state.v[path], bc, hp)
+
+    def wrappers(fused, which):
+        for path in which:
+            leaf, (g, p) = opt._leaves[path], members[path]
+            qm, qv = opt.state.m[path], opt.state.v[path]
+            if fused:
+                lowbit.adam8_fused_update(g, p, qm, qv, bc, leaf.shape, hp)
+            else:
+                lowbit.adam8_update(g, qm, qv, bc, leaf.shape, hp)
+
+    out = {}
+    whole, alone = adam8_work(opt, paths), adam8_work(opt, [largest])
+    for name, fused in (("adam8", False), ("adam8_fused", True)):
+        out[name] = {
+            "ms": time_ms(lambda: launches(fused, paths), iters=5, warmup=1),
+            "wrapper_step_ms": time_ms(lambda: wrappers(fused, paths),
+                                       iters=5, warmup=1),
+            "largest_leaf_ms": time_ms(lambda: launches(fused, [largest]),
+                                       iters=5, warmup=1),
+            "plain_ms": 0.0, **whole[name],
+            "largest_leaf_bound_ms": alone[name]["bound_ms"],
+        }
+    del segs
+    for path in paths:
+        leaf = opt._leaves[path]
+        blocks = lambda ts: lowbit._blocks_of(  # noqa: E731
+            lowbit._leaf(ts, leaf.shape), 256)
+        gb, pb = blocks(members[path][0]), blocks(members[path][1])
+        qm, qv = opt.state.m[path], opt.state.v[path]
+        for name, fused in (("adam8", False), ("adam8_fused", True)):
+            ms = time_ms(lambda: lowbit._adam8_plain(
+                bc, gb, qm.q.view(-1, 256), qm.scale, qv.q.view(-1, 256),
+                qv.scale, lr=hp.lr, b1=hp.b1, b2=hp.b2, eps=hp.eps, wd=hp.wd,
+                pb=pb if fused else None), iters=2, warmup=1)
+            out[name]["plain_ms"] += ms
+            if path == largest:
+                out[name]["largest_leaf_plain_ms"] = ms
+        del gb, pb
+        torch.cuda.empty_cache()
+    out["largest_leaf"] = {"path": largest,
+                           "shape": list(opt._leaves[largest].shape)}
+    out["leaves"] = len(paths)
+    out["values"] = sum(math.prod(leaf.shape)
+                        for leaf in opt._leaves.values())
+    return out
 
 
 def main():
@@ -362,30 +645,51 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-
-    t0 = time.perf_counter()
-    _, nvcc_s = build.build("flash_attn")
-    attn._lib()
-    log(f"[build] flash_attn: nvcc {nvcc_s:.1f}s, "
-        f"{time.perf_counter() - t0:.1f}s with loading")
+    build_kernels()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     q, k, v, do = qkv_do(gen, BATCH, SEQ)
-    errs = compare(q, k, v, do, True, f"causal B{BATCH} S{SEQ}")
+    errs = compare(q, k, v, do, True, f"causal B{BATCH} H12 S{SEQ}")
+    xl_qkv = qkv_do(gen, XL_BATCH, SEQ, h=XL.num_heads)
+    for name, err in compare(*xl_qkv, True, f"causal B{XL_BATCH} "
+                             f"H{XL.num_heads} S{SEQ}").items():
+        errs[name] = max(errs[name], err)
     compare(*qkv_do(gen, 4, SEQ), False, f"non-causal B4 S{SEQ}")
     compare(*qkv_do(gen, 2, 1000), True, "causal ragged B2 S1000")
+    errs.update(check_adam8(gen))
 
     times, yard = time_kernels(q, k, v, do)
     bound = bounds(BATCH, SEQ, 12, 64, True)
-    log("[timing] " + json.dumps({"kernels": times, "bounds": bound,
+    log("[timing] " + json.dumps({"shape": f"B{BATCH} H12 S{SEQ}",
+                                  "kernels": times, "bounds": bound,
                                   "yardstick": yard}))
-    del q, k, v, do
+    xl_times, xl_yard = time_kernels(*xl_qkv)
+    log("[timing] " + json.dumps({
+        "shape": f"B{XL_BATCH} H{XL.num_heads} S{SEQ}", "kernels": xl_times,
+        "bounds": bounds(XL_BATCH, SEQ, XL.num_heads, 64, True),
+        "yardstick": xl_yard}))
+    del q, k, v, do, xl_qkv
     torch.cuda.empty_cache()
 
     model_check(args.seed)
-    launches, trainer, batch = train(args.seed, STEPS)
-    profile_window(trainer, batch)
+    windows = {}
+    windows["gpt2-124m"], trainer, batch, step_ms = train(
+        "gpt2-124m", GPTConfig(**GPT2), adamw(3e-4), BATCH, STEPS, args.seed)
+    profile_window("gpt2-124m", trainer, batch, step_ms)
     del trainer
+    torch.cuda.empty_cache()
+    windows["gpt2-xl"], trainer, batch, step_ms = train(
+        "gpt2-xl", XL, adam8bit(XL_LR), XL_BATCH, XL_STEPS, args.seed)
+    profile_window("gpt2-xl", trainer, batch, step_ms)
+    windows["gpt2-xl unfused"] = train_unfused(trainer, batch,
+                                               XL_UNFUSED_STEPS)
+    opt = trainer.state["opt"]
+    del trainer
+    torch.cuda.empty_cache()
+    adam8_times = time_adam8(opt, args.seed)
+    log("[timing] " + json.dumps({"adam8bit whole step": adam8_times}))
+    del opt
+    torch.cuda.empty_cache()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -394,15 +698,19 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(card)
     rows = []
-    for name, replaces in KERNELS:
+    for name, source, replaces in KERNELS:
+        launches = sum(w[name] for w in windows.values())
+        check(launches > 0, f"{name} never ran on the main path")
+        if name in FLASH:
+            t, b, lib = times[name], bound[name], times[name]["library_ms"]
+        else:  # no single PyTorch call computes blockwise 8-bit Adam
+            t, b, lib = adam8_times[name], adam8_times[name], None
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": times[name]["ms"],
-            "plain_ms": times[name]["plain_ms"],
-            "bound_ms": bound[name]["bound_ms"],
-            "bound_by": bound[name]["bound_by"],
-            "library_ms": times[name]["library_ms"],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": lib,
         })
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

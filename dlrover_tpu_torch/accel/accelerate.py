@@ -150,8 +150,11 @@ def auto_accelerate(
     ``optimizer`` is unbound (a ``params -> torch.optim.Optimizer``
     factory such as ``dlrover_tpu_torch.optim.adamw(lr)``, the analog of
     an optax transformation) or an optimizer already bound to
-    ``module``'s parameters. ``device`` defaults to this worker's card
-    and raises without CUDA; the CPU runs only when named.
+    ``module``'s parameters. A factory whose ``takes_named_parameters``
+    is true (``adam8bit``, whose state follows the JAX params tree by
+    name) is given ``module.named_parameters()``. ``device`` defaults to
+    this worker's card and raises without CUDA; the CPU runs only when
+    named.
     """
     dev = resolve_device(device)
     spec = _one_device_spec(spec)
@@ -162,7 +165,9 @@ def auto_accelerate(
         )
     module = module.to(dev)
     opt: Optional[torch.optim.Optimizer] = optimizer
-    if not isinstance(optimizer, torch.optim.Optimizer) and not hasattr(
+    if getattr(optimizer, "takes_named_parameters", False):
+        opt = optimizer(module.named_parameters())
+    elif not isinstance(optimizer, torch.optim.Optimizer) and not hasattr(
             optimizer, "update_and_apply"):
         opt = optimizer(module.parameters())
     state = {"params": dict(module.named_parameters()), "opt": opt,

@@ -2,8 +2,11 @@
 
 Same config, same parameters and the same numerics as the JAX model:
 
-- params fp32; Dense, embedding and the tied head compute in ``dtype``
-  (bf16 by default: the weight is cast, the product runs in bf16);
+- params in ``param_dtype`` (fp32 by default; the 1.5B preset trains
+  ``gpt2_xl`` with bf16 params); Dense, embedding and the tied head
+  compute in ``dtype`` (bf16 by default: the weight is cast, the product
+  runs in bf16);
+  LayerNorm's scale and bias join its fp32 arithmetic, as flax's do;
 - LayerNorm takes its statistics in fp32 (E[x^2] - E[x]^2, clipped at 0,
   as flax does) and casts its output to ``dtype``; the residual stream
   is ``dtype``; logits are upcast to fp32 only inside ``loss_fn``;
@@ -97,6 +100,13 @@ class GPTConfig:
     def tiny():
         return GPTConfig(vocab_size=256, max_seq_len=64, num_layers=2,
                          num_heads=2, d_model=32)
+
+    @staticmethod
+    def gpt2_xl():
+        """GPT-2 1.5B, the JAX package's large preset (``remat=True`` as
+        there; remat is a later slice of the port)."""
+        return GPTConfig(vocab_size=50257, max_seq_len=1024, num_layers=48,
+                         num_heads=25, d_model=1600, remat=True)
 
 
 def _check_supported(cfg: GPTConfig):

@@ -58,13 +58,14 @@ def nvcc_command(name: str, out: str) -> List[str]:
     ]
 
 
-def build(name: str) -> Tuple[str, float]:
+def build(name: str) -> Tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library path and the build seconds. Raises with nvcc's output when
-    the compile fails."""
+    library path, the build seconds and what ``ptxas -v`` printed (each
+    kernel's registers, shared memory and spills; empty when the library
+    was there). Raises with nvcc's output when the compile fails."""
     out = library_path(name)
     if os.path.exists(out):
-        return out, 0.0
+        return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -77,10 +78,10 @@ def build(name: str) -> Tuple[str, float]:
             f"nvcc failed for {name} (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    # ptxas -v: registers, shared memory and spills of every kernel.
-    logger.info("built %s in %.1fs\n%s", out, dt, proc.stderr.strip())
+    ptxas = proc.stderr.strip()
+    logger.info("built %s in %.1fs\n%s", out, dt, ptxas)
     os.replace(tmp, out)  # atomic: concurrent ranks never load half a file
-    return out, dt
+    return out, dt, ptxas
 
 
 def load_library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

@@ -3,13 +3,18 @@
 ``adamw`` is the counterpart of ``optax.adamw``: an unbound optimizer (a
 factory taking the parameters) with optax's defaults spelled out, since
 ``torch.optim.AdamW``'s differ (weight_decay 1e-2 there, 1e-4 in optax).
-It decays every parameter, as optax does. The 8-bit Adam and the other
-optimizers of ``dlrover_tpu/optim`` come in later slices.
+It decays every parameter, as optax does. ``adam8bit`` is the 8-bit
+blockwise Adam of ``dlrover_tpu/optim/low_bit.py`` on two CUDA kernels
+(``optim/low_bit.py``); it binds to named parameters and updates them
+in one fused pass. ``agd``, ``wsam``, ``bf16_master_weights`` and
+``offload`` come in later slices.
 """
 
 import functools
 
 import torch
+
+from dlrover_tpu_torch.optim.low_bit import adam8bit  # noqa: F401
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -19,3 +24,6 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         torch.optim.AdamW, lr=learning_rate, betas=(b1, b2), eps=eps,
         weight_decay=weight_decay,
     )
+
+
+__all__ = ["adam8bit", "adamw"]

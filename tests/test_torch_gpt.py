@@ -35,11 +35,13 @@ JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def configs(dt, attn, scan=True):
+def configs(dt, attn, scan=True, param_dt="float32"):
     base = dict(vocab_size=256, max_seq_len=64, num_layers=2, num_heads=2,
                 d_model=32, attn_impl=attn, scan_layers=scan)
-    return (JaxConfig(**base, dtype=JAX_DT[dt]),
-            GPTConfig(**base, dtype=TORCH_DT[dt]))
+    return (JaxConfig(**base, dtype=JAX_DT[dt],
+                      param_dtype=JAX_DT[param_dt]),
+            GPTConfig(**base, dtype=TORCH_DT[dt],
+                      param_dtype=TORCH_DT[param_dt]))
 
 
 def tokens(seed=0, b=2, s=64, vocab=256):
@@ -62,7 +64,19 @@ def port_model(cfg, tree):
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("attn", ["xla", "pallas"])
 def test_logits_loss_and_grads_match_jax(dt, attn):
-    jcfg, tcfg = configs(dt, attn)
+    check_against_jax(*configs(dt, attn), dt)
+
+
+@pytest.mark.parametrize("attn", ["xla", "pallas"])
+def test_bf16_params_match_jax(attn):
+    """The 1.5B preset's param dtype: bf16 weights, LayerNorm scale and
+    bias joining the fp32 normalisation (flax promotes them, the port
+    calls ``.float()``), bf16 gradients."""
+    jcfg, tcfg = configs("bfloat16", attn, param_dt="bfloat16")
+    check_against_jax(jcfg, tcfg, "bfloat16")
+
+
+def check_against_jax(jcfg, tcfg, dt):
     toks = tokens()
     tree = jax_params(jcfg, toks)
     jmodel = JaxGPT(jcfg)
@@ -93,9 +107,10 @@ def test_logits_loss_and_grads_match_jax(dt, attn):
     got = {n: p.grad for n, p in model.named_parameters()}
     assert set(got) == set(want)
     for name, g in got.items():
+        assert g.dtype == want[name].dtype == tcfg.param_dtype
         np.testing.assert_allclose(
-            g.numpy(), want[name].numpy(), rtol=tol["grads"],
-            atol=tol["grads"], err_msg=name,
+            g.float().numpy(), want[name].float().numpy(),
+            rtol=tol["grads"], atol=tol["grads"], err_msg=name,
         )
 
 
@@ -114,6 +129,23 @@ def test_converter_round_trips_bit_exactly(scan):
     model = port_model(tcfg, tree)
     for name, value in model.state_dict().items():
         assert torch.equal(value, sd[name]), name
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_converter_round_trips_bf16_bit_exactly(scan):
+    jcfg, tcfg = configs("bfloat16", "xla", scan=scan, param_dt="bfloat16")
+    tree = jax_params(jcfg, tokens(seed=2))
+    sd = params_from_flax(tree)
+    assert all(v.dtype == torch.bfloat16 for v in sd.values())
+    back = flax_from_params(sd, stacked=scan)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        assert flat_b[path].dtype == leaf.dtype
+        np.testing.assert_array_equal(flat_b[path].view(np.int16),
+                                      leaf.view(np.int16))
+    model = port_model(tcfg, tree)
+    for name, value in model.state_dict().items():
+        assert torch.equal(value.view(torch.int16), sd[name].view(torch.int16))
 
 
 def test_unstacked_and_stacked_trees_load_alike():

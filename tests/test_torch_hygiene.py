@@ -56,6 +56,8 @@ def test_no_jax_or_reference_package_imports(path):
 def test_walk_sees_the_whole_package():
     names = {os.path.relpath(p, REPO) for p in port_sources()}
     assert "dlrover_tpu_torch/ops/attention.py" in names
+    assert "dlrover_tpu_torch/optim/low_bit.py" in names
+    assert "dlrover_tpu_torch/models/convert.py" in names
     assert "dlrover_tpu_torch/train/trainer.py" in names
     assert "chip_smoke.py" in names
 
@@ -98,6 +100,23 @@ def test_build_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and cmd[-1] == build.source_path("flash_attn")
     assert os.path.exists(cmd[-1])
+
+
+def test_adam8bit_kernels_have_a_source():
+    cmd = build.nvcc_command("adam8bit", "/dev/null")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert os.path.exists(cmd[-1])
+
+
+def test_adam8bit_raises_on_a_non_cuda_device():
+    from dlrover_tpu_torch.optim import low_bit
+
+    g = torch.zeros(4, device="meta")
+    state = low_bit.QTensor(torch.zeros(1, 256, dtype=torch.int8),
+                            torch.zeros(1))
+    with pytest.raises(ValueError, match="no adam8bit kernel"):
+        low_bit.adam8_update([g], state, state, torch.ones(2), (4,),
+                             low_bit._Hyper(1e-3, 0.9, 0.999, 1e-8, 0.0, 256))
 
 
 def test_library_name_follows_the_source():

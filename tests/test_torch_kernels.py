@@ -1,12 +1,16 @@
 """The CUDA kernels of the port against their plain PyTorch versions,
-and the check that holds them there.
+and the checks that hold them there.
 
-``test_cuda_kernels_match_plain`` needs an NVIDIA card with ``nvcc`` (a
-CUDA kernel has no CPU mode) and skips without one. The other tests run
-on the CPU: they emulate a kernel's arithmetic in PyTorch, once right
-and once with a wrong mask, and show that ``tile_rel_err`` passes the
-first within ``TILE_REL_TOL`` and fails the second. The file imports no
-JAX, so it also runs on a machine without it:
+The ``gpu``-marked tests need an NVIDIA card with ``nvcc`` (a CUDA
+kernel has no CPU mode) and skip without one. The other tests run on
+the CPU: they emulate a kernel's arithmetic in PyTorch, once right and
+once with a planted fault, and show that the check passes the first and
+fails the second: ``tile_rel_err`` against ``TILE_REL_TOL`` for flash
+attention (a wrong mask), ``adam8_errors`` against ``ADAM8_LIMITS`` for
+the 8-bit Adam kernels (a neighbouring block's scale, the 0.5 floor
+dropped, round half away from zero, weight decay dropped, the padded
+tail in a block's absmax). The file imports no JAX, so it also runs on
+a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 """
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from dlrover_tpu_torch.ops import attention as port
+from dlrover_tpu_torch.optim import low_bit as lowbit
 
 
 def inputs(s, seed=0, b=2, h=2, d=64):
@@ -153,3 +158,163 @@ def test_tile_rel_err_ragged_and_tile_local():
     got[1, 99, 2, 0] += 8.0  # the ragged last tile holds 36 rows
     assert port.tile_rel_err(got, ref) == pytest.approx(
         8.0 / math.sqrt(36 * 64))
+
+
+# ------------------------------------------- 8-bit Adam kernels
+
+HP = lowbit._Hyper(lr=1e-2, b1=0.5, b2=0.999, eps=1e-8, wd=0.5, block=256)
+TAIL = 100  # valid values in the case's last block
+
+
+def adam8_case(dtype=torch.float32, seed=0):
+    """One ragged leaf of 5 * 256 + TAIL values whose blocks hold what
+    random data never hits: 0, an exact round-half tie of m (b1 = 0.5, a
+    fresh block, m = g / 2, absmax 127: 2.5 -> 2); 1, all zeros; 2, a
+    small |g| under a large one, so sqrt(v) rounds to 0 and the 0.5
+    floor decides the update; 3-5, random values over a random state.
+    fp32 params by default, so that weight decay (1 - lr * wd = 0.995)
+    is many ulps: in bf16 it would be under one."""
+    rng = np.random.default_rng(seed)
+    n = 5 * 256 + TAIL
+    g = rng.standard_normal(n).astype(np.float32)
+    g[:256] = rng.integers(-40, 40, 256) * 2
+    g[:4] = [254, 5, -5, 1]
+    g[256:512] = 0.0
+    g[512:768] = 1e-3
+    g[512] = 1.0
+    p = rng.standard_normal(n).astype(np.float32)
+    m = rng.standard_normal((6, 256)).astype(np.float32) * 0.1
+    s = np.abs(rng.standard_normal((6, 256))).astype(np.float32) * 0.3
+    m[:3], s[:3] = 0.0, 0.0  # blocks 0-2 start fresh
+    m[5, TAIL:], s[5, TAIL:] = 0.0, 0.0  # the padding stays zero
+    qm = lowbit._quantize(torch.from_numpy(m), 256)
+    qv = lowbit._quantize(torch.from_numpy(s), 256)
+    bc = torch.tensor([1 - 0.5 ** 3, 1 - 0.999 ** 3])
+    return (torch.from_numpy(g).to(dtype), torch.from_numpy(p).to(dtype),
+            qm, qv, bc)
+
+
+def emulated_adam8(bc, gb, mq, msc, sq, ssc, pb=None, fault=None):
+    """The kernels' arithmetic on block-layout inputs, fp32 operation by
+    operation, with one planted ``fault`` (or none)."""
+    c = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    if fault == "neighbour_scale":  # a block reads the next block's scales
+        msc, ssc = msc.roll(-1), ssc.roll(-1)
+    g = gb.float()
+    if fault == "tail_in_absmax":  # reads past the leaf's end
+        g = g.clone()
+        g.view(-1)[5 * 256 + TAIL:] = 3.0
+    decay = 1.0 if fault == "no_weight_decay" else 1.0 - HP.lr * HP.wd
+    sqrt_bc2 = torch.sqrt(bc[1])
+    lr_eff = c(-HP.lr) * sqrt_bc2 / bc[0]
+    eps_eff = c(HP.eps) * sqrt_bc2
+    m = mq.float() * (msc[:, None] * c(HP.b1 / 127)) + c(1 - HP.b1) * g
+    sp = sq.float() * (ssc[:, None] / c(127.0))
+    s = torch.sqrt(c(HP.b2) * sp * sp + c(1 - HP.b2) * g * g)
+    amax_m = m.abs().amax(1, keepdim=True)
+    amax_s = s.amax(1, keepdim=True)
+    r_m = torch.where(amax_m == 0, c(1.0), c(127.0) / amax_m)
+    r_s = torch.where(amax_s == 0, c(1.0), c(127.0) / amax_s)
+    q2 = torch.floor(s * r_s + c(0.5))
+    floor = c(0.0) if fault == "no_floor" else c(0.5)
+    denom = torch.maximum(q2, floor) * (amax_s / c(127.0))
+    u = lr_eff * m / (denom + eps_eff)
+    out = u.to(gb.dtype) if pb is None else \
+        (pb.float() * c(decay) + u).to(pb.dtype)
+    x = m * r_m
+    if fault == "roundf":  # half away from zero
+        qm2 = torch.sign(x) * torch.floor(x.abs() + c(0.5))
+    else:
+        qm2 = torch.round(x)
+    return (out, qm2.to(torch.int8), amax_m.reshape(-1),
+            q2.to(torch.int8), amax_s.reshape(-1))
+
+
+def plain_on_case(case, fused):
+    g, p, qm, qv, bc = case
+    blocks = lambda x: lowbit._blocks_of(x, 256)  # noqa: E731
+    return (blocks(g), qm.q, qm.scale, qv.q, qv.scale,
+            blocks(p) if fused else None), lowbit._adam8_plain(
+        bc, blocks(g), qm.q, qm.scale, qv.q, qv.scale, lr=HP.lr, b1=HP.b1,
+        b2=HP.b2, eps=HP.eps, wd=HP.wd,
+        pb=blocks(p) if fused else None)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["update", "fused"])
+def test_adam8_check_passes_the_kernel_arithmetic(fused):
+    """The emulation without a fault is the plain version, bit for bit;
+    the case's crafted blocks come out as designed."""
+    (gb, mq, msc, sq, ssc, pb), ref = plain_on_case(adam8_case(), fused)
+    got = emulated_adam8(torch.tensor([1 - 0.5 ** 3, 1 - 0.999 ** 3]),
+                         gb, mq, msc, sq, ssc, pb)
+    errs = lowbit.adam8_errors(got, ref)
+    assert not lowbit.adam8_failures(errs), errs
+    assert errs["max_abs_err"] == 0.0
+    out, mq2, msc2, sq2, ssc2 = ref
+    assert mq2[0, :4].tolist() == [127, 2, -2, 0]  # half to even
+    assert msc2[1] == ssc2[1] == 0 and not mq2[1].any()  # zero block
+    assert sq2[2, 1:].eq(0).all()  # the floor decides
+    assert not mq2[5, TAIL:].any() and not sq2[5, TAIL:].any()
+
+
+FAULTS = {
+    "neighbour_scale": (False, True),
+    "no_floor": (False, True),
+    "roundf": (False, True),
+    "tail_in_absmax": (False, True),
+    "no_weight_decay": (True,),  # weight decay is inside the fused kernel
+}
+
+
+@pytest.mark.parametrize("fault,fused", [
+    (f, fused) for f, forms in FAULTS.items() for fused in forms])
+def test_adam8_check_rejects_a_faulty_kernel(fault, fused):
+    (gb, mq, msc, sq, ssc, pb), ref = plain_on_case(adam8_case(), fused)
+    got = emulated_adam8(torch.tensor([1 - 0.5 ** 3, 1 - 0.999 ** 3]),
+                         gb, mq, msc, sq, ssc, pb, fault=fault)
+    assert lowbit.adam8_failures(lowbit.adam8_errors(got, ref))
+
+
+def test_adam8_ulp():
+    x = torch.tensor([1.0, 1.5, -3.0, 0.0])
+    assert lowbit._ulp(x).tolist() == [2 ** -23, 2 ** -23, 2 ** -22,
+                                       torch.finfo(torch.float32).tiny]
+    assert lowbit._ulp(x.bfloat16()).tolist()[:3] == [2 ** -7, 2 ** -7,
+                                                      2 ** -6]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("fused", [False, True], ids=["update", "fused"])
+def test_adam8_kernels_match_plain(cuda_device, dtype, fused):
+    """Each kernel against the plain version: the crafted ragged leaf,
+    a chunked stacked leaf (one tensor per layer), a flat stacked leaf
+    whose blocks straddle layers (gathered), and a chunked leaf of more
+    layers than one launch walks (two launches)."""
+    g, p, qm, qv, bc = (x.to(cuda_device) if isinstance(x, torch.Tensor)
+                        else lowbit.QTensor(*(t.to(cuda_device) for t in x))
+                        for x in adam8_case(dtype))
+    rng = np.random.default_rng(9)
+    layers = lambda shape, n: [  # noqa: E731
+        torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                     device=cuda_device) for _ in range(n)]
+    leaves = [([g], [p], qm, qv, tuple(g.shape))]
+    many = lowbit.MAX_SEGMENTS + 6
+    for n, shape in ((3, (40, 70)), (3, (96,)), (many, (8, 40))):
+        full = (n,) + shape
+        state = lowbit._quantize_leaf(
+            torch.tensor(rng.standard_normal(full), dtype=torch.float32,
+                         device=cuda_device) * 0.1, 256)
+        sq = lowbit._quantize_leaf(torch.zeros(full, device=cuda_device) +
+                                   0.2, 256)
+        leaves.append((layers(shape, n), layers(shape, n), state, sq, full))
+    lowbit.reset_launch_counts()
+    for gs, ps, m, v, shape in leaves:
+        got, ref = lowbit.kernel_and_plain(gs, m, v, bc, shape, HP,
+                                           p=ps if fused else None)
+        torch.cuda.synchronize()
+        errs = lowbit.adam8_errors(got, ref)
+        assert not lowbit.adam8_failures(errs), (shape, errs)
+    assert lowbit.LAUNCHES == {"adam8": 0 if fused else 5,
+                               "adam8_fused": 5 if fused else 0}
