@@ -9,23 +9,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card:
    flash attention at the GPT-2 124M shape (batch*heads 16*12, seq 1024,
-   head_dim 64, bf16, causal), at GPT-2 xl's (4*25), non-causal and at a
-   ragged sequence; 8-bit Adam, unfused and fused, element by element,
+   head_dim 64, bf16, causal) and at GPT-2 xl's (4*25), each on
+   contiguous q/k/v and on the model's layout (views of one fused
+   [B, S, 3 H D] tensor), non-causal, at a ragged sequence and at S 192
+   (a half-empty 128-row block); 8-bit Adam, unfused and fused, element by element,
    on a chunked [48, 1600, 4800] leaf, the [50257, 1600] embedding, a
    ragged leaf, a flat stacked bias whose blocks straddle layers and a
    leaf of crafted blocks (a rounding tie, all zeros, the 0.5 floor);
-3. time each flash kernel, its plain version and, as yardsticks the port
-   never calls, PyTorch's scaled_dot_product_attention and ATen's flash
-   backward; compute each kernel's bound from its bytes and FLOPs;
+3. time each flash kernel at both shapes and both layouts, twice: its
+   launches alone (no host work) and through its wrapper; its plain
+   version and, as yardsticks the port never calls, PyTorch's
+   scaled_dot_product_attention and ATen's flash backward; compute each
+   kernel's bound from its bytes and FLOPs;
 4. check the GPT's kernel path against its einsum path on a small input,
    then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
    the seed, one fixed batch, AdamW) through ``Trainer.fit``: 2 warm-up
    steps, then a window of 10 whose tokens over its wall time, fence to
    fence, give tokens/s; check that every flash kernel ran 12 times a
    step in the window and that the loss is finite and falls; then trace
-   3 more steps with torch.profiler: device time by kernel group, the
-   card's busy share of the traced time and the kernels' time over the
-   window's step;
+   3 more steps with torch.profiler: device time by kernel group, each
+   flash kernel's device ms per launch, the card's busy share of the
+   traced time and the kernels' time over the window's step;
 5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024) with the
    port's fused ``adam8bit(2e-4)`` the same way (2 warm-up steps, a
    window of 5, 3 traced): every flash kernel 48 times a step, the fused
@@ -86,8 +90,10 @@ FLASH = [k[0] for k in KERNELS[:3]]
 # Kernel vs plain: bf16 outputs, and bf16 P / dS operands of the tensor-
 # core products where the plain version keeps fp32. Every 64-row tile of
 # every output must agree with the plain version's to attn.TILE_REL_TOL
-# (1e-2) in the Frobenius norm, and the fp32 logsumexp to LSE_TOL.
-LSE_TOL = 1e-3
+# (1e-2) in the Frobenius norm, and the fp32 logsumexp to attn.LSE_TOL
+# (1e-3).
+# Launches a flash kernel is timed over (alone, and through its wrapper).
+LAUNCH_ITERS = 100
 # The GPT's kernel path against its einsum path: the Frobenius norm of
 # the logits' difference over that of the einsum path's logits. The two
 # paths round P to bf16 at different places; two layers of bf16 compute
@@ -137,7 +143,7 @@ def build_kernels():
         log(f"[build] {name}: nvcc {secs:.1f}s")
         for line in ptxas.splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill")):
+                                       "spill", "setmaxnreg", "wgmma")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s with "
         "loading")
@@ -149,6 +155,15 @@ def qkv_do(gen, b, s, h=12, d=64):
             torch.bfloat16)
         for _ in range(4)
     )
+
+
+def fused_qkv(q, k, v, do):
+    """q, k and v as views of one [B, S, 3 H D] tensor, as the model's
+    attention block passes them (row stride 3 H D); dO as it is."""
+    b, s, h, d = q.shape
+    qkv = torch.cat([x.reshape(b, s, h * d) for x in (q, k, v)], dim=-1)
+    return tuple(x.unflatten(-1, (h, d))
+                 for x in qkv.split(h * d, dim=-1)) + (do,)
 
 
 def run_kernels(q, k, v, do, causal):
@@ -184,9 +199,9 @@ def compare(q, k, v, do, causal, label):
     report["lse"] = {"max_abs_err": (lse - lse_ref).abs().max().item()}
     log(f"[kernels] {label}: " + json.dumps(report)
         + f" (limits: tile_rel_err <= {attn.TILE_REL_TOL}, lse max_abs_err"
-        f" <= {LSE_TOL})")
+        f" <= {attn.LSE_TOL})")
     for out, r in report.items():
-        limit = LSE_TOL if out == "lse" else attn.TILE_REL_TOL
+        limit = attn.LSE_TOL if out == "lse" else attn.TILE_REL_TOL
         err = r["max_abs_err"] if out == "lse" else r["tile_rel_err"]
         check(err <= limit, f"{out} {label}: error {err} > {limit}")
     return errs
@@ -234,10 +249,32 @@ def bounds(b, s, h, d, causal):
     return out
 
 
-def time_kernels(q, k, v, do):
+def launchers(q, k, v, do, lse, delta, causal):
+    """Each flash kernel's launch alone, on outputs made here: its C entry
+    bound to the pointers and strides, no checks, no count."""
+    new = lambda t: torch.empty(t.shape, dtype=t.dtype,  # noqa: E731
+                                device=t.device)
+    o, dq, dk, dv, lse_out = new(q), new(q), new(k), new(v), new(lse)
+    return {
+        "flash_fwd": attn._launcher("flash_fwd_bf16", q, k, {
+            "ptrs": (q, k, v, o, lse_out), "strided": (q, k, v, o)},
+            causal),
+        "flash_bwd_dq": attn._launcher("flash_bwd_dq_bf16", q, k, {
+            "ptrs": (q, k, v, do, lse, delta, dq),
+            "strided": (q, k, v, do, dq)}, causal),
+        "flash_bwd_dkv": attn._launcher("flash_bwd_dkv_bf16", q, k, {
+            "ptrs": (q, k, v, do, lse, delta, dk, dv),
+            "strided": (q, k, v, do, dk, dv)}, causal),
+    }
+
+
+def time_kernels(q, k, v, do, yardsticks=True):
+    """Each flash kernel's ms a launch, alone (``ms``) and through its
+    wrapper (``wrapper_ms``), over LAUNCH_ITERS launches; with
+    ``yardsticks``, also its plain version and the library calls."""
     causal = True
     _, lse, delta, *_ = run_kernels(q, k, v, do, causal)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    alone = launchers(q, k, v, do, lse, delta, causal)
     fns = {
         "flash_fwd": (
             lambda: attn.flash_fwd(q, k, v, causal),
@@ -253,12 +290,20 @@ def time_kernels(q, k, v, do):
         ),
     }
     out = {}
-    for name, (kernel, plain) in fns.items():
-        out[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, 3, 1)}
+    for name, (wrapper, plain) in fns.items():
+        out[name] = {
+            "ms": time_ms(alone[name], LAUNCH_ITERS, 5),
+            "wrapper_ms": time_ms(wrapper, LAUNCH_ITERS, 5),
+        }
+        if yardsticks:
+            out[name]["plain_ms"] = time_ms(plain, 3, 1)
+    if not yardsticks:
+        return out, None
     # Yardstick only: PyTorch's fused attention on the same inputs.
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out["flash_fwd"]["library_ms"] = time_ms(
-        lambda: sdpa(qt, kt, vt, is_causal=True))
+        lambda: sdpa(qt, kt, vt, is_causal=True), LAUNCH_ITERS, 5)
     leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
     dot = do.transpose(1, 2)
 
@@ -271,7 +316,8 @@ def time_kernels(q, k, v, do):
     fo, flse, cq, ck, mq, mk, seed, offset, _ = \
         aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
     bwd_ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-        dot, qt, kt, vt, fo, flse, cq, ck, mq, mk, 0.0, True, seed, offset))
+        dot, qt, kt, vt, fo, flse, cq, ck, mq, mk, 0.0, True, seed, offset),
+        LAUNCH_ITERS, 5)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         out[name]["library_ms"] = bwd_ms
     yard = {"sdpa_fwd_ms": out["flash_fwd"]["library_ms"],
@@ -439,6 +485,15 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
         else:
             group = "elementwise / reductions"
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total
+    per_launch = {}
+    for name, entry in (("flash_fwd", "::fwd_kernel("),
+                        ("flash_bwd_dq", "::bwd_dq_kernel("),
+                        ("flash_bwd_dkv", "::bwd_dkv_kernel(")):
+        hits = [e for e in kernels if entry in e.key]
+        launches = sum(e.count for e in hits)
+        if launches:
+            per_launch[name] = sum(
+                e.self_device_time_total for e in hits) / launches / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
     log(f"[profile {label}] " + json.dumps({
         "steps": steps,
@@ -448,6 +503,7 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
         "kernel_share_of_window_step": total / steps / 1e3 / window_step_ms,
         "groups_ms_per_step": {g: t / steps / 1e3 for g, t in
                                sorted(groups.items(), key=lambda x: -x[1])},
+        "flash_device_ms_per_launch": per_launch,
         "top_kernels_ms_per_step": [
             [e.key[:90], e.self_device_time_total / steps / 1e3, e.count]
             for e in top
@@ -648,27 +704,31 @@ def main():
     build_kernels()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    q, k, v, do = qkv_do(gen, BATCH, SEQ)
-    errs = compare(q, k, v, do, True, f"causal B{BATCH} H12 S{SEQ}")
-    xl_qkv = qkv_do(gen, XL_BATCH, SEQ, h=XL.num_heads)
-    for name, err in compare(*xl_qkv, True, f"causal B{XL_BATCH} "
-                             f"H{XL.num_heads} S{SEQ}").items():
-        errs[name] = max(errs[name], err)
+    shapes = {"gpt2-124m": (BATCH, 12), "gpt2-xl": (XL_BATCH, XL.num_heads)}
+    flash_inputs, errs = {}, {name: 0.0 for name in FLASH}
+    for label, (b, h) in shapes.items():
+        flash_inputs[label] = qkv_do(gen, b, SEQ, h=h)
+        for layout, x in (("contiguous", flash_inputs[label]),
+                          ("fused qkv", fused_qkv(*flash_inputs[label]))):
+            for name, err in compare(*x, True, f"causal B{b} H{h} S{SEQ} "
+                                     f"{layout}").items():
+                errs[name] = max(errs[name], err)
     compare(*qkv_do(gen, 4, SEQ), False, f"non-causal B4 S{SEQ}")
     compare(*qkv_do(gen, 2, 1000), True, "causal ragged B2 S1000")
+    compare(*qkv_do(gen, 2, 192), True, "causal B2 S192")
     errs.update(check_adam8(gen))
 
-    times, yard = time_kernels(q, k, v, do)
-    bound = bounds(BATCH, SEQ, 12, 64, True)
-    log("[timing] " + json.dumps({"shape": f"B{BATCH} H12 S{SEQ}",
-                                  "kernels": times, "bounds": bound,
-                                  "yardstick": yard}))
-    xl_times, xl_yard = time_kernels(*xl_qkv)
-    log("[timing] " + json.dumps({
-        "shape": f"B{XL_BATCH} H{XL.num_heads} S{SEQ}", "kernels": xl_times,
-        "bounds": bounds(XL_BATCH, SEQ, XL.num_heads, 64, True),
-        "yardstick": xl_yard}))
-    del q, k, v, do, xl_qkv
+    timing = {}
+    for label, (b, h) in shapes.items():
+        x = flash_inputs.pop(label)
+        timing[label], yard = time_kernels(*x)
+        fused_times, _ = time_kernels(*fused_qkv(*x), yardsticks=False)
+        log("[timing] " + json.dumps({
+            "shape": f"{label}: B{b} H{h} S{SEQ}", "kernels": timing[label],
+            "kernels_fused_qkv": fused_times,
+            "bounds": bounds(b, SEQ, h, 64, True), "yardstick": yard}))
+        del x
+    times, bound = timing["gpt2-124m"], bounds(BATCH, SEQ, 12, 64, True)
     torch.cuda.empty_cache()
 
     model_check(args.seed)

@@ -14,8 +14,10 @@ Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
 the plain PyTorch version beside it (``_fwd_plain``, ``_bwd_dq_plain``,
 ``_bwd_dkv_plain``) only for a tensor on the CPU. The plain versions
 repeat the TPU kernels' arithmetic in fp32 and are the kernels' oracle.
-The kernels take bf16 with head_dim 64, read the inputs through their
-strides, and use 64 x 64 tiles whatever ``block_q``/``block_k`` say.
+The kernels take bf16 with head_dim 64 and read the inputs through
+their strides (the forward and dK/dV through TMA maps built from them);
+their tiles are their own (128 x 128 forward, 128 kv x 64 q dK/dV, 64 x
+64 dQ), whatever ``block_q``/``block_k`` say.
 
 The causal mask is the kernels': rows >= cols, aligned top-left. The
 JAX package's ``reference_attention`` aligns it bottom-right instead;
@@ -122,6 +124,8 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 #: A kernel's output may differ from its plain version's by at most this
 #: share of the reference, in the Frobenius norm of every 64-row tile.
 TILE_REL_TOL = 1e-2
+#: ... and its fp32 logsumexp by at most this, element by element.
+LSE_TOL = 1e-3
 
 
 def tile_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -186,9 +190,17 @@ def _check(q, k, v):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read 16-byte rows: head_dim stride 1, other strides
-    multiples of 8 elements, a 16-byte aligned base. Copy otherwise."""
-    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
-            or t.data_ptr() % 16):
+    positive multiples of 8 elements, a 16-byte aligned base. Their TMA
+    maps also want each of H, S, B to step over the whole extent of the
+    dimension inside it (a view of a fused qkv tensor does). Copy
+    otherwise."""
+    nested = all(size == 1 or outer >= inner * inner_size
+                 for size, outer, inner, inner_size in (
+                     (t.shape[2], t.stride(2), 1, t.shape[3]),
+                     (t.shape[1], t.stride(1), t.stride(2), t.shape[2]),
+                     (t.shape[0], t.stride(0), t.stride(1), t.shape[1])))
+    if (t.stride(-1) != 1 or any(s <= 0 or s % 8 for s in t.stride()[:3])
+            or t.data_ptr() % 16 or not nested):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 
@@ -198,17 +210,28 @@ def _strides(*ts) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(entry: str, counter: str, q, k, tensors, causal: bool):
+def _launcher(entry: str, q, k, tensors, causal: bool):
+    """The C entry bound to these tensors' pointers and strides and the
+    current stream: each call launches the kernel with no further host
+    work (and counts nothing), or raises."""
     b, sq, h, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(_lib(), entry)(
-            *[t.data_ptr() for t in tensors["ptrs"]],
+    fn = getattr(_lib(), entry)
+    args = (*[t.data_ptr() for t in tensors["ptrs"]],
             b, h, sq, k.shape[1], d, _strides(*tensors["strided"]),
-            1.0 / math.sqrt(d), int(causal), stream,
-        )
-    if err:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
+            1.0 / math.sqrt(d), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
+
+    return launch
+
+
+def _launch(entry: str, counter: str, q, k, tensors, causal: bool):
+    with torch.cuda.device(q.device):
+        _launcher(entry, q, k, tensors, causal)()
     LAUNCHES[counter] += 1
 
 
@@ -319,7 +342,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
     """Flash attention over [B, S, H, D] inputs (differentiable).
 
     ``block_q``/``block_k`` are the JAX package's TPU tile hints, kept
-    so model configs carry over; the CUDA kernels use 64 x 64 tiles.
+    so model configs carry over; the CUDA kernels choose their own.
     """
     del block_q, block_k
     return FlashAttentionFunction.apply(q, k, v, causal)

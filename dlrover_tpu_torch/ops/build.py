@@ -2,8 +2,9 @@
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled on
 its first use into ``build/kernels/lib<name>-<hash>.so`` beside the
-package (a directory git ignores); the hash of the source names the
-library, so an edited source is rebuilt and a built one is reused. No
+package (a directory git ignores); the hash of the source and of the
+headers it includes (``csrc/*.cuh``) names the library, so an edited
+source or header is rebuilt and a built one is reused. No
 PyTorch header is compiled, so a build takes seconds. Nothing is built
 when a module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -12,6 +13,7 @@ machine without ``nvcc``.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +29,7 @@ BUILD_DIR = os.path.join(
     "build", "kernels",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -43,10 +46,29 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    directly or through another header, in the order first met."""
+    found, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), inc)
+                 for inc in _QUOTED_INCLUDE.findall(text)]
+    return found
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and headers."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def nvcc_command(name: str, out: str) -> List[str]:

@@ -9,29 +9,68 @@
 // fp32 running max m, row sum l and output accumulator; masked scores are
 // -1e30 and their probabilities exactly 0; a row with l == 0 divides by 1;
 // the causal mask is rows >= cols aligned top-left; backward recomputes P
-// from the forward's logsumexp and takes dS = P * (dP - delta), with
-// delta = rowsum(dO * O) computed by the caller. dQ and dK/dV stay two
-// passes, as in the reference, so no atomics are needed.
+// from the forward's logsumexp (fp32 [B*H, S], natural log, m + log(l))
+// and takes dS = P * (dP - delta), with delta = rowsum(dO * O) computed by
+// the caller; P and dS are rounded to bf16 only as operands of their
+// tensor-core products. dQ and dK/dV stay two passes, as in the
+// reference, so no atomics are needed.
 //
 // What bounds them on an H100: at the GPT-2 shape (B*H = 192, S = 1024,
 // D = 64, causal) the forward does 25.8 GFLOP on 101 MB (q, k, v, o,
-// lse), 254 FLOP/byte: just under the card's ~295 FLOP/byte ridge, so
-// its bound is the bytes (0.030 ms); the backward passes do 1.5x and 2x
-// the FLOPs on a little more data and are bound by the tensor cores
-// (0.039 ms dQ, 0.052 ms dK/dV). What the design does about it: every
-// product runs on the tensor cores (WMMA bf16 m16n16k16, mma.sync
-// underneath, fp32 accumulation), the S x S scores never leave shared
-// memory, each input tile is read once per block, and each block walks
-// its kv (or q) tiles in a loop that replaces the TPU's sequential grid
-// axis, skipping causal tiles above the diagonal. It is the simple first
-// version: no TMA, no wgmma, no warp specialisation, a softmax that goes
-// through shared memory, K/V re-read by every query tile — so it reaches
-// a few percent of its bound. Those are later work.
+// lse), 254 FLOP/byte: just under the card's ~295 FLOP/byte ridge, so its
+// bound is the bytes (0.030 ms), with the tensor cores close behind
+// (0.026 ms); the backward passes do 1.5x and 2x the FLOPs on a little
+// more data and are bound by the tensor cores (0.039 ms dQ, 0.052 ms
+// dK/dV). Reaching either needs the tensor cores fed at their Hopper rate
+// and the exponentials and loads hidden under them.
 //
-// Tiles: 64 query rows x 64 key rows, head_dim 64, 4 warps per block,
-// each warp owning 16 rows of the block's tile. Inputs are bf16 and read
-// through their [B, S, H, D] strides (head_dim stride 1, 16-byte aligned
-// rows); the logsumexp and delta are fp32 [B*H, S].
+// The forward and dK/dV kernels are built for that (hopper.cuh holds the
+// pieces). Both are persistent: one block on each SM walks the work items
+// in a snake order, heaviest first (snake_item). A block is three
+// warpgroups: one producer thread issues every load through TMA
+// (cp.async.bulk.tensor: 128-byte swizzled tiles, zero-filled past S)
+// into rings of shared-memory stages guarded by full and empty mbarriers,
+// and two consumer warpgroups, each owning 64 rows, issue wgmma with the
+// accumulators in registers; setmaxnreg moves the producer's registers to
+// the consumers (24 and 240 a thread), though ptxas compiles every path
+// within the 168 a thread that the launch of 384 threads allocates (a
+// 512-thread block of three consumer warpgroups gets 128 and spills).
+// Scores never leave registers: the softmax works on each thread's pieces
+// of two rows (the max and sum reduce over the 4 lanes of a quad), P or
+// dS is packed to bf16 in registers and is the A operand of the next
+// wgmma, and only the tiles that cross the diagonal or the ragged end
+// test the mask.
+//   fwd_kernel: 128 query rows of one (b, h) an item; Q in two buffers, K
+//     and V in 128-row tiles through 4 stages (165 KB of shared memory);
+//     S = Q K^T by m64n128k16, exp2 on prescaled scores, O += P V by
+//     m64n64k16 with V MN-major. Inside a warpgroup, S_t = Q K_t^T and
+//     O += P_{t-1} V_{t-1} are issued together and the softmax of S_t runs
+//     while the second product does, across items too (an item's last
+//     P V goes with the next item's first S). What bounds it on the H100
+//     (ops/flash_probe.py's phase clocks): the softmax, about 1,250-1,500
+//     clocks a 128 x 128 tile a warpgroup, where its 8,192 exponentials
+//     alone take 512 (MUFU: 16 a clock an SM, the same time as the tile's
+//     products at D = 64) and the two warpgroups' softmaxes overlap; then
+//     issuing behind the other warpgroup's products, the K/V waits, and
+//     each item's first tile and epilogue.
+//   bwd_dkv_kernel: 128 kv rows of one (b, h) an item; K and V once (two
+//     buffers, so the next item's load overlaps this one's end), then
+//     64-row tiles of Q and dO (with lse and delta, which the producer warp
+//     loads) through 3 stages (119 KB); S^T = K Q^T and dP^T = V dO^T
+//     (m64n64k16, the kv rows as M), P^T and dS^T in registers, dV += P^T
+//     dO and dK += dS^T Q with dO and Q MN-major; the low kv tiles (the
+//     most query tiles) come first. Its products and its softmax do not
+//     overlap inside a warpgroup; the two warpgroups and the load ring are
+//     what overlap. It keeps 168 registers a thread with a 16-byte spill.
+//
+// bwd_dq_kernel is the first, simple version: WMMA bf16 m16n16k16 on 64 x
+// 64 tiles, 4 warps, loads between __syncthreads, the softmax through
+// shared memory. It reaches a few percent of its bound; its loop over kv
+// tiles is the forward's, and it is next to be rebuilt on these pieces.
+//
+// Inputs are bf16 [B, S, H, 64] read through their strides (head_dim
+// stride 1, the others multiples of 8 elements, each at least the extent
+// of the one inside it: the wrapper copies anything else).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (dlrover_tpu_torch/ops/build.py). Every entry
@@ -42,12 +81,24 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int D = 64;        // head_dim
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Layout {
+  long long b, s, h;  // element strides of [B, S, H, D]; D stride is 1
+};
+
+// ------------------------------------------------------- dQ (WMMA)
+
 constexpr int BM = 64;       // query rows per tile
 constexpr int BN = 64;       // key/value rows per tile
 constexpr int NWARPS = 4;    // each warp owns 16 rows of the tile
@@ -57,13 +108,8 @@ constexpr int WROWS = 16;
 // multiples of 32 bytes per 16 rows as WMMA loads require.
 constexpr int LDH = 72;      // bf16 tiles (64 + 8)
 constexpr int LDF = 68;      // fp32 tiles (64 + 4)
-constexpr float NEG_INF = -1e30f;
 
 static_assert(BM == BN && BN == D, "tiles share one pitch");
-
-struct Layout {
-  long long b, s, h;  // element strides of [B, S, H, D]; D stride is 1
-};
 
 struct Layouts {
   Layout t[6];
@@ -129,22 +175,6 @@ __device__ __forceinline__ void warp_gemm_ab(FragC* acc, const bf16* a,
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
 __device__ __forceinline__ bool visible(int gq, int gk, int Sq, int Sk,
                                         int causal) {
   return gq < Sq && gk < Sk && (!causal || gq >= gk);
@@ -155,108 +185,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int Sk, int causal) {
   int n = (Sk + BN - 1) / BN;
   if (causal) n = min(n, (q0 + BM - 1) / BN + 1);
   return n;
-}
-
-constexpr size_t kFwdSmem =
-    4 * BM * LDH * sizeof(bf16) + 2 * BM * LDF * sizeof(float) +
-    2 * BM * sizeof(float);
-
-// One block per (query tile, batch*head); loops over kv tiles.
-__global__ void __launch_bounds__(NTHREADS)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int H, int Sq, int Sk, Layouts L,
-           float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BM * LDH;
-  bf16* sV = sK + BN * LDH;
-  bf16* sP = sV + BN * LDH;
-  float* sS = reinterpret_cast<float*>(sP + BM * LDH);
-  float* sO = sS + BM * LDF;
-  float* sM = sO + BM * LDF;
-  float* sL = sM + BM;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const bf16* qb = q + b * L.t[0].b + h * L.t[0].h;
-  const bf16* kb = k + b * L.t[1].b + h * L.t[1].h;
-  const bf16* vb = v + b * L.t[2].b + h * L.t[2].h;
-  bf16* ob = o + b * L.t[3].b + h * L.t[3].h;
-
-  load_tile(sQ, qb, L.t[0].s, q0, Sq);
-  for (int i = threadIdx.x; i < BM * LDF; i += NTHREADS) sO[i] = 0.0f;
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.0f;
-  }
-  const int r0 = warp * WROWS;
-  const int n_kv = kv_tiles(q0, Sk, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();
-    load_tile(sK, kb, L.t[1].s, k0, Sk);
-    load_tile(sV, vb, L.t[2].s, k0, Sk);
-    __syncthreads();
-    warp_gemm_abt(sS + r0 * LDF, sQ + r0 * LDH, sK);
-    __syncwarp();
-    for (int r = r0; r < r0 + WROWS; ++r) {
-      float x[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        x[j] = visible(q0 + r, k0 + c, Sq, Sk, causal)
-                   ? sS[r * LDF + c] * scale
-                   : NEG_INF;
-      }
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x[0], x[1])));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = x[j] <= NEG_INF * 0.5f ? 0.0f : expf(x[j] - m_new);
-        sum += p;
-        sP[r * LDH + lane + 32 * j] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      const float corr = expf(m_prev - m_new);
-      sO[r * LDF + lane] *= corr;
-      sO[r * LDF + lane + 32] *= corr;
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * corr + sum;
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, sO + r0 * LDF + nt * 16, LDF,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, sP + r0 * LDH + kk * 16, LDH);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * LDH + nt * 16, LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * LDF + nt * 16, acc, LDF,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-  for (int r = r0; r < r0 + WROWS; ++r) {
-    const int gq = q0 + r;
-    if (gq >= Sq) break;
-    const float l = sL[r];
-    const float l_safe = l == 0.0f ? 1.0f : l;
-    bf16* orow = ob + (long long)gq * L.t[3].s;
-    orow[lane] = __float2bfloat16(sO[r * LDF + lane] / l_safe);
-    orow[lane + 32] = __float2bfloat16(sO[r * LDF + lane + 32] / l_safe);
-    if (lane == 0) lse[(long long)bh * Sq + gq] = sM[r] + logf(l_safe);
-  }
 }
 
 constexpr size_t kDqSmem =
@@ -337,92 +265,640 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-constexpr size_t kDkvSmem =
-    6 * BM * LDH * sizeof(bf16) + 2 * BM * LDF * sizeof(float) +
-    2 * BM * sizeof(float);
+// ------------------------------------------------------- Hopper kernels
 
-// One block per (kv tile, batch*head); loops over query tiles from the
-// diagonal. Each warp owns 16 key rows; scores are formed transposed
-// (S^T = K Q^T) so dV += P^T dO and dK += dS^T Q are plain row products.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int HOPPER_THREADS = 3 * WG;   // two consumer warpgroups, a producer
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int ROW_BYTES = D * 2;         // one swizzled head row
+
+// What setmaxnreg hands out must have been allocated at launch, or the
+// consumers' request waits forever: 128 x 24 + 256 x 240 = 384 x 168.
+static_assert(WG * PRODUCER_REGS + 2 * WG * CONSUMER_REGS <=
+                  HOPPER_THREADS * 168,
+              "register hand-off exceeds the launch allocation");
+
+// The first 1024-byte boundary of the dynamic shared memory (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = hopper::smem_addr(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk ``chunk`` of row ``row`` in a 128-byte
+// swizzled tile (the layout TMA writes).
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return row * ROW_BYTES + ((chunk ^ (row & 7)) << 4);
+}
+
+// Writes a warpgroup's 64 x 64 fp32 accumulator, times ``mul``, as bf16
+// rows [row0, row0 + 64) of a strided output, at most ``nrows`` of them.
+// The tile goes through ``stage`` (8 KB of shared memory the warpgroup
+// alone uses) so that every global store is a whole 16-byte chunk.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul0,
+                                           float mul1, unsigned char* stage,
+                                           bf16* out, long long row_stride,
+                                           int row0, int nrows, int wg) {
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    const float mul = i ? mul1 : mul0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<uint32_t*>(stage + swizzled(r, n) + (lane % 4) * 4) =
+          hopper::pack_bf16(acc[4 * n + 2 * i] * mul,
+                            acc[4 * n + 2 * i + 1] * mul);
+    }
+  }
+  hopper::named_sync(1 + wg, WG);
+  for (int c = tid; c < 64 * 8; c += WG) {
+    const int r = c / 8, chunk = c % 8;
+    if (row0 + r < nrows) {
+      *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * row_stride +
+                                chunk * 8) =
+          *reinterpret_cast<const uint4*>(stage + swizzled(r, chunk));
+    }
+  }
+}
+
+// Round j of a persistent kernel's walk over its work items, heaviest
+// first: the blocks take items j G .. j G + G - 1 (G = gridDim.x), in
+// reverse block order in odd rounds, so that a block that took a heavier
+// item in one round takes a lighter one in the next. -1 past the end.
+__device__ __forceinline__ int snake_item(int j, int n_items) {
+  const int g = gridDim.x;
+  const int i = j * g + (j % 2 ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return i < n_items ? i : -1;
+}
+
+constexpr int FBM = 128;                 // query rows per block
+constexpr int FBN = 128;                 // kv rows per tile
+constexpr int FWD_STAGES = 4;
+constexpr int FWD_QBUF = 2;  // Q buffers
+constexpr int kFwdTile = FBN * ROW_BYTES;
+constexpr size_t kFwdSmem = 1024 + (FWD_QBUF + 2 * FWD_STAGES) * kFwdTile +
+                            (2 * FWD_QBUF + 3 * FWD_STAGES) * sizeof(uint64_t);
+
+// One online-softmax step over a tile of raw scores ``s`` (64 rows x 128
+// columns of a warpgroup; this thread holds pieces of rows row0 and row0 +
+// 8 at columns 8 n + col_off + j): s becomes P = exp2(s scale log2 e - m
+// scale log2 e), the running max m (of raw scores) and this thread's share
+// of the row sums l move on, and ``corr`` is what the output rows must be
+// multiplied by. Only a MASKED tile (across the diagonal or the ragged
+// end) tests the mask: one compare a score against a bound per row.
+// Maxima run as eight independent chains a row, sums as four.
+template <bool MASKED>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[64], float (&m_run)[2], float (&l_part)[2], float (&corr)[2],
+    float scale_log2, int k0, int row0, int col_off, int Sk, int causal) {
+  if (MASKED) {
+    // Row i sees its columns 8 n + j (from k0 + col_off) up to lim[i].
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lim[i] = Sk - 1 - k0 - col_off;
+      if (causal) lim[i] = min(lim[i], row0 + 8 * i - k0 - col_off);
+    }
+#pragma unroll
+    for (int idx = 0; idx < 64; ++idx) {
+      if (8 * (idx / 4) + idx % 2 > lim[(idx / 2) % 2]) s[idx] = NEG_INF;
+    }
+  }
+  // idx = 4 n + 2 i + j: row i, chain (n % 4, j).
+  float mx[2][8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mx[i][c] = m_run[i];
+  }
+#pragma unroll
+  for (int idx = 0; idx < 64; ++idx) {
+    float& m = mx[(idx / 2) % 2][2 * ((idx / 4) % 4) + idx % 2];
+    m = fmaxf(m, s[idx]);
+  }
+  float m_scaled[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m_new = fmaxf(fmaxf(fmaxf(mx[i][0], mx[i][1]),
+                              fmaxf(mx[i][2], mx[i][3])),
+                        fmaxf(fmaxf(mx[i][4], mx[i][5]),
+                              fmaxf(mx[i][6], mx[i][7])));
+    m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 1));
+    m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 2));
+    corr[i] = hopper::fast_exp2((m_run[i] - m_new) * scale_log2);
+    m_run[i] = m_new;
+    // A row masked so far keeps m = -1e30: its scores are scaled against
+    // 0, so that exp2 gives 0 for them and not exp2(0) = 1.
+    m_scaled[i] = m_new <= NEG_INF * 0.5f ? 0.0f : m_new * scale_log2;
+  }
+  float sum[2][4] = {};
+#pragma unroll
+  for (int idx = 0; idx < 64; ++idx) {
+    const int i = (idx / 2) % 2;
+    const float p = hopper::fast_exp2(fmaf(s[idx], scale_log2, -m_scaled[i]));
+    s[idx] = p;
+    sum[i][2 * ((idx / 4) % 2) + idx % 2] += p;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_part[i] = l_part[i] * corr[i] +
+                ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
+  }
+}
+
+// The tile's softmax, with the mask tests only where the tile needs them.
+__device__ __forceinline__ void online_softmax(
+    float (&s)[64], float (&m_run)[2], float (&l_part)[2], float (&corr)[2],
+    float scale_log2, bool masked, int k0, int row0, int col_off, int Sk,
+    int causal) {
+  if (masked) {
+    online_softmax<true>(s, m_run, l_part, corr, scale_log2, k0, row0,
+                         col_off, Sk, causal);
+  } else {
+    online_softmax<false>(s, m_run, l_part, corr, scale_log2, k0, row0,
+                          col_off, Sk, causal);
+  }
+}
+
+// P as the register A operand of P V: the accumulator's layout, packed to
+// bf16 pairs, 16 kv columns a k-step.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pa)[FBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < FBN / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pa[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    }
+  }
+}
+
+// S = Q K^T for a warpgroup's 64 query rows against a 128-row K tile.
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hopper::wgmma_m64n128k16_ss(s, hopper::desc_k_major(q_addr + kk * 32),
+                                hopper::desc_k_major(k_addr + kk * 32), kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V for a 128-row V tile (MN-major: head_dim is contiguous).
+__device__ __forceinline__ void issue_pv(float (&o_acc)[32],
+                                         const uint32_t (&pa)[FBN / 16][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < FBN / 16; ++kk) {
+    hopper::wgmma_m64n64k16_rs_tb(
+        o_acc, pa[kk], hopper::desc_mn_major(v_addr + kk * 16 * ROW_BYTES));
+  }
+  hopper::wgmma_commit();
+}
+
+// A persistent kernel: one block on each SM walks the work items (query
+// tile of 128 rows, batch*head) in snake_item's order, the heaviest
+// causal tiles first, so that each SM gets a like share; the producer
+// loads the next item's Q and first K/V tiles while the consumers finish
+// the last one. Each item loops over its kv tiles; inside a consumer
+// warpgroup the products of tile t (S_t = Q K_t^T and O += P_{t-1}
+// V_{t-1}) are issued together, and the softmax of S_t runs while the
+// second one does. An item's last P V goes out with the next item's first
+// S = Q K^T in the same way, and its epilogue follows that softmax.
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+           float* __restrict__ lse, int BH, int H, int Sq, int Sk, Layout lo,
+           float scale_log2, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + FWD_QBUF * kFwdTile;
+  unsigned char* sV = sK + FWD_STAGES * kFwdTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + FWD_STAGES * kFwdTile);
+  uint64_t* q_empty = q_full + FWD_QBUF;
+  uint64_t* k_full = q_empty + FWD_QBUF;
+  uint64_t* v_full = k_full + FWD_STAGES;
+  uint64_t* empty = v_full + FWD_STAGES;
+
+  const int n_q = (Sq + FBM - 1) / FBM, n_items = n_q * BH;
+  // Item i: query tile n_q - 1 - i / BH of (b, h) = i % BH, and its kv
+  // tiles, so the heaviest causal tiles come first.
+  auto q_start = [&](int item) { return (n_q - 1 - item / BH) * FBM; };
+  auto n_kv_of = [&](int q0) {
+    const int n = (Sk + FBN - 1) / FBN;
+    return causal ? min(n, (q0 + FBM - 1) / FBN + 1) : n;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < FWD_QBUF; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, 2 * WG / 32);  // one arrival a warp
+    }
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 2 * WG / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+
+  if (wg == 2) {  // producer
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      hopper::tma_prefetch_map(&tm_q);
+      hopper::tma_prefetch_map(&tm_k);
+      hopper::tma_prefetch_map(&tm_v);
+      int tile = 0;  // position in the K/V ring, across items
+      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+        const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
+        const int qb = j % FWD_QBUF;
+        if (j >= FWD_QBUF) {
+          hopper::mbar_wait(q_empty + qb, (j / FWD_QBUF - 1) & 1);
+        }
+        hopper::mbar_arrive_tx(q_full + qb, kFwdTile);
+        hopper::tma_load_4d(sQ + qb * kFwdTile, &tm_q, q_full + qb, 0, h, q0,
+                            b);
+        const int n_kv = n_kv_of(q0);
+        for (int t = 0; t < n_kv; ++t, ++tile) {
+          const int st = tile % FWD_STAGES;
+          if (tile >= FWD_STAGES) {
+            hopper::mbar_wait(empty + st, (tile / FWD_STAGES - 1) & 1);
+          }
+          hopper::mbar_arrive_tx(k_full + st, kFwdTile);
+          hopper::tma_load_4d(sK + st * kFwdTile, &tm_k, k_full + st, 0, h,
+                              t * FBN, b);
+          hopper::mbar_arrive_tx(v_full + st, kFwdTile);
+          hopper::tma_load_4d(sV + st * kFwdTile, &tm_v, v_full + st, 0, h,
+                              t * FBN, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64)
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int col_off = 2 * (lane % 4);
+    const uint32_t k_base = hopper::smem_addr(sK);
+    const uint32_t v_base = hopper::smem_addr(sV);
+    float o_acc[32] = {}, s[64], corr[2];
+    float m_run[2] = {NEG_INF, NEG_INF}, l_part[2] = {0.0f, 0.0f};
+    uint32_t pa[FBN / 16][4] = {};
+    // The previous item, whose last P V goes out with the next item's
+    // first S = Q K^T: its query tile, (b, h), Q buffer, final row maxima
+    // and sums, and the ring position of its last V tile (-1: none yet).
+    int p_q0 = 0, p_bh = 0, p_qb = 0, p_last = -1;
+    float p_m[2], p_l[2];
+    // The previous item's epilogue, once its O is complete in o_acc: the
+    // logsumexp, then O / l through its Q buffer (its Q rows are read),
+    // which then goes back to the producer.
+    auto finish = [&] {
+      const int row_lo = p_q0 + wg * 64, row0 = row_lo + warp * 16 + lane / 4;
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float l = p_l[i];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float l_safe = l == 0.0f ? 1.0f : l;
+        inv[i] = 1.0f / l_safe;
+        const int row = row0 + 8 * i;
+        if (lane % 4 == 0 && row < Sq) {
+          const float m = p_m[i] <= NEG_INF * 0.5f
+                              ? NEG_INF
+                              : p_m[i] * scale_log2 * LN2;
+          lse[(long long)p_bh * Sq + row] = m + logf(l_safe);
+        }
+      }
+      store_rows(o_acc, inv[0], inv[1],
+                 sQ + p_qb * kFwdTile + wg * 64 * ROW_BYTES,
+                 o + p_bh / H * lo.b + p_bh % H * lo.h, lo.s, row_lo, Sq, wg);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(q_empty + p_qb);
+    };
+    int tile = 0;
+    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+      const int q0 = q_start(item), bh = item % BH;
+      const int n_kv = n_kv_of(q0), qb = j % FWD_QBUF;
+      const int row_lo = q0 + wg * 64;
+      const int row0 = row_lo + warp * 16 + lane / 4;
+      const uint32_t q_addr =
+          hopper::smem_addr(sQ + qb * kFwdTile + wg * 64 * ROW_BYTES);
+      // A tile across the diagonal or the ragged end is masked.
+      auto masked = [&](int k0) {
+        return k0 + FBN > Sk || (causal && k0 + FBN - 1 > row_lo);
+      };
+      hopper::mbar_wait(q_full + qb, (j / FWD_QBUF) & 1);
+      hopper::mbar_wait(k_full + tile % FWD_STAGES, (tile / FWD_STAGES) & 1);
+      // Before the first item there is no P V to finish: the product is
+      // issued all the same, P = 0 on whatever stage 0 holds, and its sum
+      // is dropped. A branch around a wgmma would make ptxas serialise
+      // every wgmma of the kernel (its warning C7520).
+      const int pst = p_last >= 0 ? p_last % FWD_STAGES : 0;
+      if (p_last >= 0) {
+        hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
+      }
+      hopper::wgmma_fence();
+      issue_qk(s, q_addr, k_base + (tile % FWD_STAGES) * kFwdTile);
+      issue_pv(o_acc, pa, v_base + pst * kFwdTile);
+      hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on
+      hopper::fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        p_m[i] = m_run[i];
+        p_l[i] = l_part[i];
+        m_run[i] = NEG_INF;
+        l_part[i] = 0.0f;
+      }
+      online_softmax(s, m_run, l_part, corr, scale_log2, masked(0), 0, row0,
+                     col_off, Sk, causal);
+      hopper::fence_regs(s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o_acc);
+      if (p_last >= 0) {
+        if (lane == 0) hopper::mbar_arrive(empty + pst);
+        finish();
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
+      pack_p(s, pa);
+      for (int t = 1; t < n_kv; ++t) {
+        const int cur = tile + t;
+        const int st = cur % FWD_STAGES, prev = (cur - 1) % FWD_STAGES;
+        hopper::mbar_wait(k_full + st, (cur / FWD_STAGES) & 1);
+        hopper::mbar_wait(v_full + prev, ((cur - 1) / FWD_STAGES) & 1);
+        hopper::wgmma_fence();
+        issue_qk(s, q_addr, k_base + st * kFwdTile);
+        issue_pv(o_acc, pa, v_base + prev * kFwdTile);
+        hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} runs on
+        hopper::fence_regs(s);
+        online_softmax(s, m_run, l_part, corr, scale_log2, masked(t * FBN),
+                       t * FBN, row0, col_off, Sk, causal);
+        // The softmax is done before the wait, not moved below it.
+        hopper::fence_regs(s);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o_acc);
+        if (lane == 0) hopper::mbar_arrive(empty + prev);
+#pragma unroll
+        for (int idx = 0; idx < 32; ++idx) o_acc[idx] *= corr[(idx / 2) % 2];
+        pack_p(s, pa);
+      }
+      p_q0 = q0;
+      p_bh = bh;
+      p_qb = qb;
+      p_last = tile + n_kv - 1;
+      tile += n_kv;
+    }
+    // Every block has an item (the grid is at most the item count): the
+    // last one's P V and epilogue.
+    const int pst = p_last % FWD_STAGES;
+    hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
+    hopper::wgmma_fence();
+    issue_pv(o_acc, pa, v_base + pst * kFwdTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o_acc);
+    if (lane == 0) hopper::mbar_arrive(empty + pst);
+    for (int i = 0; i < 2; ++i) {
+      p_m[i] = m_run[i];
+      p_l[i] = l_part[i];
+    }
+    finish();
+  }
+}
+
+// P^T and dS^T of a dK/dV tile in place: s = P^T = exp2(S^T scale log2 e
+// - lse log2 e) and dp = dS^T = P^T (dP^T - delta), where lse (already
+// times log2 e) and delta belong to the columns, the query rows. Only a
+// MASKED tile (the diagonal or the ragged end) tests the mask: query
+// column 8 n + j of this thread's pieces (from col_off) is visible to kv
+// row i when lo[i] <= 8 n + j < hi.
+template <bool MASKED>
+__device__ __forceinline__ void dkv_probs(float (&s)[32], float (&dp)[32],
+                                          const float* s_lse,
+                                          const float* s_delta,
+                                          float scale_log2, int col_off,
+                                          const int (&lo)[2], int hi) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = 8 * n + col_off;
+    const float2 l2 = *reinterpret_cast<const float2*>(s_lse + c);
+    const float2 dl = *reinterpret_cast<const float2*>(s_delta + c);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int idx = 4 * n + r, jj = r % 2, cc = 8 * n + jj;
+      float p = hopper::fast_exp2(s[idx] * scale_log2 - (jj ? l2.y : l2.x));
+      if (MASKED && (cc < lo[r / 2] || cc >= hi)) p = 0.0f;
+      s[idx] = p;
+      dp[idx] = p * (dp[idx] - (jj ? dl.y : dl.x));
+    }
+  }
+}
+
+constexpr int DBN = 128;                   // kv rows per item
+constexpr int DBM = 64;                    // query rows per tile
+constexpr int DKV_STAGES = 3;
+constexpr int kDkvKv = DBN * ROW_BYTES;    // K or V
+constexpr int kDkvTile = DBM * ROW_BYTES;  // Q or dO
+constexpr int kDkvStage = 2 * kDkvTile + 1024;  // + lse and delta, aligned
+constexpr size_t kDkvSmem = 1024 + 4 * kDkvKv + DKV_STAGES * kDkvStage +
+                            (4 + 2 * DKV_STAGES) * sizeof(uint64_t);
+
+// A persistent kernel: one block on each SM walks the work items (kv tile
+// of 128 rows, batch*head) in snake_item's order, the low kv tiles (which
+// see the most query tiles) first. K and V of an item come
+// in once, into one of two buffers, so the next item's load overlaps this
+// one's end; each item loops over the 64-row query tiles from the
+// diagonal. Scores are formed transposed (S^T = K Q^T), so the kv rows
+// are the M of every product.
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq,
-               int Sk, Layouts L, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BN * LDH;
-  bf16* sQ = sV + BN * LDH;
-  bf16* sdO = sQ + BM * LDH;
-  bf16* sP = sdO + BM * LDH;
-  bf16* sDS = sP + BN * LDH;
-  float* sS = reinterpret_cast<float*>(sDS + BN * LDH);
-  float* sDP = sS + BN * LDF;
-  float* sLse = sDP + BN * LDF;
-  float* sDelta = sLse + BM;
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int H,
+               int Sq, int Sk, Layout ldk, Layout ldv, float scale,
+               int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sKV = align_1024(smem_raw);  // two buffers of K then V
+  unsigned char* stages = sKV + 4 * kDkvKv;
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(stages + DKV_STAGES * kDkvStage);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + DKV_STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * BN;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const bf16* qb = q + b * L.t[0].b + h * L.t[0].h;
-  const bf16* kb = k + b * L.t[1].b + h * L.t[1].h;
-  const bf16* vb = v + b * L.t[2].b + h * L.t[2].h;
-  const bf16* dob = dout + b * L.t[3].b + h * L.t[3].h;
-  bf16* dkb = dk + b * L.t[4].b + h * L.t[4].h;
-  bf16* dvb = dv + b * L.t[5].b + h * L.t[5].h;
+  const int n_kv = (Sk + DBN - 1) / DBN, n_items = n_kv * BH;
+  const int n_q = (Sq + DBM - 1) / DBM;
+  // Item i: kv tile i / BH of (b, h) = i % BH, and its first query tile.
+  auto first_q_tile = [&](int k0) { return causal ? min(k0 / DBM, n_q) : 0; };
 
-  load_tile(sK, kb, L.t[1].s, k0, Sk);
-  load_tile(sV, vb, L.t[2].s, k0, Sk);
-  const int r0 = warp * WROWS;
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::fill_fragment(dk_acc[nt], 0.0f);
-    wmma::fill_fragment(dv_acc[nt], 0.0f);
-  }
-  const int n_q = (Sq + BM - 1) / BM;
-  for (int t = causal ? k0 / BM : 0; t < n_q; ++t) {
-    const int q0 = t * BM;
-    __syncthreads();
-    load_tile(sQ, qb, L.t[0].s, q0, Sq);
-    load_tile(sdO, dob, L.t[3].s, q0, Sq);
-    for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-      const bool in = q0 + i < Sq;
-      sLse[i] = in ? lse[(long long)bh * Sq + q0 + i] : 0.0f;
-      sDelta[i] = in ? delta[(long long)bh * Sq + q0 + i] : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(kv_full + i, 1);
+      hopper::mbar_init(kv_empty + i, 2 * WG / 32);  // one arrival a warp
     }
-    __syncthreads();
-    warp_gemm_abt(sS + r0 * LDF, sK + r0 * LDH, sQ);
-    warp_gemm_abt(sDP + r0 * LDF, sV + r0 * LDH, sdO);
-    __syncwarp();
-    for (int i = lane; i < WROWS * BM; i += 32) {
-      const int r = r0 + i / BM, c = i % BM;  // r: key row, c: query row
-      const float p = visible(q0 + c, k0 + r, Sq, Sk, causal)
-                          ? expf(sS[r * LDF + c] * scale - sLse[c])
-                          : 0.0f;
-      sP[r * LDH + c] = __float2bfloat16(p);
-      sDS[r * LDH + c] = __float2bfloat16(p * (sDP[r * LDF + c] - sDelta[c]));
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hopper::mbar_init(full + s, 32);  // the producer warp's lanes
+      hopper::mbar_init(empty + s, 2 * WG / 32);
     }
-    __syncwarp();
-    warp_gemm_ab(dv_acc, sP + r0 * LDH, sdO);
-    warp_gemm_ab(dk_acc, sDS + r0 * LDH, sQ);
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+
+  if (wg == 2) {  // producer: one warp
+    hopper::regs_dec<PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x / 32 == 2 * WG / 32) {
+      int ring = 0;  // position in the Q/dO ring, across items
+      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+        const int k0 = item / BH * DBN, bh = item % BH, b = bh / H,
+                  h = bh % H;
+        const int kb = j % 2;
+        unsigned char* sK = sKV + kb * 2 * kDkvKv;
+        if (j >= 2) hopper::mbar_wait(kv_empty + kb, (j / 2 - 1) & 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_tx(kv_full + kb, 2 * kDkvKv);
+          hopper::tma_load_4d(sK, &tm_k, kv_full + kb, 0, h, k0, b);
+          hopper::tma_load_4d(sK + kDkvKv, &tm_v, kv_full + kb, 0, h, k0, b);
+        }
+        for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
+          const int st = ring % DKV_STAGES, q0 = t * DBM;
+          unsigned char* stage = stages + st * kDkvStage;
+          if (ring >= DKV_STAGES) {
+            hopper::mbar_wait(empty + st, (ring / DKV_STAGES - 1) & 1);
+          }
+          float* s_lse = reinterpret_cast<float*>(stage + 2 * kDkvTile);
+          float* s_delta = s_lse + DBM;
+          for (int r = lane; r < DBM; r += 32) {
+            const bool in = q0 + r < Sq;
+            const long long at = (long long)bh * Sq + q0 + r;
+            s_lse[r] = in ? lse[at] * LOG2E : 0.0f;
+            s_delta[r] = in ? delta[at] : 0.0f;
+          }
+          __syncwarp();
+          if (lane == 0) {
+            hopper::mbar_arrive_tx(full + st, 2 * kDkvTile);
+            hopper::tma_load_4d(stage, &tm_q, full + st, 0, h, q0, b);
+            hopper::tma_load_4d(stage + kDkvTile, &tm_do, full + st, 0, h,
+                                q0, b);
+          } else {
+            hopper::mbar_arrive(full + st);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns kv rows k0 + 64 wg + [0, 64)
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int col_off = 2 * (lane % 4);
+    const float scale_log2 = scale * LOG2E;
+    int ring = 0;
+    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+      const int k0 = item / BH * DBN, bh = item % BH, b = bh / H, h = bh % H;
+      const int kb = j % 2;
+      // This thread holds pieces of kv rows row0 and row0 + 8, at query
+      // columns 8 n + col_off + j of every accumulator.
+      const int kv_lo = k0 + wg * 64;
+      const int row0 = kv_lo + warp * 16 + lane / 4;
+      unsigned char* k_rows = sKV + kb * 2 * kDkvKv + wg * 64 * ROW_BYTES;
+      unsigned char* v_rows = k_rows + kDkvKv;
+      const uint32_t k_addr = hopper::smem_addr(k_rows);
+      const uint32_t v_addr = hopper::smem_addr(v_rows);
+      float dk_acc[32], dv_acc[32];
 #pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(sS + r0 * LDF + nt * 16, dk_acc[nt], LDF,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(sDP + r0 * LDF + nt * 16, dv_acc[nt], LDF,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < WROWS * D; i += 32) {
-    const int r = r0 + i / D, c = i % D;
-    const int gk = k0 + r;
-    if (gk < Sk) {
-      dkb[(long long)gk * L.t[4].s + c] =
-          __float2bfloat16(sS[r * LDF + c] * scale);
-      dvb[(long long)gk * L.t[5].s + c] = __float2bfloat16(sDP[r * LDF + c]);
+      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+      hopper::mbar_wait(kv_full + kb, (j / 2) & 1);
+
+      for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
+        const int st = ring % DKV_STAGES, q0 = t * DBM;
+        unsigned char* stage = stages + st * kDkvStage;
+        hopper::mbar_wait(full + st, (ring / DKV_STAGES) & 1);
+        if (causal && q0 + DBM - 1 < kv_lo) {  // every pair masked
+          if (lane == 0) hopper::mbar_arrive(empty + st);
+          continue;
+        }
+        const uint32_t q_addr = hopper::smem_addr(stage);
+        const uint32_t do_addr = q_addr + kDkvTile;
+        const float* s_lse =
+            reinterpret_cast<const float*>(stage + 2 * kDkvTile);
+        const float* s_delta = s_lse + DBM;
+
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::wgmma_m64n64k16_ss(
+              s, hopper::desc_k_major(k_addr + kk * 32),
+              hopper::desc_k_major(q_addr + kk * 32), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::wgmma_m64n64k16_ss(
+              dp, hopper::desc_k_major(v_addr + kk * 32),
+              hopper::desc_k_major(do_addr + kk * 32), kk);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+
+        // P^T and dS^T, masked only on the diagonal and the ragged end.
+        const int hi = Sq - q0 - col_off;
+        int lo[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          lo[i] = causal ? row0 + 8 * i - q0 - col_off : -DBM;
+        }
+        if (q0 + DBM > Sq || (causal && q0 < kv_lo + 63)) {
+          dkv_probs<true>(s, dp, s_lse, s_delta, scale_log2, col_off, lo, hi);
+        } else {
+          dkv_probs<false>(s, dp, s_lse, s_delta, scale_log2, col_off, lo,
+                           hi);
+        }
+        uint32_t pa[DBM / 16][4], da[DBM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DBM / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r],
+                                          s[8 * kk + 2 * r + 1]);
+            da[kk][r] = hopper::pack_bf16(dp[8 * kk + 2 * r],
+                                          dp[8 * kk + 2 * r + 1]);
+          }
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DBM / 16; ++kk) {
+          hopper::wgmma_m64n64k16_rs_tb(
+              dv_acc, pa[kk],
+              hopper::desc_mn_major(do_addr + kk * 16 * ROW_BYTES));
+        }
+#pragma unroll
+        for (int kk = 0; kk < DBM / 16; ++kk) {
+          hopper::wgmma_m64n64k16_rs_tb(
+              dk_acc, da[kk],
+              hopper::desc_mn_major(q_addr + kk * 16 * ROW_BYTES));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        if (lane == 0) hopper::mbar_arrive(empty + st);
+      }
+
+      // This warpgroup's K and V rows are read; they stage its dK and dV,
+      // and the buffer goes back to the producer once the rows are stored.
+      store_rows(dk_acc, scale, scale, k_rows, dk + b * ldk.b + h * ldk.h,
+                 ldk.s, kv_lo, Sk, wg);
+      store_rows(dv_acc, 1.0f, 1.0f, v_rows, dv + b * ldv.b + h * ldv.h,
+                 ldv.s, kv_lo, Sk, wg);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(kv_empty + kb);
     }
   }
 }
@@ -437,6 +913,44 @@ Layouts make_layouts(const long long* strides, int n) {
   return L;
 }
 
+Layout layout_at(const long long* strides, int i) {
+  return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// A TMA map over input ``i`` of ``strides`` (S rows, boxes of ``rows``).
+bool input_map(CUtensorMap* map, const void* base, int B, int S, int H,
+               const long long* strides, int i, int rows) {
+  return hopper::make_bshd_map(map, base, B, S, H, strides[3 * i],
+                               strides[3 * i + 1], strides[3 * i + 2], rows);
+}
+
+// Refuses a warp-specialised kernel whose launch would not allocate the
+// registers its setmaxnreg hand-off assumes (the consumers would wait for
+// them forever), and grants it its dynamic shared memory.
+template <typename Kernel>
+cudaError_t prepare_hopper(Kernel kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * HOPPER_THREADS <
+      WG * PRODUCER_REGS + 2 * WG * CONSUMER_REGS) {
+    return cudaErrorInvalidConfiguration;
+  }
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Blocks of a persistent kernel: one on each SM, at most one an item.
+int resident_blocks(int items) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    sms = 1;
+  }
+  return items < sms ? items : sms;
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,13 +961,19 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    const long long* strides, float scale, int causal,
                    void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  cudaError_t err = prepare_hopper(fwd_kernel, kFwdSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BM - 1) / BM, B * H);
-  fwd_kernel<<<grid, NTHREADS, kFwdSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      H, Sq, Sk, make_layouts(strides, 4), scale, causal);
+  CUtensorMap tq, tk, tv;
+  if (!input_map(&tq, q, B, Sq, H, strides, 0, FBM) ||
+      !input_map(&tk, k, B, Sk, H, strides, 1, FBN) ||
+      !input_map(&tv, v, B, Sk, H, strides, 2, FBN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int items = (Sq + FBM - 1) / FBM * B * H;
+  fwd_kernel<<<resident_blocks(items), HOPPER_THREADS, kFwdSmem,
+               (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, B * H, H, Sq, Sk,
+      layout_at(strides, 3), scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
@@ -482,14 +1002,21 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        int head_dim, const long long* strides, float scale,
                        int causal, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+  cudaError_t err = prepare_hopper(bwd_dkv_kernel, kDkvSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + BN - 1) / BN, B * H);
-  bwd_dkv_kernel<<<grid, NTHREADS, kDkvSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Sq,
-      Sk, make_layouts(strides, 6), scale, causal);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!input_map(&tq, q, B, Sq, H, strides, 0, DBM) ||
+      !input_map(&tk, k, B, Sk, H, strides, 1, DBN) ||
+      !input_map(&tv, v, B, Sk, H, strides, 2, DBN) ||
+      !input_map(&tdo, dout, B, Sq, H, strides, 3, DBM)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int items = (Sk + DBN - 1) / DBN * B * H;
+  bwd_dkv_kernel<<<resident_blocks(items), HOPPER_THREADS, kDkvSmem,
+                   (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, B * H, H, Sq, Sk, layout_at(strides, 4),
+      layout_at(strides, 5), scale, causal);
   return (int)cudaGetLastError();
 }
 

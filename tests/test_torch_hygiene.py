@@ -125,6 +125,41 @@ def test_library_name_follows_the_source():
     assert os.path.basename(path).startswith("libflash_attn-")
 
 
+def test_library_name_follows_the_included_headers(tmp_path, monkeypatch):
+    """An edited header, included directly or through another header,
+    names a new library; an unrelated file does not."""
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    (tmp_path / "c.cuh").write_text("// not included\n")
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    assert [os.path.basename(p) for p in build.sources("k")] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    before = build.library_path("k")
+    (tmp_path / "c.cuh").write_text("// edited\n")
+    assert build.library_path("k") == before
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert build.library_path("k") != before
+
+
+def test_flash_attn_hashes_its_hopper_header():
+    names = [os.path.basename(p) for p in build.sources("flash_attn")]
+    assert names == ["flash_attn.cu", "hopper.cuh"]
+
+
+def test_flash_probe_variants_apply_to_the_source(tmp_path, monkeypatch):
+    """Each ablation of ``ops/flash_probe.py`` still finds the text it
+    replaces, once, in the committed kernel source."""
+    from dlrover_tpu_torch.ops import flash_probe
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    for name in flash_probe.VARIANTS:
+        out = flash_probe.variant_source(name)
+        with open(os.path.join(out, "flash_attn.cu")) as f:
+            text = f.read()
+        assert ("g_clocks" in text) == (name == "clocks"), name
+
+
 def test_build_dir_is_ignored_by_git():
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = f.read().split()

@@ -5,8 +5,10 @@ The ``gpu``-marked tests need an NVIDIA card with ``nvcc`` (a CUDA
 kernel has no CPU mode) and skip without one. The other tests run on
 the CPU: they emulate a kernel's arithmetic in PyTorch, once right and
 once with a planted fault, and show that the check passes the first and
-fails the second: ``tile_rel_err`` against ``TILE_REL_TOL`` for flash
-attention (a wrong mask), ``adam8_errors`` against ``ADAM8_LIMITS`` for
+fails the second: ``tile_rel_err`` against ``TILE_REL_TOL`` and the
+logsumexp against ``LSE_TOL`` for flash attention (a wrong mask, a V or
+dO tile read with the wrong transpose flag, a logsumexp stored in base
+2), ``adam8_errors`` against ``ADAM8_LIMITS`` for
 the 8-bit Adam kernels (a neighbouring block's scale, the 0.5 floor
 dropped, round half away from zero, weight decay dropped, the padded
 tail in a block's absmax). The file imports no JAX, so it also runs on
@@ -40,11 +42,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def fused_views(q, k, v):
+    """q, k and v as views of one [B, S, 3 H D] tensor, as the model's
+    attention block passes them (row stride 3 H D)."""
+    b, s, h, d = q.shape
+    qkv = torch.cat([x.reshape(b, s, h * d) for x in (q, k, v)], dim=-1)
+    return tuple(x.unflatten(-1, (h, d)) for x in qkv.split(h * d, dim=-1))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal,s", [(True, 128), (False, 96), (True, 200)])
-def test_cuda_kernels_match_plain(cuda_device, causal, s):
+@pytest.mark.parametrize("causal,s,b,h,fused", [
+    (True, 128, 2, 2, False),
+    (False, 96, 2, 2, False),
+    (True, 200, 2, 2, False),
+    (True, 192, 2, 2, False),  # one 128-row block half empty
+    (True, 1024, 4, 25, False),  # GPT-2 xl's B*H
+    (True, 200, 2, 2, True),
+    (True, 1024, 4, 25, True),
+])
+def test_cuda_kernels_match_plain(cuda_device, causal, s, b, h, fused):
     q, k, v, g = (torch.tensor(x).to(cuda_device, torch.bfloat16)
-                  for x in inputs(s, seed=4))
+                  for x in inputs(s, seed=4, b=b, h=h))
+    if fused:
+        q, k, v = fused_views(q, k, v)
+        assert q.stride(1) == 3 * h * 64 and port._aligned(q) is q
     port.reset_launch_counts()
     o, lse = port.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = port._fwd_plain(q, k, v, causal)
@@ -64,28 +85,45 @@ def test_cuda_kernels_match_plain(cuda_device, causal, s):
 # ------------------------------------------- the check, on the CPU
 
 S_CHECK = 1024  # the main path's sequence length
+LOG2E = 1.4426950408889634
 
 
 def _bhsd(x):
     return x.float().transpose(1, 2)
 
 
-def emulated_fwd(q, k, v, mask):
+def _tiles_transposed(x):
+    """[B, H, S, 64] with each 64 x 64 tile transposed: an MN-major B
+    operand read with the wrong transpose flag."""
+    b, h, s, d = x.shape
+    return x.reshape(b, h, s // d, d, d).transpose(-1, -2).reshape(x.shape)
+
+
+def emulated_fwd(q, k, v, mask, fault=None):
     """The forward kernel's arithmetic with ``mask`` as its causal mask:
-    fp32 scores and softmax, P rounded to bf16 before P.V, O in bf16."""
+    fp32 scores and softmax, P rounded to bf16 before P.V, O in bf16;
+    (O, logsumexp). ``fault`` "v_tile_transposed" reads V's tiles
+    transposed, "lse_base2" stores the logsumexp in base 2."""
     s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) / math.sqrt(q.shape[-1])
     s = s.masked_fill(~mask, -1e30)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
     l = p.sum(-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = (p.bfloat16().float() @ _bhsd(v)) / l
-    return o.transpose(1, 2).bfloat16()
+    vt = _bhsd(v)
+    if fault == "v_tile_transposed":
+        vt = _tiles_transposed(vt)
+    o = (p.bfloat16().float() @ vt) / l
+    lse = (m + torch.log(l)).squeeze(-1)
+    if fault == "lse_base2":
+        lse = lse * LOG2E
+    return o.transpose(1, 2).bfloat16(), lse
 
 
-def emulated_bwd(q, k, v, do, lse, delta, mask):
+def emulated_bwd(q, k, v, do, lse, delta, mask, fault=None):
     """The dQ and dK/dV kernels' arithmetic with ``mask``: P and dS
-    rounded to bf16 before their products, outputs in bf16."""
+    rounded to bf16 before their products, outputs in bf16. ``fault``
+    "do_tile_transposed" reads dO's tiles transposed in dV += P^T dO."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
@@ -93,7 +131,10 @@ def emulated_bwd(q, k, v, do, lse, delta, mask):
     ds = (p * (dp - delta[..., None])).bfloat16().float()
     dq = ds @ _bhsd(k) * scale
     dk = ds.transpose(-1, -2) @ _bhsd(q) * scale
-    dv = p.bfloat16().float().transpose(-1, -2) @ _bhsd(do)
+    dot = _bhsd(do)
+    if fault == "do_tile_transposed":
+        dot = _tiles_transposed(dot)
+    dv = p.bfloat16().float().transpose(-1, -2) @ dot
     return tuple(x.transpose(1, 2).bfloat16() for x in (dq, dk, dv))
 
 
@@ -121,13 +162,27 @@ def check_case():
     delta = port.attention_delta(o, do)
     dq = port._bwd_dq_plain(q, k, v, do, lse, delta, True)
     dk, dv = port._bwd_dkv_plain(q, k, v, do, lse, delta, True)
-    return (q, k, v, do, lse, delta), {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    return (q, k, v, do, lse, delta), {"o": o, "lse": lse, "dq": dq,
+                                       "dk": dk, "dv": dv}
 
 
-def _emulated(case, mask):
+def _emulated(case, mask, fault=None):
+    """The kernels' outputs on ``case``; the backward reads the plain
+    logsumexp, or its base-2 form under the fault "lse_base2"."""
     (q, k, v, do, lse, delta), _ = case
-    dq, dk, dv = emulated_bwd(q, k, v, do, lse, delta, mask)
-    return {"o": emulated_fwd(q, k, v, mask), "dq": dq, "dk": dk, "dv": dv}
+    if fault == "lse_base2":
+        lse = lse * LOG2E
+    dq, dk, dv = emulated_bwd(q, k, v, do, lse, delta, mask, fault)
+    o, lse_out = emulated_fwd(q, k, v, mask, fault)
+    return {"o": o, "lse": lse_out, "dq": dq, "dk": dk, "dv": dv}
+
+
+def _err_over_limit(name, got, ref):
+    """An output's error as a multiple of its limit: LSE_TOL for the
+    logsumexp (element by element), TILE_REL_TOL for the others."""
+    if name == "lse":
+        return (got - ref).abs().max().item() / port.LSE_TOL
+    return port.tile_rel_err(got, ref) / port.TILE_REL_TOL
 
 
 def test_check_passes_kernel_rounding(check_case):
@@ -136,17 +191,33 @@ def test_check_passes_kernel_rounding(check_case):
     right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
     got, refs = _emulated(check_case, right), check_case[1]
     for name, ref in refs.items():
-        assert port.tile_rel_err(got[name], ref) <= port.TILE_REL_TOL / 2, \
-            name
+        assert _err_over_limit(name, got[name], ref) <= 0.5, name
 
 
-@pytest.mark.parametrize("outputs", [("o",), ("dq",), ("dk", "dv")],
-                         ids=["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("wrong", sorted(_wrong_masks()))
+_OUTPUTS = {"fwd": ("o",), "lse": ("lse",), "dq": ("dq",),
+            "dkv": ("dk", "dv")}
+# Faults of the Hopper design, each with the outputs it reaches: a V or
+# dO tile read with the wrong transpose flag, and a logsumexp stored in
+# base 2 (then read as natural by the backward).
+_OPERAND_FAULTS = [("v_tile_transposed", "fwd"),
+                   ("do_tile_transposed", "dkv"),
+                   ("lse_base2", "lse"), ("lse_base2", "dq"),
+                   ("lse_base2", "dkv")]
+_WRONG = [(w, o) for w in sorted(_wrong_masks())
+          for o in ("fwd", "dq", "dkv")] + _OPERAND_FAULTS
+
+
+@pytest.mark.parametrize("wrong,outputs", _WRONG,
+                         ids=[f"{w}-{o}" for w, o in _WRONG])
 def test_check_rejects_wrong_kernel(check_case, wrong, outputs):
-    got, refs = _emulated(check_case, _wrong_masks()[wrong]), check_case[1]
-    worst = max(port.tile_rel_err(got[n], refs[n]) for n in outputs)
-    assert worst > 2 * port.TILE_REL_TOL
+    right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
+    masks = _wrong_masks()
+    got = _emulated(check_case, masks.get(wrong, right),
+                    None if wrong in masks else wrong)
+    refs = check_case[1]
+    worst = max(_err_over_limit(n, got[n], refs[n])
+                for n in _OUTPUTS[outputs])
+    assert worst > 2
 
 
 def test_tile_rel_err_ragged_and_tile_local():
