@@ -33,13 +33,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024) with the
    port's fused ``adam8bit(2e-4)`` the same way (2 warm-up steps, a
    window of 5, 3 traced): every flash kernel 48 times a step, the fused
-   8-bit Adam kernel once a leaf a step, the unfused one never; then 2
+   8-bit Adam kernel once a step over every leaf, the unfused one never;
+   in the traced steps, the optimizer's own ops (a profiler range
+   around ``update_and_apply``) hold no cat and no copy kernel, and the
+   fused kernel runs once a step; then 2
    steps of the optax-style loop (``update``, then apply), where the
-   unfused kernel runs once a leaf a step and the fused one never;
-6. time one whole 8-bit Adam step over the 1.5B params (the kernels'
-   launches alone, and through the wrappers), and the largest leaf
-   alone, for each kernel and for the plain version, beside the bound
-   from the bytes each must move;
+   unfused kernel runs once a step and the fused one never;
+6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
+   launch a step (``update_and_apply`` with one gradient missing, and
+   ``update``) to the plain version leaf by leaf; time one whole 8-bit
+   Adam step (each kernel's one launch alone, and the step through
+   ``update_and_apply`` or ``update`` with the wrappers' host work, and
+   the pieces of ``update``'s host work), and the largest leaf alone,
+   for each kernel and for the plain version, beside the bound from the
+   bytes each must move;
 7. print the card, a ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -391,6 +398,8 @@ def train(label, cfg, optimizer, batch_size, steps, seed):
     log(f"[train {label}] loss at init {first}; window losses {losses}")
     check(out["step"] == steps, f"{label}: fit stopped at {out['step']}")
     per_step = getattr(trainer.state["opt"], "launches_per_step", 0)
+    check(per_step in (0, 1), f"{label}: {per_step} optimizer launches a "
+          "step, want one")
     want = {name: cfg.num_layers * steps for name in FLASH}
     want.update(adam8=0, adam8_fused=per_step * steps)
     for name, count in launches.items():
@@ -419,7 +428,7 @@ def train(label, cfg, optimizer, batch_size, steps, seed):
 
 def train_unfused(trainer, batch, steps):
     """More steps of the 8-bit Adam run through the optax-style contract:
-    gradients, ``update`` (the unfused kernel, once a leaf a step), then
+    gradients, ``update`` (the unfused kernel, once a step), then
     apply; the fused kernel never runs."""
     opt = trainer.state["opt"]
     toks = torch.from_numpy(batch).cuda()
@@ -450,14 +459,54 @@ def train_unfused(trainer, batch, steps):
     return launches
 
 
+OPT_RANGE = "adam8bit.update_and_apply"
+# The ops of a gather and a scatter, and their kernels (torch.cat, a
+# foreach copy, a device-to-device copy).
+GATHER_SCATTER_OPS = ("aten::cat", "aten::_foreach_copy_", "aten::stack")
+GATHER_SCATTER = ("CatArrayBatchedCopy", "CopyFunctor", "Memcpy DtoD",
+                  "direct_copy")
+
+
+def range_contents(prof, name):
+    """How many times the host range ``name`` ran, and the ops it called
+    and the kernels those ops launched (the 8-bit Adam kernel itself is
+    launched from its ctypes library, outside any op, and is counted by
+    kernel name instead)."""
+    ops, kernels = [], []
+
+    def walk(event):
+        ops.append(event.name)
+        kernels.extend(k.name for k in event.kernels)
+        for child in event.cpu_children:
+            walk(child)
+
+    ranges = [e for e in prof.events() if e.name == name
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    for event in ranges:
+        for child in event.cpu_children:
+            walk(child)
+    return len(ranges), ops, kernels
+
+
 def profile_window(label, trainer, batch, window_step_ms, steps=3):
     """Device time by kernel over ``steps`` more steps of the warm trainer
     (torch.profiler, CUDA activity): the share of the traced wall time the
     card spent in kernels, the kernels' time over the step of the window
     without the profiler (whose host-side tracing slows a step of many
-    small ops), and the kernels grouped by what they do."""
+    small ops), and the kernels grouped by what they do. With the 8-bit
+    Adam optimizer, its ``update_and_apply`` runs inside a profiler range:
+    the ops of that range and their kernels must hold no gather or
+    scatter, and the profile one fused Adam launch a step."""
     from torch.profiler import ProfilerActivity, profile
 
+    opt = trainer.state["opt"]
+    fused = getattr(opt, "update_and_apply", None)
+    if fused is not None:
+        def traced(grads, params):
+            with torch.profiler.record_function(OPT_RANGE):
+                fused(grads, params)
+
+        opt.update_and_apply = traced
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -469,6 +518,22 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]
+    if fused is not None:
+        del opt.update_and_apply  # the bound method again
+        ranges, ops, opt_kernels = range_contents(prof, OPT_RANGE)
+        count = lambda names: {n: names.count(n)  # noqa: E731
+                               for n in sorted(set(names))}
+        adam = sum(e.count for e in kernels if "adam8_kernel" in e.key)
+        log(f"[profile {label}] optimizer range: " + json.dumps(
+            {"ranges": ranges, "ops": count(ops),
+             "kernels": count([k[:90] for k in opt_kernels]),
+             "adam8_kernel_launches": adam}))
+        check(ranges == steps, f"{label}: {ranges} optimizer ranges traced")
+        check(adam == steps, f"{label}: {adam} fused Adam launches traced "
+              f"in {steps} steps")
+        bad = [k for k in ops if k in GATHER_SCATTER_OPS] + [
+            k for k in opt_kernels if any(t in k for t in GATHER_SCATTER)]
+        check(not bad, f"{label}: the optimizer ran {bad}")
     total = sum(e.self_device_time_total for e in kernels)
     groups = {}
     for e in kernels:
@@ -537,6 +602,7 @@ def adam8_cases(gen):
     yield leaf("wte [50257, 1600]", (50257, 1600))
     yield leaf("ragged [777, 333]", (777, 333))
     yield leaf("straddling bias [48, 4800]", (4800,), 48)
+    yield leaf("straddling [7, 37]", (37,), 7)
     yield crafted_case()
 
 
@@ -614,13 +680,118 @@ def adam8_work(opt, paths):
     return out
 
 
+def check_step_tables(opt, grads):
+    """Each kernel's one launch over every leaf, through the entry point
+    that trains (``update_and_apply``, with the gradient of one member of
+    a straddling leaf missing, read as zeros) and through ``update``, held
+    leaf by leaf to the plain version on copies of the state and params
+    from before the launch; returns the largest |err| of each kernel's
+    output."""
+    hp, names = opt.tx.hp, list(opt.params)
+    straddling = [leaf for leaf in opt._leaves.values()
+                  if len(leaf.names) > 1 and not lowbit._chunked(leaf.shape)]
+    leaf = min(straddling, key=lambda leaf: math.prod(leaf.shape))
+    dropped = leaf.names[len(leaf.names) // 2]
+    errs = {}
+    for name in ("adam8_fused", "adam8"):
+        fused = name == "adam8_fused"
+        prior = {path: tuple(lowbit.QTensor(qt.q.clone(), qt.scale.clone())
+                             for qt in (opt.state.m[path], opt.state.v[path]))
+                 for path in opt._leaves}
+        before = {n: opt.params[n].clone() for n in names} if fused else {}
+        launches = lowbit.LAUNCHES[name]
+        if fused:
+            opt.update_and_apply(
+                [None if n == dropped else grads[n] for n in names],
+                [opt.params[n] for n in names])
+            got_out = opt.params
+        else:  # without params: the kernel's output, no decay after it
+            got_out, _ = opt.tx.update(grads, opt.state)
+        check(lowbit.LAUNCHES[name] == launches + 1,
+              f"{name}: {lowbit.LAUNCHES[name] - launches} launches a step")
+        step = opt.state.step
+        bc = 1 - opt.tx._betas[step.device] ** step  # as the step made it
+        worst, errs[name] = ("", -1.0), 0.0
+        for path, leaf in opt._leaves.items():
+            g = [torch.zeros_like(opt.params[n]) if fused and n == dropped
+                 else grads[n] for n in leaf.names]
+            (qm, qv), m, v = prior[path], opt.state.m[path], opt.state.v[path]
+            ref = lowbit._plain_blocks(
+                g, qm, qv, bc, leaf.shape, hp,
+                p=[before[n] for n in leaf.names] if fused else None)
+            got = (lowbit._blocks_of(lowbit._leaf(
+                [got_out[n] for n in leaf.names], leaf.shape), hp.block),
+                   m.q.view(-1, hp.block), m.scale.view(-1),
+                   v.q.view(-1, hp.block), v.scale.view(-1))
+            e = lowbit.adam8_errors(got, ref)
+            bad = lowbit.adam8_failures(e)
+            check(not bad, f"{name} step table, leaf {path}: {bad} {e}")
+            errs[name] = max(errs[name], e["max_abs_err"])
+            if e["out_err_over_limit"] > worst[1]:
+                worst = (path, e["out_err_over_limit"])
+            del g, ref, got
+        via = (f"update_and_apply, no gradient for {dropped}" if fused
+               else "update")
+        log(f"[kernels] {name} one launch over {len(opt._leaves)} leaves "
+            f"({via}): every leaf within {json.dumps(lowbit.ADAM8_LIMITS)}; "
+            f"max_abs_err {errs[name]}, worst leaf {worst[0]} at "
+            f"out_err_over_limit {worst[1]}")
+        del prior, before, got_out
+        torch.cuda.empty_cache()
+    return errs
+
+
+def update_host_ms(opt, grads, iters=20):
+    """Host milliseconds of the pieces of an ``update`` call around its
+    launch, each timed alone on the host clock after one call and a
+    synchronize: allocating the outputs, finding the cached table (its
+    key), and pointing the table at the outputs when they moved (one H2D
+    copy behind an event; two sets of outputs in turns) and when they did
+    not (the copy skipped); and whether two calls in a row put their
+    outputs at other addresses."""
+    table = opt.tx.step_tables(grads, opt.state)[0]
+    alloc = lambda: {n: torch.empty(g.shape, dtype=g.dtype,  # noqa: E731
+                                    device=g.device) for n, g in grads.items()}
+    outs, turn = [alloc(), alloc()], [0]
+
+    def point(k):
+        table.point(table.members(grads), table.members(outs[k]))
+
+    def moved():
+        turn[0] ^= 1
+        point(turn[0])
+
+    def clock(fn):
+        fn()  # the allocator's first call may go to cudaMalloc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    out = {"alloc": clock(alloc),
+           "find_table": clock(lambda: opt.tx.step_tables(grads, opt.state)),
+           "point_moved": clock(moved)}
+    point(0)
+    out["point_unmoved"] = clock(lambda: point(0))
+    del outs
+    opt.tx.update(grads, opt.state)  # its outputs dropped, as when timed
+    last = table._last
+    opt.tx.update(grads, opt.state)
+    out["outputs_moved_between_calls"] = table._last is not last
+    torch.cuda.synchronize()
+    return out
+
+
 def time_adam8(opt, seed):
     """One whole step of each kernel over every leaf of the bound 1.5B
-    optimizer (its launches alone, on segments made beforehand; and
-    through the wrappers, with their host work and the gather / scatter
-    of the stacked biases and norms), the largest leaf alone, and the
-    plain version on the same leaves (block layout made outside the
-    timing); random bf16 gradients from the seed."""
+    optimizer: its one launch alone (``ms``: the table's pointers set
+    beforehand, no host work), the whole step through the wrapper
+    (``wrapper_step_ms``: ``update_and_apply`` for the fused kernel,
+    ``update`` for the unfused one, with their host work), the largest
+    leaf alone (a table of that leaf), and the plain version on the same
+    leaves (block layout made outside the timing); random bf16 gradients
+    from the seed."""
     hp = opt.tx.hp
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     grads = {n: (torch.randn(p.shape, generator=gen, device="cuda")
@@ -631,41 +802,50 @@ def time_adam8(opt, seed):
     members = {path: ([grads[n] for n in leaf.names],
                       [opt.params[n] for n in leaf.names])
                for path, leaf in opt._leaves.items()}
-    segs = {}
-    for path, leaf in opt._leaves.items():
-        g, p = members[path]
-        g_segs = lowbit._segments(g, leaf.shape)
-        segs[path] = (g_segs, lowbit._segments(p, leaf.shape),
-                      [torch.empty_like(t) for t in g_segs])
-
-    def launches(fused, which):
-        for path in which:
-            g_segs, p_segs, u_segs = segs[path]
-            lowbit._launch(fused, g_segs, p_segs if fused else u_segs,
-                           opt.state.m[path], opt.state.v[path], bc, hp)
-
-    def wrappers(fused, which):
-        for path in which:
-            leaf, (g, p) = opt._leaves[path], members[path]
-            qm, qv = opt.state.m[path], opt.state.v[path]
-            if fused:
-                lowbit.adam8_fused_update(g, p, qm, qv, bc, leaf.shape, hp)
-            else:
-                lowbit.adam8_update(g, qm, qv, bc, leaf.shape, hp)
+    names = list(opt.params)
+    g_list, p_list = [grads[n] for n in names], [opt.params[n] for n in names]
+    main_path_errs = check_step_tables(opt, grads)
+    # The bound table (fused) and update's table (unfused), each pointed
+    # at these gradients by one call; ``held`` keeps update's outputs,
+    # which its table writes, alive while its launch is timed alone.
+    opt.update_and_apply(g_list, p_list)
+    held, _ = opt.tx.update(grads, opt.state, opt.params)
+    tables = {"adam8_fused": opt._cache[1], "adam8": opt.tx._cache[1]}
+    leaf = opt._leaves[largest]
+    g_big, p_big = members[largest]
+    u_big = [torch.empty_like(t) for t in g_big]
+    qm, qv = opt.state.m[largest], opt.state.v[largest]
+    one = {}
+    for name, out in (("adam8", u_big), ("adam8_fused", p_big)):
+        one[name] = lowbit._Table([(leaf.shape, out, qm, qv)],
+                                  out[0].dtype, out[0].device)
+        one[name].point(g_big, out)
+    wrappers = {
+        "adam8_fused": lambda: opt.update_and_apply(g_list, p_list),
+        "adam8": lambda: opt.tx.update(grads, opt.state, opt.params),
+    }
 
     out = {}
     whole, alone = adam8_work(opt, paths), adam8_work(opt, [largest])
     for name, fused in (("adam8", False), ("adam8_fused", True)):
+        check(len(tables[name]) == 1, f"{name}: {len(tables[name])} tables")
+        table = tables[name][0]
         out[name] = {
-            "ms": time_ms(lambda: launches(fused, paths), iters=5, warmup=1),
-            "wrapper_step_ms": time_ms(lambda: wrappers(fused, paths),
-                                       iters=5, warmup=1),
-            "largest_leaf_ms": time_ms(lambda: launches(fused, [largest]),
-                                       iters=5, warmup=1),
+            "ms": time_ms(lambda: table.launch(fused, bc, hp), iters=10,
+                          warmup=2),
+            "largest_leaf_ms": time_ms(
+                lambda: one[name].launch(fused, bc, hp), iters=10, warmup=2),
             "plain_ms": 0.0, **whole[name],
             "largest_leaf_bound_ms": alone[name]["bound_ms"],
         }
-    del segs
+    del held, one
+    for name in ("adam8", "adam8_fused"):
+        out[name]["wrapper_step_ms"] = time_ms(wrappers[name], iters=10,
+                                               warmup=2)
+        out[name]["wrapper_over_launch_ms"] = \
+            out[name]["wrapper_step_ms"] - out[name]["ms"]
+        out[name]["max_abs_err"] = main_path_errs[name]
+    out["adam8"]["update_host_ms"] = update_host_ms(opt, grads)
     for path in paths:
         leaf = opt._leaves[path]
         blocks = lambda ts: lowbit._blocks_of(  # noqa: E731
@@ -723,10 +903,14 @@ def main():
         x = flash_inputs.pop(label)
         timing[label], yard = time_kernels(*x)
         fused_times, _ = time_kernels(*fused_qkv(*x), yardsticks=False)
+        pair = timing[label]["flash_bwd_dq"]["ms"] + \
+            timing[label]["flash_bwd_dkv"]["ms"]
         log("[timing] " + json.dumps({
             "shape": f"{label}: B{b} H{h} S{SEQ}", "kernels": timing[label],
             "kernels_fused_qkv": fused_times,
-            "bounds": bounds(b, SEQ, h, 64, True), "yardstick": yard}))
+            "bounds": bounds(b, SEQ, h, 64, True), "yardstick": yard,
+            "dq_plus_dkv_ms": pair,
+            "dq_plus_dkv_over_aten_bwd": pair / yard["aten_flash_bwd_ms"]}))
         del x
     times, bound = timing["gpt2-124m"], bounds(BATCH, SEQ, 12, 64, True)
     torch.cuda.empty_cache()
@@ -747,6 +931,8 @@ def main():
     del trainer
     torch.cuda.empty_cache()
     adam8_times = time_adam8(opt, args.seed)
+    for name in ("adam8", "adam8_fused"):
+        errs[name] = max(errs[name], adam8_times[name]["max_abs_err"])
     log("[timing] " + json.dumps({"adam8bit whole step": adam8_times}))
     del opt
     torch.cuda.empty_cache()

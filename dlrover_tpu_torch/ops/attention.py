@@ -15,9 +15,9 @@ the plain PyTorch version beside it (``_fwd_plain``, ``_bwd_dq_plain``,
 ``_bwd_dkv_plain``) only for a tensor on the CPU. The plain versions
 repeat the TPU kernels' arithmetic in fp32 and are the kernels' oracle.
 The kernels take bf16 with head_dim 64 and read the inputs through
-their strides (the forward and dK/dV through TMA maps built from them);
-their tiles are their own (128 x 128 forward, 128 kv x 64 q dK/dV, 64 x
-64 dQ), whatever ``block_q``/``block_k`` say.
+their strides (through TMA maps built from them); their tiles are their
+own (128 x 128 forward, 128 kv x 64 q dK/dV, 128 q x 64 kv dQ), whatever
+``block_q``/``block_k`` say.
 
 The causal mask is the kernels': rows >= cols, aligned top-left. The
 JAX package's ``reference_attention`` aligns it bottom-right instead;
@@ -33,7 +33,6 @@ import torch
 _NEG_INF = -1e30
 #: The head_dim the CUDA kernels are built for.
 HEAD_DIM = 64
-_MAX_GRID_Y = 65535
 
 #: Launches of each kernel since the last ``reset_launch_counts()``; a
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -184,8 +183,6 @@ def _check(q, k, v):
             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
             f"{tuple(q.shape)}"
         )
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"batch*heads {b * h} exceeds {_MAX_GRID_Y}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

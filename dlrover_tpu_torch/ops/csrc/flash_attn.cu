@@ -24,8 +24,8 @@
 // dK/dV). Reaching either needs the tensor cores fed at their Hopper rate
 // and the exponentials and loads hidden under them.
 //
-// The forward and dK/dV kernels are built for that (hopper.cuh holds the
-// pieces). Both are persistent: one block on each SM walks the work items
+// The three kernels are built for that (hopper.cuh holds the pieces).
+// All are persistent: one block on each SM walks the work items
 // in a snake order, heaviest first (snake_item). A block is three
 // warpgroups: one producer thread issues every load through TMA
 // (cp.async.bulk.tensor: 128-byte swizzled tiles, zero-filled past S)
@@ -62,11 +62,17 @@
 //     most query tiles) come first. Its products and its softmax do not
 //     overlap inside a warpgroup; the two warpgroups and the load ring are
 //     what overlap. It keeps 168 registers a thread with a 16-byte spill.
-//
-// bwd_dq_kernel is the first, simple version: WMMA bf16 m16n16k16 on 64 x
-// 64 tiles, 4 warps, loads between __syncthreads, the softmax through
-// shared memory. It reaches a few percent of its bound; its loop over kv
-// tiles is the forward's, and it is next to be rebuilt on these pieces.
+//   bwd_dq_kernel: dK/dV with Q and K/V swapped. 128 query rows of one
+//     (b, h) an item, the last query tiles first; Q and dO once (two
+//     buffers), then 64-row tiles of K and V through 4 stages (129 KB);
+//     each consumer warpgroup keeps its 64 rows' lse (times log2 e) and
+//     delta in registers; S = Q K^T and dP = dO V^T (m64n64k16, both
+//     K-major), dS in registers, dQ += dS K with K MN-major; dQ goes out
+//     through the item's Q buffer. Inside a warpgroup, S and dP of tile t
+//     go out with dQ += dS_{t-1} K_{t-1}, and dS_t is computed while the
+//     second product runs (4-8% faster on the H100 than one after the
+//     other: ops/flash_probe.py's dq_serial). In a causal item warpgroup 0
+//     skips the last kv tile, which none of its rows sees.
 //
 // Inputs are bf16 [B, S, H, 64] read through their strides (head_dim
 // stride 1, the others multiples of 8 elements, each at least the extent
@@ -78,12 +84,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -96,174 +100,6 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Layout {
   long long b, s, h;  // element strides of [B, S, H, D]; D stride is 1
 };
-
-// ------------------------------------------------------- dQ (WMMA)
-
-constexpr int BM = 64;       // query rows per tile
-constexpr int BN = 64;       // key/value rows per tile
-constexpr int NWARPS = 4;    // each warp owns 16 rows of the tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = 16;
-// Shared-memory row pitches: padded against bank aliasing, and still
-// multiples of 32 bytes per 16 rows as WMMA loads require.
-constexpr int LDH = 72;      // bf16 tiles (64 + 8)
-constexpr int LDF = 68;      // fp32 tiles (64 + 4)
-
-static_assert(BM == BN && BN == D, "tiles share one pitch");
-
-struct Layouts {
-  Layout t[6];
-};
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Copy rows [row0, row0 + 64) of a strided [S, 64] bf16 matrix into a
-// shared tile; rows at or past `nrows` are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  for (int c = threadIdx.x; c < 64 * 8; c += NTHREADS) {
-    const int r = c >> 3, col = (c & 7) << 3;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDH + col) = val;
-  }
-}
-
-// c[16 x 64] (fp32, pitch LDF) = a[16 x 64] * bt[64 x 64]^T, both bf16
-// with pitch LDH: the warp's rows of a against every row of bt.
-__device__ __forceinline__ void warp_gemm_abt(float* c, const bf16* a,
-                                              const bf16* bt) {
-  FragA fa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(fa[kk], a + kk * 16, LDH);
-  }
-#pragma unroll
-  for (int nt = 0; nt < 64 / 16; ++nt) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBT fb;
-      wmma::load_matrix_sync(fb, bt + nt * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa[kk], fb, acc);
-    }
-    wmma::store_matrix_sync(c + nt * 16, acc, LDF, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x 64] += a[16 x 64] * b[64 x 64], both bf16 with pitch LDH.
-__device__ __forceinline__ void warp_gemm_ab(FragC* acc, const bf16* a,
-                                             const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * LDH + nt * 16, LDH);
-      wmma::mma_sync(acc[nt], fa, fb, acc[nt]);
-    }
-  }
-}
-
-__device__ __forceinline__ bool visible(int gq, int gk, int Sq, int Sk,
-                                        int causal) {
-  return gq < Sq && gk < Sk && (!causal || gq >= gk);
-}
-
-// Number of kv tiles a query tile starting at q0 attends to.
-__device__ __forceinline__ int kv_tiles(int q0, int Sk, int causal) {
-  int n = (Sk + BN - 1) / BN;
-  if (causal) n = min(n, (q0 + BM - 1) / BN + 1);
-  return n;
-}
-
-constexpr size_t kDqSmem =
-    5 * BM * LDH * sizeof(bf16) + 2 * BM * LDF * sizeof(float) +
-    2 * BM * sizeof(float);
-
-// One block per (query tile, batch*head); loops over kv tiles.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int H, int Sq, int Sk, Layouts L,
-              float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BM * LDH;
-  bf16* sK = sdO + BM * LDH;
-  bf16* sV = sK + BN * LDH;
-  bf16* sDS = sV + BN * LDH;
-  float* sS = reinterpret_cast<float*>(sDS + BM * LDH);
-  float* sDP = sS + BM * LDF;
-  float* sLse = sDP + BM * LDF;
-  float* sDelta = sLse + BM;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const bf16* qb = q + b * L.t[0].b + h * L.t[0].h;
-  const bf16* kb = k + b * L.t[1].b + h * L.t[1].h;
-  const bf16* vb = v + b * L.t[2].b + h * L.t[2].h;
-  const bf16* dob = dout + b * L.t[3].b + h * L.t[3].h;
-  bf16* dqb = dq + b * L.t[4].b + h * L.t[4].h;
-
-  load_tile(sQ, qb, L.t[0].s, q0, Sq);
-  load_tile(sdO, dob, L.t[3].s, q0, Sq);
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    const bool in = q0 + i < Sq;
-    sLse[i] = in ? lse[(long long)bh * Sq + q0 + i] : 0.0f;
-    sDelta[i] = in ? delta[(long long)bh * Sq + q0 + i] : 0.0f;
-  }
-  const int r0 = warp * WROWS;
-  FragC acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) wmma::fill_fragment(acc[nt], 0.0f);
-  const int n_kv = kv_tiles(q0, Sk, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();
-    load_tile(sK, kb, L.t[1].s, k0, Sk);
-    load_tile(sV, vb, L.t[2].s, k0, Sk);
-    __syncthreads();
-    warp_gemm_abt(sS + r0 * LDF, sQ + r0 * LDH, sK);
-    warp_gemm_abt(sDP + r0 * LDF, sdO + r0 * LDH, sV);
-    __syncwarp();
-    for (int i = lane; i < WROWS * BN; i += 32) {
-      const int r = r0 + i / BN, c = i % BN;
-      const float p = visible(q0 + r, k0 + c, Sq, Sk, causal)
-                          ? expf(sS[r * LDF + c] * scale - sLse[r])
-                          : 0.0f;
-      sDS[r * LDH + c] = __float2bfloat16(p * (sDP[r * LDF + c] - sDelta[r]));
-    }
-    __syncwarp();
-    warp_gemm_ab(acc, sDS + r0 * LDH, sK);
-  }
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(sS + r0 * LDF + nt * 16, acc[nt], LDF,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < WROWS * D; i += 32) {
-    const int r = r0 + i / D, c = i % D;
-    const int gq = q0 + r;
-    if (gq < Sq) {
-      dqb[(long long)gq * L.t[4].s + c] =
-          __float2bfloat16(sS[r * LDF + c] * scale);
-    }
-  }
-}
 
 // ------------------------------------------------------- Hopper kernels
 
@@ -903,14 +739,257 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-Layouts make_layouts(const long long* strides, int n) {
-  Layouts L;
-  for (int i = 0; i < n; ++i) {
-    L.t[i].b = strides[3 * i];
-    L.t[i].s = strides[3 * i + 1];
-    L.t[i].h = strides[3 * i + 2];
+// dS of a dQ tile in place of dP: ds = P (dP - delta), P = exp2(S scale
+// log2 e - lse log2 e), with S the raw scores. This thread holds pieces
+// of query rows row0 and row0 + 8, whose lse (times log2 e) and delta it
+// keeps, at kv columns 8 n + col_off + j. Only a MASKED tile (across the
+// diagonal or the ragged end) tests the mask: column 8 n + j is visible
+// to row i when it is at most lim[i].
+template <bool MASKED>
+__device__ __forceinline__ void dq_probs(const float (&s)[32], float (&dp)[32],
+                                         const float (&lse2)[2],
+                                         const float (&dl)[2],
+                                         float scale_log2,
+                                         const int (&lim)[2]) {
+#pragma unroll
+  for (int idx = 0; idx < 32; ++idx) {
+    const int i = (idx / 2) % 2;
+    float p = hopper::fast_exp2(s[idx] * scale_log2 - lse2[i]);
+    if (MASKED && 8 * (idx / 4) + idx % 2 > lim[i]) p = 0.0f;
+    dp[idx] = p * (dp[idx] - dl[i]);
   }
-  return L;
+}
+
+constexpr int QBM = 128;                    // query rows per item
+constexpr int QBN = 64;                     // kv rows per tile
+constexpr int DQ_STAGES = 4;
+constexpr int kDqRows = QBM * ROW_BYTES;    // Q or dO of an item
+constexpr int kDqTile = QBN * ROW_BYTES;    // K or V of a tile
+constexpr size_t kDqSmem = 1024 + 4 * kDqRows + DQ_STAGES * 2 * kDqTile +
+                           (4 + 2 * DQ_STAGES) * sizeof(uint64_t);
+
+// A persistent kernel: one block on each SM walks the work items (query
+// tile of 128 rows, batch*head) in snake_item's order, the last query
+// tiles (which see the most kv tiles) first. Q and dO of an item come in
+// once, into one of two buffers, so the next item's load overlaps this
+// one's end; each item loops over the 64-row K/V tiles up to the
+// diagonal. It is dK/dV with the roles of Q and K/V swapped: the query
+// rows are the M of every product, and dQ += dS K reads K MN-major.
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int BH, int H, int Sq, int Sk,
+              Layout ldq, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);  // two buffers of Q then dO
+  unsigned char* sKV = sQ + 4 * kDqRows;     // stages of K then V
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * kDqTile);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int n_q = (Sq + QBM - 1) / QBM, n_items = n_q * BH;
+  // Item i: query tile n_q - 1 - i / BH of (b, h) = i % BH.
+  auto q_start = [&](int item) { return (n_q - 1 - item / BH) * QBM; };
+  auto n_kv_of = [&](int q0) {
+    const int n = (Sk + QBN - 1) / QBN;
+    return causal ? min(n, (q0 + QBM - 1) / QBN + 1) : n;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, 2 * WG / 32);  // one arrival a warp
+    }
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 2 * WG / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+
+  if (wg == 2) {  // producer
+    hopper::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      hopper::tma_prefetch_map(&tm_q);
+      hopper::tma_prefetch_map(&tm_k);
+      hopper::tma_prefetch_map(&tm_v);
+      hopper::tma_prefetch_map(&tm_do);
+      int ring = 0;  // position in the K/V ring, across items
+      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+        const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
+        const int qb = j % 2;
+        unsigned char* q_buf = sQ + qb * 2 * kDqRows;
+        if (j >= 2) hopper::mbar_wait(q_empty + qb, (j / 2 - 1) & 1);
+        hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);
+        hopper::tma_load_4d(q_buf, &tm_q, q_full + qb, 0, h, q0, b);
+        hopper::tma_load_4d(q_buf + kDqRows, &tm_do, q_full + qb, 0, h, q0,
+                            b);
+        const int n_kv = n_kv_of(q0);
+        for (int t = 0; t < n_kv; ++t, ++ring) {
+          const int st = ring % DQ_STAGES;
+          unsigned char* stage = sKV + st * 2 * kDqTile;
+          if (ring >= DQ_STAGES) {
+            hopper::mbar_wait(empty + st, (ring / DQ_STAGES - 1) & 1);
+          }
+          hopper::mbar_arrive_tx(full + st, 2 * kDqTile);
+          hopper::tma_load_4d(stage, &tm_k, full + st, 0, h, t * QBN, b);
+          hopper::tma_load_4d(stage + kDqTile, &tm_v, full + st, 0, h,
+                              t * QBN, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64)
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int col_off = 2 * (lane % 4);
+    const float scale_log2 = scale * LOG2E;
+    int ring = 0;
+    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+      const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
+      const int qb = j % 2;
+      // This thread holds pieces of query rows row0 and row0 + 8, at kv
+      // columns 8 n + col_off + j of every accumulator; their lse (in
+      // base 2) and delta stay in registers for the item.
+      const int row_lo = q0 + wg * 64;
+      const int row0 = row_lo + warp * 16 + lane / 4;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        const long long at = (long long)bh * Sq + row;
+        lse2[i] = row < Sq ? lse[at] * LOG2E : 0.0f;
+        dl[i] = row < Sq ? delta[at] : 0.0f;
+      }
+      unsigned char* q_rows = sQ + qb * 2 * kDqRows + wg * 64 * ROW_BYTES;
+      const uint32_t q_addr = hopper::smem_addr(q_rows);
+      const uint32_t do_addr = q_addr + kDqRows;
+      float acc[32], s[32], dp[32];
+      uint32_t da[QBN / 16][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      hopper::mbar_wait(q_full + qb, (j / 2) & 1);
+
+      // The item's kv tiles, and this warpgroup's: those that see one of
+      // its rows (in a causal item, warpgroup 0's rows see none of the
+      // last tile). The loops hold no branch around a wgmma.
+      const int n_kv = n_kv_of(q0);
+      const int n_mine = causal ? min(n_kv, (row_lo + 63) / QBN + 1) : n_kv;
+      auto k_addr = [&](int t) {
+        return hopper::smem_addr(sKV + (ring + t) % DQ_STAGES * 2 * kDqTile);
+      };
+      auto wait_full = [&](int t) {
+        hopper::mbar_wait(full + (ring + t) % DQ_STAGES,
+                          ((ring + t) / DQ_STAGES) & 1);
+      };
+      auto release = [&](int t) {
+        if (lane == 0) hopper::mbar_arrive(empty + (ring + t) % DQ_STAGES);
+      };
+      // S = Q K_t^T and dP = dO V_t^T, one commit group.
+      auto issue_s_dp = [&](int t) {
+        const uint32_t ka = k_addr(t), va = ka + kDqTile;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::wgmma_m64n64k16_ss(s, hopper::desc_k_major(q_addr + kk * 32),
+                                     hopper::desc_k_major(ka + kk * 32), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          hopper::wgmma_m64n64k16_ss(
+              dp, hopper::desc_k_major(do_addr + kk * 32),
+              hopper::desc_k_major(va + kk * 32), kk);
+        }
+        hopper::wgmma_commit();
+      };
+      // dQ += dS K_t, K MN-major (head_dim contiguous), one commit group.
+      auto issue_dq = [&](int t) {
+        const uint32_t ka = k_addr(t);
+#pragma unroll
+        for (int kk = 0; kk < QBN / 16; ++kk) {
+          hopper::wgmma_m64n64k16_rs_tb(
+              acc, da[kk], hopper::desc_mn_major(ka + kk * 16 * ROW_BYTES));
+        }
+        hopper::wgmma_commit();
+      };
+      // dS of tile t into dp, masked only on the diagonal and the ragged
+      // end.
+      auto ds = [&](int t) {
+        const int k0 = t * QBN;
+        int lim[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          lim[i] = Sk - 1 - k0 - col_off;
+          if (causal) lim[i] = min(lim[i], row0 + 8 * i - k0 - col_off);
+        }
+        if (k0 + QBN > Sk || (causal && k0 + QBN - 1 > row_lo)) {
+          dq_probs<true>(s, dp, lse2, dl, scale_log2, lim);
+        } else {
+          dq_probs<false>(s, dp, lse2, dl, scale_log2, lim);
+        }
+      };
+      auto pack_ds = [&] {
+#pragma unroll
+        for (int kk = 0; kk < QBN / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            da[kk][r] = hopper::pack_bf16(dp[8 * kk + 2 * r],
+                                          dp[8 * kk + 2 * r + 1]);
+          }
+        }
+      };
+
+      // S_t and dP_t go out with dQ += dS_{t-1} K_{t-1}, and dS_t is
+      // computed while the second product runs.
+      wait_full(0);
+      hopper::wgmma_fence();
+      issue_s_dp(0);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      ds(0);
+      pack_ds();
+      for (int t = 1; t < n_mine; ++t) {
+        wait_full(t);
+        hopper::wgmma_fence();
+        issue_s_dp(t);
+        issue_dq(t - 1);
+        hopper::wgmma_wait<1>();  // S_t and dP_t are in
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        ds(t);
+        hopper::fence_regs(dp);  // dS is done before the wait
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        release(t - 1);
+        pack_ds();
+      }
+      hopper::wgmma_fence();
+      issue_dq(n_mine - 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(n_mine - 1);
+      // Tiles past this warpgroup's rows: loaded, so waited for, and
+      // handed back.
+      for (int t = n_mine; t < n_kv; ++t) {
+        wait_full(t);
+        release(t);
+      }
+      ring += n_kv;
+
+      // This warpgroup's Q rows are read; they stage its dQ, and the
+      // buffer goes back to the producer once both warpgroups stored.
+      store_rows(acc, scale, scale, q_rows, dq + b * ldq.b + h * ldq.h,
+                 ldq.s, row_lo, Sq, wg);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(q_empty + qb);
+    }
+  }
 }
 
 Layout layout_at(const long long* strides, int i) {
@@ -984,14 +1063,20 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const long long* strides, float scale, int causal,
                       void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  cudaError_t err = prepare_hopper(bwd_dq_kernel, kDqSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BM - 1) / BM, B * H);
-  bwd_dq_kernel<<<grid, NTHREADS, kDqSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, H, Sq, Sk,
-      make_layouts(strides, 5), scale, causal);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!input_map(&tq, q, B, Sq, H, strides, 0, QBM) ||
+      !input_map(&tk, k, B, Sk, H, strides, 1, QBN) ||
+      !input_map(&tv, v, B, Sk, H, strides, 2, QBN) ||
+      !input_map(&tdo, dout, B, Sq, H, strides, 3, QBM)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int items = (Sq + QBM - 1) / QBM * B * H;
+  bwd_dq_kernel<<<resident_blocks(items), HOPPER_THREADS, kDqSmem,
+                  (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq,
+      B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal);
   return (int)cudaGetLastError();
 }
 

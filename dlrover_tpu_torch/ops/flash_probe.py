@@ -2,10 +2,11 @@
 
 Builds variants of ``csrc/flash_attn.cu``, each a list of text
 replacements of the committed source, into libraries of their own, and
-for each times the forward and dK/dV launches alone (100 launches after
-5) at GPT-2 124M's and GPT-2 xl's attention shapes (B*H 16*12 and 4*25,
-S 1024, D 64, bf16, causal), beside their tile errors against the plain
-versions. The variant ``clocks`` adds ``clock64()`` marks to the
+for each times the forward, dQ and dK/dV launches alone (100 launches
+after 5) at GPT-2 124M's and GPT-2 xl's attention shapes (B*H 16*12 and
+4*25, S 1024, D 64, bf16, causal), beside their tile errors against the
+plain versions (``dq_serial``: dQ's products and its dS one after the
+other, not overlapped). The variant ``clocks`` adds ``clock64()`` marks to the
 forward's consumer warpgroups and prints where a warpgroup's clocks go,
 per kv tile of the main loop and per item (the marks cost registers and
 time of their own, so its ms are not the committed kernel's).
@@ -74,6 +75,57 @@ _TURNS = [
 ]
 
 
+# dQ's loop over its kv tiles: S_t and dP_t issued with dQ += dS_{t-1}
+# K_{t-1} (the committed kernel), and one after the other.
+_DQ_OVERLAP = (
+    "      // S_t and dP_t go out with dQ += dS_{t-1} K_{t-1}, and dS_t is\n"
+    "      // computed while the second product runs.\n"
+    "      wait_full(0);\n"
+    "      hopper::wgmma_fence();\n"
+    "      issue_s_dp(0);\n"
+    "      hopper::wgmma_wait<0>();\n"
+    "      hopper::fence_regs(s);\n"
+    "      hopper::fence_regs(dp);\n"
+    "      ds(0);\n"
+    "      pack_ds();\n"
+    "      for (int t = 1; t < n_mine; ++t) {\n"
+    "        wait_full(t);\n"
+    "        hopper::wgmma_fence();\n"
+    "        issue_s_dp(t);\n"
+    "        issue_dq(t - 1);\n"
+    "        hopper::wgmma_wait<1>();  // S_t and dP_t are in\n"
+    "        hopper::fence_regs(s);\n"
+    "        hopper::fence_regs(dp);\n"
+    "        ds(t);\n"
+    "        hopper::fence_regs(dp);  // dS is done before the wait\n"
+    "        hopper::wgmma_wait<0>();\n"
+    "        hopper::fence_regs(acc);\n"
+    "        release(t - 1);\n"
+    "        pack_ds();\n"
+    "      }\n"
+    "      hopper::wgmma_fence();\n"
+    "      issue_dq(n_mine - 1);\n"
+    "      hopper::wgmma_wait<0>();\n"
+    "      hopper::fence_regs(acc);\n"
+    "      release(n_mine - 1);\n")
+_DQ_SERIAL = (
+    "      for (int t = 0; t < n_mine; ++t) {\n"
+    "        wait_full(t);\n"
+    "        hopper::wgmma_fence();\n"
+    "        issue_s_dp(t);\n"
+    "        hopper::wgmma_wait<0>();\n"
+    "        hopper::fence_regs(s);\n"
+    "        hopper::fence_regs(dp);\n"
+    "        ds(t);\n"
+    "        pack_ds();\n"
+    "        hopper::wgmma_fence();\n"
+    "        issue_dq(t);\n"
+    "        hopper::wgmma_wait<0>();\n"
+    "        hopper::fence_regs(acc);\n"
+    "        release(t);\n"
+    "      }\n")
+
+
 # Each variant: (file, old text, new text) replacements, in order.
 VARIANTS = {
     "committed": [],
@@ -82,6 +134,8 @@ VARIANTS = {
     "fwd_stages_2": [("flash_attn.cu",) + _stages("FWD_STAGES", 4, 2)],
     "fwd_stages_3": [("flash_attn.cu",) + _stages("FWD_STAGES", 4, 3)],
     "dkv_stages_2": [("flash_attn.cu",) + _stages("DKV_STAGES", 3, 2)],
+    "dq_stages_2": [("flash_attn.cu",) + _stages("DQ_STAGES", 4, 2)],
+    "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL)],
     "clocks": [("flash_attn.cu", old, new) for old, new in (
         ("namespace {\n\nconstexpr int D = 64;",
          "__device__ unsigned long long g_clocks[32];\n"
@@ -230,17 +284,22 @@ def probe(name, inputs):
         delta = attn.attention_delta(o_ref, do)
         o = torch.empty_like(q)
         lse = torch.empty_like(lse_ref)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         fwd = attn._launcher("flash_fwd_bf16", q, k, {
             "ptrs": (q, k, v, o, lse), "strided": (q, k, v, o)}, True)
         dkv = attn._launcher("flash_bwd_dkv_bf16", q, k, {
             "ptrs": (q, k, v, do, lse_ref, delta, dk, dv),
             "strided": (q, k, v, do, dk, dv)}, True)
-        row = {"flash_fwd_ms": time_ms(fwd), "flash_bwd_dkv_ms": time_ms(dkv)}
+        dq_ = attn._launcher("flash_bwd_dq_bf16", q, k, {
+            "ptrs": (q, k, v, do, lse_ref, delta, dq),
+            "strided": (q, k, v, do, dq)}, True)
+        row = {"flash_fwd_ms": time_ms(fwd), "flash_bwd_dq_ms": time_ms(dq_),
+               "flash_bwd_dkv_ms": time_ms(dkv)}
+        dq_ref = attn._bwd_dq_plain(q, k, v, do, lse_ref, delta, True)
         dk_ref, dv_ref = attn._bwd_dkv_plain(q, k, v, do, lse_ref, delta,
                                              True)
         row["tile_rel_err"] = max(attn.tile_rel_err(a, r) for a, r in (
-            (o, o_ref), (dk, dk_ref), (dv, dv_ref)))
+            (o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
         row["lse_err"] = (lse - lse_ref).abs().max().item()
         if name == "clocks":
             row["clocks"] = clocks(lib, fwd)

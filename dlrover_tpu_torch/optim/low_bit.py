@@ -12,21 +12,24 @@ Pallas kernels:
 - ``adam8_fused`` (``_adam8_fused_kernel``, ``:131``): the same, and
   write ``p * (1 - lr * wd) + u`` over the parameter.
 
-Each wrapper (``adam8_update``, ``adam8_fused_update``) launches its
-kernel for CUDA tensors, or raises; it takes the plain version
-``_adam8_plain`` (the Pallas body op for op, in fp32) only for tensors
-on the CPU.
+The CUDA kernel takes a whole step in one launch: it walks a table of
+every leaf and of every member tensor (``_Table``; ``leaf_rows`` lays it
+out and ``walk_rows`` is the plain version of its addressing). The
+bound optimizer's ``update_and_apply`` builds its table once and each
+step only refreshes the gradients' pointers; ``update`` does the same
+over the leaves it is given. The per-leaf wrappers (``adam8_update``,
+``adam8_fused_update``) launch a table of one leaf for CUDA tensors, or
+raise; they take the plain version ``_adam8_plain`` (the Pallas body op
+for op, in fp32) only for tensors on the CPU.
 
 **Layout.** The state is the JAX package's, leaf for leaf: one entry per
 leaf of the JAX GPT's params tree, keyed by the leaf's path
 (``models/convert.jax_leaves``; stacked layers, as ``scan_layers=True``
 gives). A stacked ``[L, ...]`` leaf of rank >= 3 quantizes per layer
 (``_chunked``); any other leaf is flattened whole, so the blocks of a
-stacked bias ``[L, 3d]`` straddle layers. The kernels walk a chunked
-leaf's layers through a table of pointers, one launch per leaf; the
-flat leaves that span several parameters (the stacked biases and norms,
-about 1M of GPT-2 xl's 1.56B values) are gathered into one buffer and,
-fused, scattered back.
+stacked bias ``[L, 3d]`` straddle layers. The kernel reads every value
+from, and writes it back to, its own layer's tensor, so a straddling
+leaf needs no gathered copy.
 
 **In place.** Unlike optax, ``update`` and ``update_and_apply`` update
 the state's tensors (and, fused, the parameters) in place: a second
@@ -38,10 +41,8 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-#: Elements of a quantization block in the CUDA kernels (32 lanes x 8).
+#: Elements of a quantization block in the CUDA kernel (32 lanes x 8).
 KERNEL_BLOCK = 256
-#: Layers of a chunked leaf one launch walks (the kernel's pointer table).
-MAX_SEGMENTS = 64
 
 #: Launches of each kernel since the last ``reset_launch_counts()``; a
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -225,10 +226,9 @@ def adam8_failures(errors: Mapping[str, float]) -> List[str]:
 
 _PTR, _INT, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-_PTRS = ctypes.POINTER(ctypes.c_void_p)
-# g pointers, out pointers, segments, segment numel, blocks per segment,
-# bc, mq, msc, sq, ssc, seven fp32 scalars, stream.
-_SIGNATURE = [_PTRS, _PTRS, _INT, _LL, _INT] + [_PTR] * 5 + [_F] * 7 + [_PTR]
+# leaf table, leaves, blocks, g pointers, out pointers, bc, seven fp32
+# scalars, stream.
+_SIGNATURE = [_PTR, _INT, _LL, _PTR, _PTR, _PTR] + [_F] * 7 + [_PTR]
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _SIGNATURES = {f"adam8_{form}{dt}": _SIGNATURE
                for form in ("", "fused_") for dt in _DTYPES.values()}
@@ -240,73 +240,189 @@ def _lib():
     return load_library("adam8bit", _SIGNATURES)
 
 
-def _segments(members: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
-    """The 1-D segments a launch walks: one per layer of a chunked leaf,
-    else the whole leaf (gathered when it spans several tensors)."""
-    if _chunked(shape):
-        if len(members) == 1:
-            return list(members[0].reshape(shape[0], -1).unbind(0))
-        return [t.reshape(-1) for t in members]
-    if len(members) == 1:
-        return [members[0].reshape(-1)]
-    return [torch.cat([t.reshape(-1) for t in members])]
+class LeafRow(NamedTuple):
+    """A leaf as the kernel's table describes it (its ``struct Leaf``,
+    less the state's four pointers)."""
+    block0: int   # its first block in the step's numbering
+    nblocks: int  # its quantization blocks
+    n: int        # values of each member
+    stride: int   # values between two members' starts in the block
+                  # layout: a block multiple when each member starts a
+                  # block (per-layer blocks, or one member), else n
+    member0: int  # its first member in the table's member lists
+    nmem: int
 
 
-def _launch(fused: bool, g_segs, out_segs, qm: QTensor, qv: QTensor, bc,
-            hp: _Hyper):
-    dtype, dev = g_segs[0].dtype, g_segs[0].device
-    if dtype not in _DTYPES:
-        raise TypeError(f"adam8bit kernels take bf16 or fp32, got {dtype}")
-    if hp.block != KERNEL_BLOCK:
-        raise ValueError(f"adam8bit kernels take block_size {KERNEL_BLOCK}, "
-                         f"got {hp.block}")
-    n = g_segs[0].numel()
-    per = -(-n // KERNEL_BLOCK)  # blocks per segment
-    for t in list(g_segs) + list(out_segs):
-        if (t.dtype != dtype or t.device != dev or t.numel() != n
-                or not t.is_contiguous()):
-            raise ValueError("adam8bit segments must be contiguous, of one "
-                             "dtype, device and size")
-    for t, dt in ((qm.q, torch.int8), (qv.q, torch.int8),
-                  (qm.scale, torch.float32), (qv.scale, torch.float32)):
-        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
-                or t.data_ptr() % 8):
-            raise ValueError(f"adam8bit state must be contiguous, aligned "
-                             f"{dt} on {dev}")
-    if (qm.q.numel() != len(g_segs) * per * KERNEL_BLOCK
-            or qv.q.shape != qm.q.shape
-            or qm.scale.numel() != len(g_segs) * per
-            or qv.scale.shape != qm.scale.shape):
-        raise ValueError(f"adam8bit state {tuple(qm.q.shape)} does not match "
-                         f"{len(g_segs)} x {n} values")
-    if bc.dtype != torch.float32 or bc.device != dev or bc.numel() != 2:
-        raise ValueError("bc must be fp32 [bc1, bc2] on the params' device")
-    entry = getattr(_lib(), f"adam8_{'fused_' if fused else ''}"
-                            f"{_DTYPES[dtype]}")
-    counter = "adam8_fused" if fused else "adam8"
-    scalars = (-hp.lr, hp.b1 / 127.0, 1.0 - hp.b1, hp.b2, 1.0 - hp.b2,
-               1.0 - hp.lr * hp.wd, hp.eps)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for s0 in range(0, len(g_segs), MAX_SEGMENTS):
-            s1 = min(s0 + MAX_SEGMENTS, len(g_segs))
-            rows = s0 * per
-            g_ptrs = (ctypes.c_void_p * (s1 - s0))(
-                *[t.data_ptr() for t in g_segs[s0:s1]])
-            o_ptrs = (ctypes.c_void_p * (s1 - s0))(
-                *[t.data_ptr() for t in out_segs[s0:s1]])
-            err = entry(
-                g_ptrs, o_ptrs, s1 - s0, n, per, bc.data_ptr(),
-                qm.q.data_ptr() + rows * KERNEL_BLOCK,
-                qm.scale.data_ptr() + rows * 4,
-                qv.q.data_ptr() + rows * KERNEL_BLOCK,
-                qv.scale.data_ptr() + rows * 4,
-                *scalars, stream,
-            )
-            if err:
-                raise RuntimeError(f"{counter} failed to launch: CUDA error "
-                                   f"{err}")
-            LAUNCHES[counter] += 1
+def _members(members: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
+    """A leaf's member tensors, one per layer of a chunked leaf (a single
+    stacked tensor is split into views of its layers)."""
+    if _chunked(shape) and len(members) == 1:
+        return list(members[0].reshape(shape[0], -1).unbind(0))
+    return list(members)
+
+
+def leaf_rows(leaves: Sequence[Tuple[tuple, int, int]],
+              block: int = KERNEL_BLOCK) -> List[LeafRow]:
+    """The table's rows for ``leaves``, each ``(JAX shape, members, values
+    a member)``, in order; the leaves' blocks are numbered one after
+    another."""
+    rows, block0, member0 = [], 0, 0
+    for shape, nmem, n in leaves:
+        if _chunked(shape):
+            per = -(-n // block)
+            nblocks, stride = nmem * per, per * block
+        else:
+            nblocks = -(-(nmem * n) // block)
+            stride = nblocks * block if nmem == 1 else n
+        rows.append(LeafRow(block0, nblocks, n, stride, member0, nmem))
+        block0 += nblocks
+        member0 += nmem
+    return rows
+
+
+def walk_rows(rows: Sequence[LeafRow], members: Sequence[torch.Tensor],
+              block: int = KERNEL_BLOCK) -> List[torch.Tensor]:
+    """The plain version of the kernel's addressing: each leaf of the
+    table in its block layout ``[nblocks, block]``, every value read from
+    the member and offset where the kernel finds it (0 in the padding)."""
+    out = []
+    for row in rows:
+        mats = torch.stack([t.reshape(-1) for t in
+                            members[row.member0:row.member0 + row.nmem]])
+        v = torch.arange(row.nblocks * block)
+        if row.stride % block == 0:
+            mem = v // block // (row.stride // block)
+            off = v - mem * row.stride
+        else:
+            mem, off = v // row.n, v % row.n
+        ok = (mem < row.nmem) & (off < row.n) & (off < mats.shape[1])
+        vals = mats[torch.where(ok, mem, 0), torch.where(ok, off, 0)]
+        out.append(torch.where(ok, vals, torch.zeros_like(vals))
+                   .reshape(-1, block))
+    return out
+
+
+class _Table:
+    """What one launch walks, on the device: a row per leaf (``LeafRow``
+    and its state's pointers) and the g and out (u, or p) pointer of
+    every member. Built once; ``point`` refreshes the member pointers
+    each step with one small host-to-device copy, and skips it when they
+    have not moved (gradients are new tensors every step, but the caching
+    allocator tends to put them where they were)."""
+
+    def __init__(self, leaves, dtype: torch.dtype, dev: torch.device,
+                 names=(), out: Optional[Mapping[str, torch.Tensor]] = None):
+        """``leaves``: ``(JAX shape, members, QTensor m, QTensor v)`` each,
+        the members being examples of g's (and out's) tensors; ``names``:
+        each leaf's parameter names, for ``members``; ``out``: the named
+        tensors that every step writes (the params, fused), if fixed."""
+        if dtype not in _DTYPES:
+            raise TypeError(f"adam8bit kernels take bf16 or fp32, got "
+                            f"{dtype}")
+        self.dtype, self.dev = dtype, dev
+        self.names = [(ns, tuple(shape))
+                      for ns, (shape, *_) in zip(names, leaves)]
+        self.n = []  # values of each member
+        self.state = []  # keeps the state's tensors referenced
+        specs = []
+        for shape, members, qm, qv in leaves:
+            members = _members(members, shape)
+            specs.append((tuple(shape), len(members), members[0].numel()))
+            self.n += [members[0].numel()] * len(members)
+        self.rows = leaf_rows(specs)
+        table = []
+        for row, (shape, _, qm, qv) in zip(self.rows, leaves):
+            # The kernel indexes a leaf's blocks, a member's values and a
+            # straddling leaf's values in 32 bits.
+            if (row.nblocks * KERNEL_BLOCK >= 2 ** 31 - KERNEL_BLOCK
+                    and row.stride % KERNEL_BLOCK) or \
+                    row.n >= 2 ** 31 - KERNEL_BLOCK or row.nblocks >= 2 ** 31:
+                raise ValueError(f"adam8bit leaf {shape} is too large")
+            for t, dt, elems in ((qm.q, torch.int8, KERNEL_BLOCK),
+                                 (qv.q, torch.int8, KERNEL_BLOCK),
+                                 (qm.scale, torch.float32, 1),
+                                 (qv.scale, torch.float32, 1)):
+                if (t.dtype != dt or t.device != dev or not t.is_contiguous()
+                        or t.data_ptr() % 16
+                        or t.numel() != row.nblocks * elems):
+                    raise ValueError(
+                        f"adam8bit state {tuple(t.shape)} {t.dtype} does "
+                        f"not match a leaf {shape} of {row.nblocks} blocks "
+                        f"(contiguous, 16-byte aligned, on {dev})")
+            self.state.append((qm, qv))
+            table.append(list(row) + [qm.q.data_ptr(), qm.scale.data_ptr(),
+                                      qv.q.data_ptr(), qv.scale.data_ptr()])
+        self.nblocks = self.rows[-1].block0 + self.rows[-1].nblocks
+        self.zeros = None  # what a member without a gradient reads
+        nmem = len(self.n)
+        self._pinned = [torch.empty((2, nmem), dtype=torch.int64,
+                                    pin_memory=True) for _ in range(2)]
+        self._copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self._turn, self._last = 0, None
+        self.ptrs = torch.empty((2, nmem), dtype=torch.int64, device=dev)
+        host = torch.tensor(table, dtype=torch.int64).pin_memory()
+        self.leaves = host.to(dev, non_blocking=True)
+        self._table_host = host  # read by that copy; kept alive with it
+        self.out = None if out is None else self.members(out)
+
+    def members(self, named: Mapping[str, Optional[torch.Tensor]]):
+        """The member tensors of ``named`` in the table's order (None for
+        a name without a tensor)."""
+        out = []
+        for names, shape in self.names:
+            ts = [named.get(n) for n in names]
+            if ts[0] is None and len(ts) == 1 and _chunked(shape):
+                out += [None] * shape[0]
+            else:
+                out += _members(ts, shape)
+        return out
+
+    def point(self, g: Sequence[Optional[torch.Tensor]],
+              out: Sequence[torch.Tensor]):
+        """Each member's g (None: a zero gradient) and out tensor."""
+        need = max((n for t, n in zip(g, self.n) if t is None), default=0)
+        if need and (self.zeros is None or self.zeros.numel() < need):
+            self.zeros = torch.zeros(need, dtype=self.dtype, device=self.dev)
+        zero = self.zeros.data_ptr() if need else 0
+        ptrs = [zero if t is None else t.data_ptr() for t in g]
+        ptrs += [t.data_ptr() for t in out]
+        if ptrs == self._last:
+            return
+        for t, n in zip(list(g) + list(out), self.n + self.n):
+            if t is not None and (t.dtype != self.dtype or t.device != self.dev
+                                  or t.numel() != n or not t.is_contiguous()):
+                raise ValueError(
+                    f"adam8bit takes contiguous {self.dtype} tensors of "
+                    f"the params' shapes on {self.dev}; got "
+                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        k, self._turn = self._turn, 1 - self._turn
+        # The copy that last read this staging buffer must be done.
+        self._copied[k].synchronize()
+        self._pinned[k].view(-1).numpy()[:] = ptrs
+        self.ptrs.copy_(self._pinned[k], non_blocking=True)
+        self._copied[k].record()
+        self._last = ptrs
+
+    def launch(self, fused: bool, bc: torch.Tensor, hp: _Hyper):
+        if hp.block != KERNEL_BLOCK:
+            raise ValueError(f"adam8bit kernels take block_size "
+                             f"{KERNEL_BLOCK}, got {hp.block}")
+        if bc.dtype != torch.float32 or bc.device != self.dev or \
+                bc.numel() != 2:
+            raise ValueError("bc must be fp32 [bc1, bc2] on the params' "
+                             "device")
+        counter = "adam8_fused" if fused else "adam8"
+        entry = getattr(_lib(), f"{counter}_{_DTYPES[self.dtype]}")
+        err = entry(
+            self.leaves.data_ptr(), len(self.rows), self.nblocks,
+            self.ptrs[0].data_ptr(), self.ptrs[1].data_ptr(), bc.data_ptr(),
+            -hp.lr, hp.b1 / 127.0, 1.0 - hp.b1, hp.b2, 1.0 - hp.b2,
+            1.0 - hp.lr * hp.wd, hp.eps,
+            torch.cuda.current_stream(self.dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{counter} failed to launch: CUDA error "
+                               f"{err}")
+        LAUNCHES[counter] += 1
 
 
 # ------------------------------------------------------- wrappers
@@ -357,14 +473,10 @@ def adam8_update(g: Sequence[torch.Tensor], qm: QTensor, qv: QTensor, bc,
     ``shape``), in g's dtype; ``qm``, ``qv`` are updated in place."""
     if _on_cpu(g[0]):
         return _plain_leaf(g, qm, qv, bc, shape, hp)
-    if len(g) > 1 and not _chunked(shape):  # one gathered segment
-        buf = torch.empty(sum(t.numel() for t in g), dtype=g[0].dtype,
-                          device=g[0].device)
-        _launch(False, _segments(g, shape), [buf], qm, qv, bc, hp)
-        return [x.view(t.shape)
-                for x, t in zip(buf.split([t.numel() for t in g]), g)]
     u = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in g]
-    _launch(False, _segments(g, shape), _segments(u, shape), qm, qv, bc, hp)
+    table = _Table([(shape, g, qm, qv)], g[0].dtype, g[0].device)
+    table.point(_members(g, shape), _members(u, shape))
+    table.launch(False, bc, hp)
     return u
 
 
@@ -381,13 +493,9 @@ def adam8_fused_update(g: Sequence[torch.Tensor], p: Sequence[torch.Tensor],
             for t, new in zip(p, _plain_leaf(g, qm, qv, bc, shape, hp, p)):
                 t.copy_(new)
         return
-    segs = _segments(p, shape)
-    _launch(True, _segments(g, shape), segs, qm, qv, bc, hp)
-    if len(p) > 1 and not _chunked(shape):  # a gathered copy: scatter back
-        with torch.no_grad():
-            torch._foreach_copy_(list(p), [
-                x.view(t.shape)
-                for x, t in zip(segs[0].split([t.numel() for t in p]), p)])
+    table = _Table([(shape, p, qm, qv)], p[0].dtype, p[0].device)
+    table.point(_members(g, shape), _members(p, shape))
+    table.launch(True, bc, hp)
 
 
 def kernel_and_plain(g, qm: QTensor, qv: QTensor, bc, shape, hp: _Hyper,
@@ -424,6 +532,7 @@ class Adam8bit:
     def __init__(self, hp: _Hyper):
         self.hp = hp
         self._betas: Dict[torch.device, torch.Tensor] = {}
+        self._cache = None  # (key, update's tables)
 
     @staticmethod
     def leaves(params: Mapping[str, torch.Tensor]):
@@ -447,50 +556,109 @@ class Adam8bit:
     def update(self, grads: Mapping[str, torch.Tensor], state: Adam8bitState,
                params: Optional[Mapping[str, torch.Tensor]] = None
                ) -> Tuple[Dict[str, torch.Tensor], Adam8bitState]:
-        """``(updates, state)``: one step through ``_adam8_kernel``;
-        ``weight_decay`` subtracts ``lr * wd * p`` when ``params`` are
-        given, outside the kernel, as the JAX package does."""
-        return self.run(self.leaves(grads), grads, state, params,
-                        fused=False), state
+        """``(updates, state)``: one step through ``_adam8_kernel``, one
+        launch over every leaf; ``weight_decay`` subtracts ``lr * wd * p``
+        when ``params`` are given, outside the kernel, as the JAX package
+        does."""
+        hp = self.hp
+        with torch.no_grad():
+            bc = self._advance(state)
+            if _on_cpu(state.step):
+                updates = self._run_plain(self.leaves(grads), grads, state,
+                                          params, bc)
+            else:
+                updates = {n: torch.empty(g.shape, dtype=g.dtype,
+                                          device=g.device)
+                           for n, g in grads.items()}
+                for table in self.step_tables(grads, state):
+                    table.point(table.members(grads),
+                                table.members(updates))
+                    table.launch(False, bc, hp)
+            for name, un in updates.items():
+                if hp.wd and params is not None:
+                    p = params[name]
+                    # JAX rounds the Python scalar to p's dtype first.
+                    c = torch.tensor(hp.lr * hp.wd, dtype=p.dtype).item()
+                    updates[name] = un - (c * p).to(un.dtype)
+        return updates, state
+
+    def step_tables(self, grads: Mapping[str, torch.Tensor],
+                    state: Adam8bitState) -> List[_Table]:
+        """``update``'s tables for ``grads``: built at the first call, and
+        again when the grads' names, shapes or dtypes or the state's
+        storage change."""
+        key = (tuple((n, g.shape, g.dtype) for n, g in grads.items()),
+               _state_key(state))
+        if self._cache is None or self._cache[0] != key:
+            self._cache = (key, _tables(self.leaves(grads), grads, state))
+        return self._cache[1]
 
     def __call__(self, named_parameters) -> "Adam8bitOptimizer":
         return Adam8bitOptimizer(self, named_parameters)
 
-    def run(self, leaves, grads, state: Adam8bitState, params, fused: bool):
-        """One step over ``leaves``: in place on the state, and on the
-        params when ``fused``; returns the updates when not. A parameter
-        without a gradient steps with a zero one, as in JAX."""
-        hp = self.hp
+    def _advance(self, state: Adam8bitState) -> torch.Tensor:
+        """Counts a step; returns the fp32 bias corrections [bc1, bc2].
+        The int32 step is cast to fp32 inside the power's kernel (no copy
+        kernel on the card), the same values as ``step.float()``."""
         dev = state.step.device
-        with torch.no_grad():
-            state.step.add_(1)
-            if dev not in self._betas:
-                self._betas[dev] = torch.tensor([hp.b1, hp.b2], device=dev)
-            bc = 1 - self._betas[dev] ** state.step.float()
-            updates = {}
-            for path, leaf in leaves.items():
-                g = [grads[n] if grads.get(n) is not None
-                     else torch.zeros_like(params[n]) for n in leaf.names]
-                qm, qv = state.m[path], state.v[path]
-                if fused:
-                    adam8_fused_update(g, [params[n] for n in leaf.names],
-                                       qm, qv, bc, leaf.shape, hp)
-                    continue
-                u = adam8_update(g, qm, qv, bc, leaf.shape, hp)
-                for name, un in zip(leaf.names, u):
-                    if hp.wd and params is not None:
-                        p = params[name]
-                        # JAX rounds the Python scalar to p's dtype first.
-                        c = torch.tensor(hp.lr * hp.wd, dtype=p.dtype).item()
-                        un = un - (c * p).to(un.dtype)
-                    updates[name] = un
+        state.step.add_(1)
+        if dev not in self._betas:
+            self._betas[dev] = torch.tensor([self.hp.b1, self.hp.b2],
+                                            device=dev)
+        return 1 - self._betas[dev] ** state.step
+
+    def _run_plain(self, leaves, grads, state: Adam8bitState, params, bc,
+                   fused: bool = False):
+        """A step over ``leaves`` on the CPU, leaf by leaf through the
+        plain version: in place on the state, and on the params when
+        ``fused``; returns the updates when not. A parameter without a
+        gradient steps with a zero one, as in JAX."""
+        updates = {}
+        for path, leaf in leaves.items():
+            g = [grads[n] if grads.get(n) is not None
+                 else torch.zeros_like(params[n]) for n in leaf.names]
+            qm, qv = state.m[path], state.v[path]
+            if fused:
+                adam8_fused_update(g, [params[n] for n in leaf.names], qm,
+                                   qv, bc, leaf.shape, self.hp)
+                continue
+            u = adam8_update(g, qm, qv, bc, leaf.shape, self.hp)
+            updates.update(zip(leaf.names, u))
         return updates
+
+
+def _state_key(state: Adam8bitState) -> tuple:
+    """Where the state lies: a table built for it stays good while this
+    does not change."""
+    return tuple(t.data_ptr() for moment in (state.m, state.v)
+                 for qt in moment.values() for t in qt)
+
+
+def _tables(leaves, tensors: Mapping[str, torch.Tensor],
+            state: Adam8bitState, fixed_out: bool = False) -> List[_Table]:
+    """One table a dtype of ``tensors`` over ``leaves`` (path ->
+    ``JaxLeaf``), in the leaves' order; ``fixed_out``: every step writes
+    ``tensors`` (the params, fused)."""
+    groups: Dict[torch.dtype, list] = {}
+    for path, leaf in leaves.items():
+        groups.setdefault(tensors[leaf.names[0]].dtype, []).append(
+            (path, leaf))
+    tables = []
+    for dtype, items in groups.items():
+        dev = tensors[items[0][1].names[0]].device
+        tables.append(_Table(
+            [(leaf.shape, [tensors[n] for n in leaf.names], state.m[path],
+              state.v[path]) for path, leaf in items], dtype, dev,
+            names=[leaf.names for _, leaf in items],
+            out=tensors if fixed_out else None))
+    return tables
 
 
 class Adam8bitOptimizer:
     """``adam8bit`` bound to named parameters; ``update_and_apply(grads,
-    params)`` is the train step's fused contract: one fused kernel pass
-    per JAX leaf updates the params and the state in place."""
+    params)`` is the train step's fused contract: one fused kernel launch
+    over every leaf updates the params and the state in place. Its table
+    is built at the first step, and again if the state is replaced."""
 
     def __init__(self, tx: Adam8bit, named_parameters):
         self.tx = tx
@@ -498,19 +666,33 @@ class Adam8bitOptimizer:
         self._names = {id(p): n for n, p in self.params.items()}
         self._leaves = tx.leaves(self.params)
         self.state = tx.init(self.params)
+        self._cache = None  # (key, the step's tables)
 
     @property
     def launches_per_step(self) -> int:
-        """Kernel launches of one step: one a leaf, or one every
-        ``MAX_SEGMENTS`` layers of a chunked leaf."""
-        return sum(-(-leaf.shape[0] // MAX_SEGMENTS)
-                   if _chunked(leaf.shape) else 1
-                   for leaf in self._leaves.values())
+        """Kernel launches of one step: one a dtype of the params."""
+        return len({p.dtype for p in self.params.values()})
 
     def update_and_apply(self, grads: Sequence[torch.Tensor],
                          params: Sequence[torch.Tensor]):
         named = {self._names[id(p)]: g for g, p in zip(grads, params)}
-        self.tx.run(self._leaves, named, self.state, self.params, fused=True)
+        with torch.no_grad():
+            bc = self.tx._advance(self.state)
+            if _on_cpu(self.state.step):
+                self.tx._run_plain(self._leaves, named, self.state,
+                                   self.params, bc, fused=True)
+                return
+            key = _state_key(self.state)
+            if self._cache is None or self._cache[0] != key:
+                for t in self.params.values():
+                    if not t.is_contiguous():
+                        raise ValueError("adam8bit updates params in place: "
+                                         "they must be contiguous")
+                self._cache = (key, _tables(self._leaves, self.params,
+                                            self.state, fixed_out=True))
+            for table in self._cache[1]:
+                table.point(table.members(named), table.out)
+                table.launch(True, bc, self.tx.hp)
 
 
 def adam8bit(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,

@@ -160,6 +160,24 @@ def test_flash_probe_variants_apply_to_the_source(tmp_path, monkeypatch):
         assert ("g_clocks" in text) == (name == "clocks"), name
 
 
+def test_adam8_probe_variants_apply_to_the_source(tmp_path, monkeypatch):
+    """Each ablation of ``ops/adam8_probe.py`` still finds the text it
+    replaces (for ``copy``, the span of the arithmetic) in the committed
+    kernel source, and changes it."""
+    from dlrover_tpu_torch.ops import adam8_probe
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    with open(os.path.join(build.CSRC, "adam8bit.cu")) as f:
+        committed = f.read()
+    for name in adam8_probe.VARIANTS:
+        out = adam8_probe.variant_source(name)
+        with open(os.path.join(out, "adam8bit.cu")) as f:
+            text = f.read()
+        assert (text == committed) == (name == "committed"), name
+        assert ("__fsqrt_rn(v)" in text) == (name not in (
+            "copy", "no_sqrt_div")), name
+
+
 def test_build_dir_is_ignored_by_git():
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = f.read().split()

@@ -6,12 +6,13 @@ kernel has no CPU mode) and skip without one. The other tests run on
 the CPU: they emulate a kernel's arithmetic in PyTorch, once right and
 once with a planted fault, and show that the check passes the first and
 fails the second: ``tile_rel_err`` against ``TILE_REL_TOL`` and the
-logsumexp against ``LSE_TOL`` for flash attention (a wrong mask, a V or
-dO tile read with the wrong transpose flag, a logsumexp stored in base
-2), ``adam8_errors`` against ``ADAM8_LIMITS`` for
+logsumexp against ``LSE_TOL`` for flash attention (a wrong mask, a V,
+dO or K tile read with the wrong transpose flag, a logsumexp stored in
+base 2), ``adam8_errors`` against ``ADAM8_LIMITS`` for
 the 8-bit Adam kernels (a neighbouring block's scale, the 0.5 floor
 dropped, round half away from zero, weight decay dropped, the padded
-tail in a block's absmax). The file imports no JAX, so it also runs on
+tail in a block's absmax), and the kernel's exact bit tricks for the
+int8 conversions and the floor, over every int8 and every tie. The file imports no JAX, so it also runs on
 a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -123,13 +124,17 @@ def emulated_fwd(q, k, v, mask, fault=None):
 def emulated_bwd(q, k, v, do, lse, delta, mask, fault=None):
     """The dQ and dK/dV kernels' arithmetic with ``mask``: P and dS
     rounded to bf16 before their products, outputs in bf16. ``fault``
-    "do_tile_transposed" reads dO's tiles transposed in dV += P^T dO."""
+    "do_tile_transposed" reads dO's tiles transposed in dV += P^T dO,
+    "k_tile_transposed" K's tiles transposed in dQ += dS K."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
     dp = _bhsd(do) @ _bhsd(v).transpose(-1, -2)
     ds = (p * (dp - delta[..., None])).bfloat16().float()
-    dq = ds @ _bhsd(k) * scale
+    kt = _bhsd(k)
+    if fault == "k_tile_transposed":
+        kt = _tiles_transposed(kt)
+    dq = ds @ kt * scale
     dk = ds.transpose(-1, -2) @ _bhsd(q) * scale
     dot = _bhsd(do)
     if fault == "do_tile_transposed":
@@ -196,11 +201,12 @@ def test_check_passes_kernel_rounding(check_case):
 
 _OUTPUTS = {"fwd": ("o",), "lse": ("lse",), "dq": ("dq",),
             "dkv": ("dk", "dv")}
-# Faults of the Hopper design, each with the outputs it reaches: a V or
-# dO tile read with the wrong transpose flag, and a logsumexp stored in
+# Faults of the Hopper design, each with the outputs it reaches: a V, dO
+# or K tile read with the wrong transpose flag, and a logsumexp stored in
 # base 2 (then read as natural by the backward).
 _OPERAND_FAULTS = [("v_tile_transposed", "fwd"),
                    ("do_tile_transposed", "dkv"),
+                   ("k_tile_transposed", "dq"),
                    ("lse_base2", "lse"), ("lse_base2", "dq"),
                    ("lse_base2", "dkv")]
 _WRONG = [(w, o) for w in sorted(_wrong_masks())
@@ -265,9 +271,35 @@ def adam8_case(dtype=torch.float32, seed=0):
             qm, qv, bc)
 
 
-def emulated_adam8(bc, gb, mq, msc, sq, ssc, pb=None, fault=None):
+def cvt_i8_to_f32(q: np.ndarray) -> np.ndarray:
+    """The kernel's int8 -> fp32: the byte x + 128 under 0x4B000000 is
+    the float 2^23 + 128 + x; subtract 2^23 + 128 in fp32."""
+    u = (q.astype(np.int8).view(np.uint8) ^ 0x80).astype(np.uint32)
+    return (np.uint32(0x4B000000) | u).view(np.float32) - \
+        np.float32(8388736.0)
+
+
+def cvt_round_i8(x: np.ndarray) -> np.ndarray:
+    """The kernel's round half to even into int8: the low byte of
+    1.5 * 2^23 + x, added in round-to-nearest-even fp32."""
+    y = x.astype(np.float32) + np.float32(12582912.0)
+    return (y.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def cvt_floor_pos(y: np.ndarray):
+    """The kernel's floor(y), y >= 0: 2^23 + y rounded down to fp32 (exact
+    in float64, then down to the fp32 grid, whose step is 1 there);
+    returns the float and the int8 in its low byte."""
+    t = np.floor(y.astype(np.float64) + 8388608.0).astype(np.float32)
+    return (t - np.float32(8388608.0),
+            (t.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8))
+
+
+def emulated_adam8(bc, gb, mq, msc, sq, ssc, pb=None, fault=None,
+                   fast_cvt=False):
     """The kernels' arithmetic on block-layout inputs, fp32 operation by
-    operation, with one planted ``fault`` (or none)."""
+    operation, with one planted ``fault`` (or none); ``fast_cvt`` takes
+    the kernel's bit tricks for the int8 conversions and the floor."""
     c = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
     if fault == "neighbour_scale":  # a block reads the next block's scales
         msc, ssc = msc.roll(-1), ssc.roll(-1)
@@ -279,14 +311,21 @@ def emulated_adam8(bc, gb, mq, msc, sq, ssc, pb=None, fault=None):
     sqrt_bc2 = torch.sqrt(bc[1])
     lr_eff = c(-HP.lr) * sqrt_bc2 / bc[0]
     eps_eff = c(HP.eps) * sqrt_bc2
-    m = mq.float() * (msc[:, None] * c(HP.b1 / 127)) + c(1 - HP.b1) * g
-    sp = sq.float() * (ssc[:, None] / c(127.0))
+    to_f32 = (lambda q: torch.from_numpy(  # noqa: E731
+        cvt_i8_to_f32(q.numpy()))) if fast_cvt else (lambda q: q.float())
+    m = to_f32(mq) * (msc[:, None] * c(HP.b1 / 127)) + c(1 - HP.b1) * g
+    sp = to_f32(sq) * (ssc[:, None] / c(127.0))
     s = torch.sqrt(c(HP.b2) * sp * sp + c(1 - HP.b2) * g * g)
     amax_m = m.abs().amax(1, keepdim=True)
     amax_s = s.amax(1, keepdim=True)
     r_m = torch.where(amax_m == 0, c(1.0), c(127.0) / amax_m)
     r_s = torch.where(amax_s == 0, c(1.0), c(127.0) / amax_s)
-    q2 = torch.floor(s * r_s + c(0.5))
+    if fast_cvt:
+        q2, sq2 = (torch.from_numpy(x) for x in cvt_floor_pos(
+            (s * r_s + c(0.5)).numpy()))
+    else:
+        q2 = torch.floor(s * r_s + c(0.5))
+        sq2 = q2.to(torch.int8)
     floor = c(0.0) if fault == "no_floor" else c(0.5)
     denom = torch.maximum(q2, floor) * (amax_s / c(127.0))
     u = lr_eff * m / (denom + eps_eff)
@@ -294,11 +333,12 @@ def emulated_adam8(bc, gb, mq, msc, sq, ssc, pb=None, fault=None):
         (pb.float() * c(decay) + u).to(pb.dtype)
     x = m * r_m
     if fault == "roundf":  # half away from zero
-        qm2 = torch.sign(x) * torch.floor(x.abs() + c(0.5))
+        qm2 = (torch.sign(x) * torch.floor(x.abs() + c(0.5))).to(torch.int8)
+    elif fast_cvt:
+        qm2 = torch.from_numpy(cvt_round_i8(x.numpy()))
     else:
-        qm2 = torch.round(x)
-    return (out, qm2.to(torch.int8), amax_m.reshape(-1),
-            q2.to(torch.int8), amax_s.reshape(-1))
+        qm2 = torch.round(x).to(torch.int8)
+    return (out, qm2, amax_m.reshape(-1), sq2, amax_s.reshape(-1))
 
 
 def plain_on_case(case, fused):
@@ -311,13 +351,15 @@ def plain_on_case(case, fused):
         pb=blocks(p) if fused else None)
 
 
+@pytest.mark.parametrize("fast_cvt", [False, True], ids=["cvt", "bits"])
 @pytest.mark.parametrize("fused", [False, True], ids=["update", "fused"])
-def test_adam8_check_passes_the_kernel_arithmetic(fused):
-    """The emulation without a fault is the plain version, bit for bit;
+def test_adam8_check_passes_the_kernel_arithmetic(fused, fast_cvt):
+    """The emulation without a fault is the plain version, bit for bit,
+    with the conversions as instructions and as the kernel's bit tricks;
     the case's crafted blocks come out as designed."""
     (gb, mq, msc, sq, ssc, pb), ref = plain_on_case(adam8_case(), fused)
     got = emulated_adam8(torch.tensor([1 - 0.5 ** 3, 1 - 0.999 ** 3]),
-                         gb, mq, msc, sq, ssc, pb)
+                         gb, mq, msc, sq, ssc, pb, fast_cvt=fast_cvt)
     errs = lowbit.adam8_errors(got, ref)
     assert not lowbit.adam8_failures(errs), errs
     assert errs["max_abs_err"] == 0.0
@@ -346,6 +388,45 @@ def test_adam8_check_rejects_a_faulty_kernel(fault, fused):
     assert lowbit.adam8_failures(lowbit.adam8_errors(got, ref))
 
 
+def test_adam8_int8_to_f32_bits_over_every_int8():
+    q = np.arange(-128, 128, dtype=np.int8)
+    got = cvt_i8_to_f32(q)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, q.astype(np.float32))
+
+
+def test_adam8_round_bits_match_round_half_even():
+    """Every tie k + 0.5 in [-127.5, 126.5], the integers, -0.0, values an
+    ulp from a tie and random values in [-127, 127], as round half to
+    even (torch.round, the plain version's) gives them."""
+    k = np.arange(-128, 127, dtype=np.float32)
+    ties = k + np.float32(0.5)
+    near = np.concatenate([np.nextafter(ties, np.float32(-1e9)),
+                           np.nextafter(ties, np.float32(1e9))])
+    rnd = np.random.default_rng(0).uniform(-127, 127, 4096).astype(
+        np.float32)
+    x = np.concatenate([ties[1:], k[1:], near[2:-2], rnd,
+                        np.array([-0.0, 1e-30, -1e-30], np.float32)])
+    want = torch.round(torch.from_numpy(x)).to(torch.int8).numpy()
+    np.testing.assert_array_equal(cvt_round_i8(x), want)
+    assert cvt_round_i8(np.array([2.5, -2.5, 0.5, 1.5, 126.5], np.float32)
+                        ).tolist() == [2, -2, 0, 2, 126]
+
+
+def test_adam8_floor_bits_match_floor():
+    """floor(y) for y = s * 127 / absmax + 0.5 in [0.5, 127.5]: at the
+    integers, an ulp under and over them, and at random."""
+    k = np.arange(1, 128, dtype=np.float32)
+    y = np.concatenate([k, np.nextafter(k, np.float32(0)),
+                        np.nextafter(k, np.float32(1e9)),
+                        np.array([0.5, 127.5], np.float32),
+                        np.random.default_rng(1).uniform(
+                            0.5, 127.5, 4096).astype(np.float32)])
+    f, byte = cvt_floor_pos(y)
+    np.testing.assert_array_equal(f, np.floor(y))
+    np.testing.assert_array_equal(byte, np.floor(y).astype(np.int8))
+
+
 def test_adam8_ulp():
     x = torch.tensor([1.0, 1.5, -3.0, 0.0])
     assert lowbit._ulp(x).tolist() == [2 ** -23, 2 ** -23, 2 ** -22,
@@ -359,10 +440,11 @@ def test_adam8_ulp():
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("fused", [False, True], ids=["update", "fused"])
 def test_adam8_kernels_match_plain(cuda_device, dtype, fused):
-    """Each kernel against the plain version: the crafted ragged leaf,
-    a chunked stacked leaf (one tensor per layer), a flat stacked leaf
-    whose blocks straddle layers (gathered), and a chunked leaf of more
-    layers than one launch walks (two launches)."""
+    """Each kernel against the plain version, one launch a leaf: the
+    crafted ragged leaf, a chunked stacked leaf (one tensor per layer),
+    flat stacked leaves whose blocks straddle layers (walked in place;
+    layers of 96 values, and of 37, which no 16-value lane divides), and
+    a chunked leaf of 70 layers."""
     g, p, qm, qv, bc = (x.to(cuda_device) if isinstance(x, torch.Tensor)
                         else lowbit.QTensor(*(t.to(cuda_device) for t in x))
                         for x in adam8_case(dtype))
@@ -371,8 +453,7 @@ def test_adam8_kernels_match_plain(cuda_device, dtype, fused):
         torch.tensor(rng.standard_normal(shape), dtype=dtype,
                      device=cuda_device) for _ in range(n)]
     leaves = [([g], [p], qm, qv, tuple(g.shape))]
-    many = lowbit.MAX_SEGMENTS + 6
-    for n, shape in ((3, (40, 70)), (3, (96,)), (many, (8, 40))):
+    for n, shape in ((3, (40, 70)), (3, (96,)), (7, (37,)), (70, (8, 40))):
         full = (n,) + shape
         state = lowbit._quantize_leaf(
             torch.tensor(rng.standard_normal(full), dtype=torch.float32,
@@ -389,3 +470,52 @@ def test_adam8_kernels_match_plain(cuda_device, dtype, fused):
         assert not lowbit.adam8_failures(errs), (shape, errs)
     assert lowbit.LAUNCHES == {"adam8": 0 if fused else 5,
                                "adam8_fused": 5 if fused else 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_adam8_one_launch_step_matches_plain(cuda_device, dtype):
+    """The bound optimizer's whole step on the tiny GPT (its stacked
+    biases and norms straddle layers) is one launch, and leaves the
+    params and the state as the plain version does on the card from the
+    same params, state and bias corrections, each element within
+    ``ADAM8_LIMITS``; a second step too, with other gradient tensors
+    (their pointers refreshed) and a parameter without a gradient."""
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    model = GPT(GPTConfig.tiny(), device="cpu")
+    rng = np.random.default_rng(3)
+    params = {n: p.detach().to(device=cuda_device, dtype=dtype)
+              for n, p in model.named_parameters()}
+    opt = lowbit.adam8bit(1e-2, weight_decay=0.1)(params.items())
+    hp = opt.tx.hp
+    lowbit.reset_launch_counts()
+    for step in range(2):
+        grads = {n: torch.tensor(rng.standard_normal(p.shape) * 1e-2,
+                                 dtype=dtype, device=cuda_device)
+                 for n, p in params.items()
+                 if not (step and n == "wpe.weight")}
+        before = {n: p.clone() for n, p in params.items()}
+        state = {path: tuple(lowbit.QTensor(qt.q.clone(), qt.scale.clone())
+                             for qt in (opt.state.m[path], opt.state.v[path]))
+                 for path in opt._leaves}
+        names = [n for n in params if n in grads]
+        opt.update_and_apply([grads[n] for n in names],
+                             [params[n] for n in names])
+        # The bias corrections the step used, computed the same way.
+        bc = 1 - opt.tx._betas[opt.state.step.device] ** opt.state.step
+        for path, leaf in opt._leaves.items():
+            g = [grads[n] if n in grads else torch.zeros_like(params[n])
+                 for n in leaf.names]
+            ref = lowbit._plain_blocks(
+                g, *state[path], bc, leaf.shape, hp,
+                p=[before[n] for n in leaf.names])
+            got = (lowbit._blocks_of(lowbit._leaf(
+                [params[n] for n in leaf.names], leaf.shape), 256),) + tuple(
+                t.reshape(-1, 256) if t.dtype == torch.int8 else t.reshape(-1)
+                for qt in (opt.state.m[path], opt.state.v[path]) for t in qt)
+            errs = lowbit.adam8_errors(got, ref)
+            assert not lowbit.adam8_failures(errs), (step, path, errs)
+    assert lowbit.LAUNCHES == {"adam8": 0, "adam8_fused": 2}
+    assert opt.launches_per_step == 1

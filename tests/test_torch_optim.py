@@ -114,6 +114,84 @@ def test_layout_helpers_match_jax(shape):
         np.asarray(jlb._unblocks(jnp.asarray(jb), shape, 256)))
 
 
+# ------------------------------------------------------ the leaf table
+
+
+def table_leaves():
+    """(JAX shape, members) of every leaf of the tiny GPT (stacked), a
+    stacked bias of 7 layers of 37 values (its blocks straddle layers and
+    no 16-value lane divides a layer) and one of 3 x 5 x 13, whose members
+    hold distinct values."""
+    model = GPT(GPTConfig.tiny(), device="cpu")
+    params = dict(model.named_parameters())
+    leaves = [(leaf.shape, [params[n].detach() for n in leaf.names])
+              for leaf in jax_leaves((n, tuple(p.shape))
+                                     for n, p in params.items()).values()]
+    rng = np.random.default_rng(11)
+    for layers, member in ((7, (37,)), (3, (5, 13))):
+        leaves.append(((layers,) + member, [
+            torch.from_numpy(rng.standard_normal(member).astype(np.float32))
+            for _ in range(layers)]))
+    return leaves
+
+
+def walk(leaves, fault=None):
+    """Each leaf's block layout as the kernel's table addresses it
+    (``walk_rows`` over ``leaf_rows``), with one planted ``fault``."""
+    specs = [(shape, len(ms), ms[0].numel()) for shape, ms in leaves]
+    rows = port.leaf_rows(specs)
+    if fault == "member_offset":  # members start one value early
+        rows = [r._replace(n=r.n - 1) if r.stride % 256 else r
+                for r in rows]
+    if fault == "layer_offset":  # each layer starts one block late
+        rows = [r._replace(stride=r.stride + 256)
+                if r.stride % 256 == 0 and r.nmem > 1 else r for r in rows]
+    return rows, port.walk_rows(rows, [m for _, ms in leaves for m in ms])
+
+
+def test_table_walk_is_the_block_layout():
+    leaves = table_leaves()
+    rows, walked = walk(leaves)
+    assert [r.member0 for r in rows] == list(np.cumsum(
+        [0] + [len(ms) for _, ms in leaves[:-1]]))
+    straddling = 0
+    for (shape, members), row, got in zip(leaves, rows, walked):
+        want = port._blocks_of(port._leaf(members, shape), 256)
+        assert got.shape == want.shape and row.nblocks == want.shape[0]
+        assert torch.equal(got, want), shape
+        straddling += row.stride % 256 != 0
+    assert straddling >= 4  # the tiny GPT's biases and norms, and ours
+    assert [r.block0 for r in rows] == list(np.cumsum(
+        [0] + [r.nblocks for r in rows[:-1]]))
+
+
+@pytest.mark.parametrize("fault", ["member_offset", "layer_offset"])
+def test_table_walk_fault_fails_the_check(fault):
+    """A table that addresses members one value (or one block) off feeds
+    the update other gradients; ``adam8_errors`` rejects the result."""
+    leaves = table_leaves()
+    _, walked = walk(leaves)
+    _, faulty = walk(leaves, fault)
+    hit = 0
+    for (shape, members), good, bad in zip(leaves, walked, faulty):
+        if torch.equal(good, bad):
+            continue
+        hit += 1
+        n = good.shape[0]
+        rng = np.random.default_rng(0)
+        qm = port._quantize(torch.from_numpy(
+            rng.standard_normal((n, 256)).astype(np.float32)) * 0.1, 256)
+        qv = port._quantize(torch.from_numpy(np.abs(
+            rng.standard_normal((n, 256))).astype(np.float32)) * 0.1, 256)
+        bc = torch.tensor([1 - 0.9 ** 3, 1 - 0.999 ** 3])
+        run = lambda gb: port._adam8_plain(  # noqa: E731
+            bc, gb, qm.q, qm.scale, qv.q, qv.scale, lr=1e-2, b1=0.9,
+            b2=0.999, eps=1e-8)
+        assert port.adam8_failures(port.adam8_errors(run(bad), run(good))), \
+            shape
+    assert hit
+
+
 # ------------------------------------------------------ the tiny GPT
 
 
