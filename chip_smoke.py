@@ -47,7 +47,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    the pieces of ``update``'s host work), and the largest leaf alone,
    for each kernel and for the plain version, beside the bound from the
    bytes each must move;
-7. print the card, a ``{"kernels": [...]}`` line, and last
+7. the flash checkpoint, with the agent's saver in this process, a job
+   name of this run and files under ``build/`` (removed at the end, as
+   are the shared-memory segments): (a) GPT-2 124M, windows of 10 steps
+   without a checkpoint, with a memory snapshot asked for every step,
+   and with a DISK save every 5 besides, in turns (step ms, host ms of
+   a save call, share snapshotted, the copies' device ms and rate beside
+   ATen's copy into pinned memory, call to publish), a persist, restores
+   from memory and from disk into fresh Trainers, each leaf held bit for
+   bit to the state at its step, and one more step whose loss equals the
+   uninterrupted run's; (b) GPT-2 xl 1.5B, the same windows without the
+   DISK ones, a snapshot taken while the next step runs held bit for bit
+   (the race check), a restore from memory; (c) a child process training
+   124M, SIGKILLed after step 4, the saver's flush of its last snapshot,
+   and a resumed child whose losses equal an unkilled child's;
+8. print the card, a ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero and prints no result. Float32 matmuls
@@ -56,22 +70,34 @@ and convolutions run without TF32 wherever a comparison is made.
 
 import argparse
 import dataclasses
+import glob
 import json
 import math
+import os
+import resource
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+from dlrover_tpu_torch.common import checksum, ckpt_persist, env_utils
+from dlrover_tpu_torch.common.comm import clear_job_sockets
+from dlrover_tpu_torch.common.shared_memory import SharedMemory
+from dlrover_tpu_torch.models.convert import leaf_bytes, train_state_leaves
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
 from dlrover_tpu_torch.optim import adam8bit, adamw
 from dlrover_tpu_torch.optim import low_bit as lowbit
+from dlrover_tpu_torch.train.checkpoint import StorageType
 from dlrover_tpu_torch.train.trainer import (
     LoggingCallback,
     Trainer,
@@ -870,14 +896,552 @@ def time_adam8(opt, seed):
     return out
 
 
+# ------------------------------------------------------- flash checkpoint
+
+# 124M: windows of STEPS with and without the checkpoint, in turns; the
+# DISK saves of the window that has them come every CKPT_PERSIST steps.
+CKPT_PERSIST = 5
+# The crash drill: the child is killed after CRASH_AT steps, and resumes
+# for RESUMED more.
+CRASH_AT, RESUMED = 4, 3
+# 1.5B: windows of CKPT_XL_STEPS with and without, in turns (the host
+# sets this step, and it swings).
+CKPT_XL_STEPS = 10
+
+
+def ckpt_setup(root):
+    """A job name of this run (the segment and the sockets are named by
+    it, so no earlier run's snapshot is found) and the checkpoint
+    directory; prints where the segment and the files live."""
+    job = f"smoke-{os.getpid()}-{uuid.uuid4().hex[:6]}"
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    shm_dir = env_utils.SHM_DIR.get()
+    os.makedirs(root, exist_ok=True)
+    st = os.statvfs(shm_dir)
+    fs = lambda p: subprocess.run(  # noqa: E731
+        ["stat", "-f", "-c", "%T", p], capture_output=True,
+        text=True).stdout.strip()
+    mem = dict(line.split(":", 1) for line in open("/proc/meminfo"))
+    log("[ckpt] " + json.dumps({
+        "job": job, "shm_dir": shm_dir, "shm_fs": fs(shm_dir),
+        "shm_free_bytes": st.f_bavail * st.f_frsize,
+        "host_mem_total": mem["MemTotal"].strip(),
+        "host_mem_available": mem["MemAvailable"].strip(),
+        "memlock_limit": resource.getrlimit(resource.RLIMIT_MEMLOCK),
+        "checkpoint_root": root, "checkpoint_fs": fs(root),
+        "crc_algo": checksum.DEFAULT_ALGO}))
+    return job
+
+
+def unlink_segments(job):
+    for path in glob.glob(os.path.join(env_utils.SHM_DIR.get(),
+                                       f"ckpt_{job}_*")):
+        os.unlink(path)
+
+
+def ckpt_cleanup(job, root):
+    """Stop the saver, unlink the run's segments, sockets and files."""
+    AsyncCheckpointSaver.stop()
+    unlink_segments(job)
+    clear_job_sockets(job)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def state_bytes(trainer):
+    """{leaf path: the leaf's bytes on the card}, copied on the compute
+    stream: the state at the step the loop is at."""
+    return {leaf.path: leaf_bytes(leaf).to("cuda").clone()
+            for leaf in train_state_leaves(trainer.state)}
+
+
+def differing(got, want):
+    """Leaf paths whose bytes differ (or that one side lacks)."""
+    bad = sorted(set(got) ^ set(want))
+    return bad + [p for p in sorted(set(got) & set(want))
+                  if not torch.equal(got[p].to(want[p].device), want[p])]
+
+
+def snapshot_differs(engine, want):
+    """The published memory snapshot's step and the leaves whose bytes in
+    the segment differ from ``want``."""
+    step, views = engine.memory_leaves()
+    return step, differing(views, want)
+
+
+def ckpt_trainer(cfg, optimizer, batch, seed, ckpt_dir, persist_every=0,
+                 rec=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = GPT(cfg, device="cuda", generator=gen)
+    return Trainer(model, optimizer, token_loss, batch, spec="auto",
+                   callbacks=[rec] if rec else [],
+                   checkpoint_dir=ckpt_dir, persist_every=persist_every)
+
+
+def timed_windows(trainer, rec, batch, start, steps, kinds, persist_every):
+    """Windows of ``steps`` from step ``start``, one of each kind in turn:
+    "without" (no checkpoint), "memory" (a snapshot asked for every step)
+    and "disk" (that, and a DISK save every ``persist_every``). For each:
+    step ms (wall over steps, to the last step's end on the compute
+    stream), the median gap between lag-1 fences, tokens/s, and for the
+    checkpointed ones the engine's record of the window's snapshots
+    (published, skipped; host ms of a save call; device ms of the copy
+    into the device buffer and of the copies to the segment, their span
+    and rate; call to publish). Waits for the last snapshot and every
+    persist of a window after it, outside its wall time."""
+    ckpt = trainer.checkpointer
+    engine = ckpt.engine
+    out = {k: [] for k in dict.fromkeys(kinds)}
+    step = start
+    for kind in kinds:
+        trainer._ckpt = None if kind == "without" else ckpt
+        trainer._persist_every = persist_every if kind == "disk" else 0
+        n_log, n_host = len(engine.stage_log), len(engine.stats["host_ms"])
+        skipped = engine.stats["skipped"]
+        rec.losses, rec.step_s = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(iter([batch] * steps), steps=step + steps,
+                    start_step=step)
+        # The steps' end, not the last snapshot's: its copy runs on.
+        torch.cuda.current_stream().synchronize()
+        wall = time.perf_counter() - t0
+        step += steps
+        tokens = batch.shape[0] * batch.shape[1] * steps
+        run = {"step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
+               "median_gap_ms": statistics.median(rec.step_s) * 1e3,
+               "last_loss": float(rec.losses[-1])}
+        if kind != "without":
+            engine.wait_staged()
+            if kind == "disk":
+                last = step - step % persist_every
+                check(ckpt.wait_persisted(last, 600),
+                      f"step {last} was never persisted")
+            log_ = list(engine.stage_log)[n_log:]
+            host = engine.stats["host_ms"][n_host:]
+            run.update(
+                snapshots=len(log_), share=len(log_) / steps,
+                skipped=engine.stats["skipped"] - skipped,
+                host_ms_median=statistics.median(host) if host else None,
+                host_ms_max=max(host) if host else None,
+                copy_ms_median=statistics.median(e["copy_ms"] for e in log_),
+                d2h_ms_median=statistics.median(e["d2h_ms"] for e in log_),
+                d2h_wall_ms_median=statistics.median(
+                    e["d2h_wall_ms"] for e in log_),
+                d2h_gb_s_median=statistics.median(
+                    e["bytes"] / e["d2h_ms"] / 1e6 for e in log_),
+                publish_ms_median=statistics.median(
+                    e["publish_s"] for e in log_) * 1e3,
+                publish_ms_max=max(e["publish_s"] for e in log_) * 1e3,
+            )
+        out[kind].append(run)
+    trainer._ckpt, trainer._persist_every = ckpt, persist_every
+    return out, step
+
+
+def d2h_yardstick(nbytes):
+    """GB/s of ATen's copy of ``nbytes`` from the card into pinned memory
+    (``copy_`` into a pinned tensor, and ``.to("cpu", non_blocking=True)``,
+    which allocates its output), each on the compute stream: the bound
+    of the staging's copy to the segment."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, fn in (("copy_into_pinned", lambda: pinned.copy_(
+            dev, non_blocking=True)),
+                     ("to_cpu_non_blocking", lambda: dev.to(
+                         "cpu", non_blocking=True))):
+        ms = time_ms(fn, iters=3, warmup=1)
+        out[name] = {"ms": ms, "gb_s": nbytes / ms / 1e6}
+    del dev, pinned
+    return out
+
+
+def staging_profile(trainer, batch, start, steps=3):
+    """Device time a step of the snapshot's copies, from torch.profiler:
+    the foreach copy into the device buffer (``multi_tensor_apply``
+    kernels of a ``Copy``) and the copies to the segment (``Memcpy
+    DtoH``), with the kernels' time a step beside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.fit(iter([batch] * steps), steps=start + steps,
+                    start_step=start)
+        trainer.checkpointer.engine.wait_staged()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    foreach = [e for e in kernels
+               if "multi_tensor_apply" in e.key and "Copy" in e.key]
+    dtoh = [e for e in kernels if "Memcpy DtoH" in e.key]
+    ms = lambda es: sum(  # noqa: E731
+        e.self_device_time_total for e in es) / steps / 1e3
+    return {"foreach_copy_ms_per_step": ms(foreach),
+            "foreach_copy_launches_per_step": sum(
+                e.count for e in foreach) / steps,
+            "d2h_ms_per_step": ms(dtoh),
+            "kernel_ms_per_step": ms(kernels) - ms(dtoh) - ms(
+                [e for e in kernels if "Memcpy" in e.key
+                 and "DtoH" not in e.key or "Memset" in e.key])}
+
+
+def restore_into_fresh(label, cfg, optimizer, batch, seed, ckpt_dir, want,
+                       want_step, source):
+    """A fresh Trainer (other weights) restores; its every leaf must equal
+    ``want`` bit for bit, from ``source``. Returns the trainer and the
+    restore's record."""
+    fresh = ckpt_trainer(cfg, optimizer, batch, seed, ckpt_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = fresh.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = fresh.checkpointer.engine.last_restore_stats
+    bad = differing(state_bytes(fresh), want)
+    rec = {"restore_s": wall, "step": step, "source": stats["source"],
+           "bytes": stats["bytes"], "register_s": stats["register_s"],
+           "read_s": stats["read_s"], "verify_s": stats["verify_s"],
+           "scatter_s": stats["scatter_s"],
+           "read_gb_s": stats["bytes"] / stats["read_s"] / 1e9
+           if stats["read_s"] else None,
+           "leaves": len(want), "leaves_differing": len(bad)}
+    log(f"[ckpt {label}] restore from {source}: " + json.dumps(rec))
+    check(step == want_step and stats["source"] == source,
+          f"{label}: restored step {step} from {stats['source']}, want "
+          f"{want_step} from {source}")
+    check(not bad, f"{label}: restore from {source} differs in {bad[:5]}")
+    return fresh, rec
+
+
+def persist_record(saver):
+    stats = saver.last_persist_stats
+    check(bool(stats), "the saver recorded no persist")
+    s = stats[0]
+    return {"bytes": s["bytes"], "persist_s": s["persist_s"],
+            "mb_s": s["persist_mbps"], "checksum_s": s["checksum_s"],
+            "written_bytes": s["written_bytes"],
+            "stripes": s["total_stripes"], "ref_stripes": s["ref_stripes"]}
+
+
+def ckpt_gpt2(seed, root):
+    """Phase (a): GPT-2 124M, AdamW, batch 16 x 1024, the agent's saver in
+    this process. Windows without the checkpoint, with a memory snapshot
+    every step, and with a DISK save every CKPT_PERSIST steps besides, in
+    turns; a persist and its rate; restores from memory, then from disk,
+    into fresh Trainers, each held bit for bit to the state at its step;
+    one more step from the disk-restored state, whose loss must equal the
+    uninterrupted run's."""
+    cfg = GPTConfig(**GPT2)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)
+    ckpt_dir = os.path.join(root, "gpt2-124m")
+    rec = Record()
+    trainer = ckpt_trainer(cfg, adamw(3e-4), batch, seed, ckpt_dir,
+                           CKPT_PERSIST, rec)
+    engine = trainer.checkpointer.engine
+    check(engine.agent_mode, "124M: the engine did not find the saver")
+    trainer.fit(iter([batch] * WARMUP), steps=WARMUP, start_step=0)
+    engine.wait_staged()
+    check(engine.registered, "124M: the segment is not registered")
+    log("[ckpt gpt2-124m] warm-up: " + json.dumps({
+        "register_s": engine.stats["register_s"],
+        "segment_bytes": engine._shm.size,
+        "layout_bytes": engine.stage_log[-1]["bytes"]}))
+    reset_counts()
+    kinds = ("without", "memory", "disk", "disk", "memory", "without")
+    runs, step = timed_windows(trainer, rec, batch, WARMUP, STEPS, kinds,
+                               CKPT_PERSIST)
+    launches = read_counts()
+    saver = AsyncCheckpointSaver.get_ckpt_saver()
+    in_loop = persist_record(saver)
+    want_counts = {name: cfg.num_layers * STEPS * len(kinds)
+                   for name in FLASH}
+    want_counts.update(adam8=0, adam8_fused=0)
+    for name, count in launches.items():
+        check(count == want_counts[name], f"ckpt 124M: {name} launched "
+              f"{count} times, want {want_counts[name]}")
+    prof = staging_profile(trainer, batch, step)
+    step += 3
+    nbytes = engine.stage_log[-1]["bytes"]
+    log("[ckpt gpt2-124m] windows: " + json.dumps({
+        "runs": runs, "profile": prof, "persist_in_loop": in_loop,
+        "yardstick": d2h_yardstick(nbytes), "launches": launches}))
+    # Restores: the state at `step` persisted, then read back.
+    engine.wait_staged()
+    trainer.checkpointer.save_checkpoint(step, trainer.state,
+                                         StorageType.DISK)
+    check(trainer.checkpointer.wait_persisted(step, 600),
+          f"124M: step {step} never persisted")
+    persist = persist_record(saver)
+    log("[ckpt gpt2-124m] persist of step " + str(step) + ": "
+        + json.dumps(persist))
+    want = state_bytes(trainer)
+    got_step, bad = snapshot_differs(engine, want)
+    check(got_step == step and not bad,
+          f"124M: snapshot of step {got_step} differs in {bad[:5]}")
+    fresh, from_memory = restore_into_fresh(
+        "gpt2-124m", cfg, adamw(3e-4), batch, seed + 1, ckpt_dir, want,
+        step, "memory")
+    fresh.close()
+    SharedMemory.remove(engine.shm_name)  # as if the host lost /dev/shm
+    fresh, from_disk = restore_into_fresh(
+        "gpt2-124m", cfg, adamw(3e-4), batch, seed + 2, ckpt_dir, want,
+        step, "storage")
+    toks = torch.from_numpy(batch).cuda()
+    go_on = float(trainer.train_step(trainer.state, toks)[1]["loss"])
+    resumed = float(fresh.train_step(fresh.state, toks)[1]["loss"])
+    log(f"[ckpt gpt2-124m] step {step + 1}: uninterrupted loss {go_on!r}, "
+        f"from the disk restore {resumed!r}")
+    check(resumed == go_on, f"124M: resumed loss {resumed!r} != {go_on!r}")
+    fresh.close()
+    trainer.close()
+    return launches, {"runs": runs, "profile": prof, "persist": persist,
+                      "persist_in_loop": in_loop, "memory": from_memory,
+                      "disk": from_disk}
+
+
+def ckpt_xl(seed, root):
+    """Phase (b): GPT-2 xl 1.5B, bf16 params, fused adam8bit, batch 4 x
+    1024: windows without and with a memory snapshot every step, in
+    turns; the race check (a snapshot taken while the next step runs
+    equals the state at its step in every leaf); a restore from memory
+    into a fresh Trainer, held bit for bit."""
+    batch = np.random.default_rng(seed).integers(
+        0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
+    ckpt_dir = os.path.join(root, "gpt2-xl")
+    rec = Record()
+    trainer = ckpt_trainer(XL, adam8bit(XL_LR), batch, seed, ckpt_dir, 0, rec)
+    engine = trainer.checkpointer.engine
+    t0 = time.perf_counter()
+    trainer.fit(iter([batch] * WARMUP), steps=WARMUP, start_step=0)
+    engine.wait_staged()
+    check(engine.registered, "1.5B: the segment is not registered")
+    log("[ckpt gpt2-xl] warm-up: " + json.dumps({
+        "wall_s": time.perf_counter() - t0,
+        "register_s": engine.stats["register_s"],
+        "segment_bytes": engine._shm.size,
+        "layout_bytes": engine.stage_log[-1]["bytes"]}))
+    reset_counts()
+    kinds = ("without", "memory", "memory", "without")
+    runs, step = timed_windows(trainer, rec, batch, WARMUP, CKPT_XL_STEPS,
+                               kinds, 0)
+    launches = read_counts()
+    want_counts = {name: XL.num_layers * CKPT_XL_STEPS * len(kinds)
+                   for name in FLASH}
+    want_counts.update(adam8=0, adam8_fused=CKPT_XL_STEPS * len(kinds))
+    for name, count in launches.items():
+        check(count == want_counts[name], f"ckpt 1.5B: {name} launched "
+              f"{count} times, want {want_counts[name]}")
+    prof = staging_profile(trainer, batch, step)
+    step += 3
+    # The race: snapshot step `step`, then run the next step at once.
+    toks = torch.from_numpy(batch).cuda()
+    engine.wait_staged()
+    trainer.train_step(trainer.state, toks)
+    step += 1
+    want = state_bytes(trainer)
+    t0 = time.perf_counter()
+    check(engine.save_to_memory_async(step, trainer.state),
+          "1.5B: the snapshot was skipped")
+    in_flight = not engine._staging.done()
+    next0 = torch.cuda.Event(enable_timing=True)
+    next1 = torch.cuda.Event(enable_timing=True)
+    next0.record()
+    trainer.train_step(trainer.state, toks)
+    next1.record()
+    engine.wait_staged()
+    publish_s = time.perf_counter() - t0
+    d0, d1 = engine.stage_log[-1]["d2h_events"]
+    torch.cuda.synchronize()
+    # Device ms from the next step's start to the copy's end, and from the
+    # copy's start to the next step's end: both > 0 when they overlapped.
+    overlap = (next0.elapsed_time(d1), d0.elapsed_time(next1))
+    got_step, bad = snapshot_differs(engine, want)
+    race = {"step": got_step, "leaves": len(want),
+            "leaves_differing": len(bad),
+            "in_flight_when_next_step_dispatched": in_flight,
+            "next_step_start_to_copy_end_ms": overlap[0],
+            "copy_start_to_next_step_end_ms": overlap[1],
+            "publish_s": publish_s}
+    log("[ckpt gpt2-xl] race check: " + json.dumps(race))
+    check(got_step == step and not bad,
+          f"1.5B: snapshot of step {got_step} differs in {bad[:5]}")
+    check(in_flight and min(overlap) > 0,
+          "1.5B: the snapshot's copy did not overlap the next step")
+    log("[ckpt gpt2-xl] windows: " + json.dumps({
+        "runs": runs, "profile": prof,
+        "yardstick": d2h_yardstick(engine.stage_log[-1]["bytes"]),
+        "launches": launches}))
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    fresh, from_memory = restore_into_fresh(
+        "gpt2-xl", XL, adam8bit(XL_LR), batch, seed + 1, ckpt_dir, want,
+        step, "memory")
+    fresh.close()
+    del fresh, want
+    torch.cuda.empty_cache()
+    return launches, {"runs": runs, "profile": prof, "race": race,
+                      "memory": from_memory}
+
+
+def crash_child(args):
+    """``--crash-child MODE DIR OUT SEED``: GPT-2 124M from SEED, AdamW, a
+    memory snapshot asked for every step and no DISK save. ``crash``
+    trains until CRASH_AT, writes the step of its last published snapshot
+    (CRASH_AT, or before it when that snapshot was skipped) to OUT.ready
+    and waits to be killed; ``resume`` restores (from disk) and trains
+    RESUMED steps; ``plain`` trains CRASH_AT + RESUMED steps without a
+    checkpoint. Each step's loss goes to OUT."""
+    mode, ckpt_dir, out, seed = args
+    seed = int(seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**GPT2)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)
+
+    class Losses(TrainerCallback):
+        def on_step_end(self, trainer, step, metrics):
+            with open(out, "a") as f:
+                f.write(f"{step} {float(metrics['loss'])!r} {time.time()!r}\n")
+            if mode == "crash" and step == CRASH_AT:
+                engine = trainer.checkpointer.engine
+                engine.wait_staged()
+                with open(out + ".ready", "w") as f:
+                    f.write(str(engine.stage_log[-1]["step"]))
+                time.sleep(3600)  # killed here
+
+    trainer = ckpt_trainer(cfg, adamw(3e-4), batch, seed,
+                           "" if mode == "plain" else ckpt_dir, 0, Losses())
+    start = trainer.restore()
+    steps = start + RESUMED if mode == "resume" else CRASH_AT + RESUMED
+    trainer.fit(iter([batch] * steps), steps=steps, start_step=start)
+    trainer.close()
+    return 0
+
+
+def crash_drill(seed, root):
+    """Phase (c): a child trains 124M with a memory snapshot asked for
+    every step and is SIGKILLed after step CRASH_AT; this process's saver
+    flushes the child's last snapshot; a new child resumes from disk at
+    that step and takes RESUMED steps, whose losses must equal those of a
+    child that was never killed."""
+    ckpt_dir = os.path.join(root, "crash")
+    procs = []
+
+    def child(mode, out):
+        # Its log goes to a file: a pipe nobody drains would fill and
+        # stop the child.
+        with open(out + ".log", "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--crash-child",
+                 mode, ckpt_dir, out, str(seed)], stdout=subprocess.DEVNULL,
+                stderr=err)
+        procs.append(proc)
+        return proc
+
+    def tail(out):
+        with open(out + ".log") as f:
+            return f.read()[-2000:]
+
+    def finish(proc, what, out):
+        proc.wait(timeout=600)
+        check(proc.returncode == 0,
+              f"crash drill: {what} child failed: {tail(out)}")
+
+    def losses(out):
+        rows = [line.split() for line in open(out).read().splitlines()]
+        return {int(s): (loss, float(t)) for s, loss, t in rows}
+
+    outs = {m: os.path.join(root, f"{m}.txt")
+            for m in ("plain", "crash", "resume")}
+    try:
+        finish(child("plain", outs["plain"]), "plain", outs["plain"])
+        proc = child("crash", outs["crash"])
+        deadline = time.monotonic() + 600
+        while not os.path.exists(outs["crash"] + ".ready"):
+            check(proc.poll() is None,
+                  "crash drill: the child died: " + tail(outs["crash"]))
+            check(time.monotonic() < deadline, "crash drill: no step 4")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        t_kill = time.time()
+        proc.wait(timeout=60)
+        with open(outs["crash"] + ".ready") as f:
+            snapshot = int(f.read())
+        saver = AsyncCheckpointSaver.get_ckpt_saver()
+        check(saver is not None, "crash drill: the child never registered")
+        saver.save_shm_to_storage()
+        flush_s = time.time() - t_kill
+        tracker = ckpt_persist.read_tracker(saver.storage, ckpt_dir)
+        check(tracker == snapshot and CRASH_AT - 1 <= snapshot <= CRASH_AT,
+              f"crash drill: the flush committed step {tracker}; the "
+              f"child's last snapshot was of step {snapshot}")
+        flushed = persist_record(saver)
+        AsyncCheckpointSaver.stop()  # the resumed child restores from disk
+        finish(child("resume", outs["resume"]), "resume", outs["resume"])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    plain, resumed = losses(outs["plain"]), losses(outs["resume"])
+    first = min(resumed)
+    drill = {"killed_after_step": CRASH_AT, "last_snapshot": snapshot,
+             "flush_s": flush_s,
+             "flush": flushed,
+             "kill_to_first_resumed_step_s": resumed[first][1] - t_kill,
+             "resumed_losses": {s: v[0] for s, v in resumed.items()},
+             "uninterrupted_losses": {s: v[0] for s, v in plain.items()}}
+    log("[ckpt crash] " + json.dumps(drill))
+    check(sorted(resumed) == list(range(snapshot + 1,
+                                        snapshot + RESUMED + 1)),
+          f"crash drill: resumed steps {sorted(resumed)}")
+    check(all(resumed[s][0] == plain[s][0] for s in resumed),
+          "crash drill: the resumed losses differ from the uninterrupted")
+    return drill
+
+
+def checkpoint_phases(seed, windows):
+    """Phases (a)-(c) with the agent's saver running in this process; adds
+    each phase's kernel launches to ``windows``; cleans up after itself."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"ckpt-smoke-{os.getpid()}")
+    job = ckpt_setup(root)
+    try:
+        AsyncCheckpointSaver.start_async_saving_ckpt()
+        for label, phase in (("gpt2-124m", ckpt_gpt2), ("gpt2-xl", ckpt_xl)):
+            t0 = time.perf_counter()
+            windows[f"ckpt {label}"], _ = phase(seed, root)
+            unlink_segments(job)
+            torch.cuda.empty_cache()
+            log(f"[ckpt {label}] phase wall {time.perf_counter() - t0:.1f}s")
+        # A fresh saver for the drill's children.
+        AsyncCheckpointSaver.stop()
+        AsyncCheckpointSaver.start_async_saving_ckpt()
+        t0 = time.perf_counter()
+        crash_drill(seed, root)
+        log(f"[ckpt crash] phase wall {time.perf_counter() - t0:.1f}s")
+    finally:
+        ckpt_cleanup(job, root)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights, inputs and batch")
+    parser.add_argument("--crash-child", nargs=4, default=None,
+                        metavar=("MODE", "DIR", "OUT", "SEED"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.crash_child:
+        return crash_child(args.crash_child)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -936,6 +1500,7 @@ def main():
     log("[timing] " + json.dumps({"adam8bit whole step": adam8_times}))
     del opt
     torch.cuda.empty_cache()
+    checkpoint_phases(args.seed, windows)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

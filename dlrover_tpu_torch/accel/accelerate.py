@@ -17,6 +17,7 @@ from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.models.convert import materialize_adam_state
 
 
 @dataclass(frozen=True)
@@ -170,6 +171,9 @@ def auto_accelerate(
     elif not isinstance(optimizer, torch.optim.Optimizer) and not hasattr(
             optimizer, "update_and_apply"):
         opt = optimizer(module.parameters())
+    # Torch Adam builds its state at its first step; build it now, the
+    # same zeros, so the train state has its layout from step 0.
+    materialize_adam_state(opt)
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
     logger.info("auto_accelerate: %.1fM params on %s, %s",

@@ -58,3 +58,30 @@ STRAGGLER_PHASES = EnvVar(
 CHAOS = EnvVar(
     "DLROVER_TPU_CHAOS", str, "",
     "Fault plan; unset = chaos off. The port has no chaos sites yet.")
+
+# ---------------- flash checkpoint ----------------
+JOB_NAME = EnvVar(
+    "DLROVER_TPU_JOB_NAME", str, "local-job",
+    "Job name; namespaces shm segments and unix sockets.")
+NODE_RANK = EnvVar(
+    "DLROVER_TPU_NODE_RANK", int, 0, "Rendezvous rank of this node.")
+LOCAL_WORLD_SIZE = EnvVar(
+    "DLROVER_TPU_LOCAL_WORLD_SIZE", int, 1, "Worker processes per host.")
+SOCK_DIR = EnvVar(
+    "DLROVER_TPU_SOCK_DIR", str, "/tmp/dlrover_tpu/sock",
+    "Directory for per-job unix sockets (shm coordination).")
+SHM_DIR = EnvVar(
+    "DLROVER_TPU_SHM_DIR", str, "/dev/shm",
+    "Backing directory for flash-checkpoint shared-memory segments.")
+CKPT_STRIPE_MB = EnvVar(
+    "DLROVER_TPU_CKPT_STRIPE_MB", float, 32.0,
+    "Stripe size for parallel checkpoint I/O; 0 = legacy per-block "
+    "format; clamped to >= 1 MB otherwise.")
+CKPT_INCREMENTAL = EnvVar(
+    "DLROVER_TPU_CKPT_INCREMENTAL", bool, True,
+    "Content-hash incremental stripes: a stripe whose crc is unchanged "
+    "since the previous committed step is recorded as a reference to "
+    "that step's bin instead of rewritten.")
+COPY_THREADS = EnvVar(
+    "DLROVER_TPU_COPY_THREADS", int, 8,
+    "Worker threads in the fastcopy pool (checksum + read pipeline).")

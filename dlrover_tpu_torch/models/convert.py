@@ -14,15 +14,35 @@ values bit for bit, bf16 included (through a 16-bit integer view).
 leaves; the port's ``adam8bit`` keeps its state per JAX leaf, so that
 state converts across with ``adam8bit_state_from_flax`` /
 ``adam8bit_state_to_flax``.
+
+``train_state_leaves`` lays the port's whole train state (``{"params",
+"opt", "step"}``) out as the JAX train state's flattened leaves, keyed
+by the exact ``jax.tree_util.keystr`` strings and in JAX's order; each
+leaf lists the port's tensors whose bytes, one after another, are the
+JAX leaf's. The flash checkpoint writes and restores through it, so a
+checkpoint of either package restores into the other.
 """
 
 import re
-from typing import Dict, Iterable, List, Mapping, NamedTuple, Tuple
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    List,
+    Mapping,
+    NamedTuple,
+    Optional,
+    Tuple,
+)
 
 import numpy as np
 import torch
 
-from dlrover_tpu_torch.optim.low_bit import Adam8bitState, QTensor
+from dlrover_tpu_torch.optim.low_bit import (
+    Adam8bitOptimizer,
+    Adam8bitState,
+    QTensor,
+)
 
 _DENSE = ("qkv", "proj", "up", "down")
 _NORMS = ("ln1", "ln2")
@@ -50,9 +70,9 @@ def _tensor(v) -> torch.Tensor:
 def _array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16, as JAX arrays carry it
-
-        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+        # numpy knows "bfloat16" once JAX has loaded its dtype package;
+        # the port itself never needs it.
+        return t.view(torch.int16).numpy().copy().view(np.dtype("bfloat16"))
     return t.numpy().copy()
 
 
@@ -193,3 +213,148 @@ def adam8bit_state_to_flax(state: Adam8bitState) -> Adam8bitState:
 
     return Adam8bitState(step=_array(state.step), m=moments(state.m),
                          v=moments(state.v))
+
+
+# ----------------------------------------------------- the train state
+
+
+class StateLeaf(NamedTuple):
+    """One leaf of the JAX train state in the port: its ``keystr`` path,
+    JAX shape and dtype, and the port's tensors that hold it, in layer
+    order (one, or one per layer of a stacked leaf). A host scalar (the
+    loop's ``step``, AdamW's ``count``) has no tensor: ``value`` is its
+    int32 value and ``assign`` sets it."""
+
+    path: str
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    members: Tuple[torch.Tensor, ...] = ()
+    value: Optional[int] = None
+    assign: Optional[Callable[[int], None]] = None
+
+
+def keystr(prefix: str, path: str) -> str:
+    """``jax.tree_util.keystr`` of a ``/``-joined dict path under
+    ``prefix``: ``keystr("['params']", "blocks/qkv/kernel")`` is
+    ``['params']['blocks']['qkv']['kernel']``."""
+    return prefix + "".join(f"[{key!r}]" for key in path.split("/"))
+
+
+def _in_jax_order(paths: Iterable[str]) -> List[str]:
+    """JAX flattens a dict in sorted key order, level by level."""
+    return sorted(paths, key=lambda p: p.split("/"))
+
+
+def _plain_adam(opt) -> bool:
+    """A torch ``Adam``/``AdamW`` whose state is optax's ``count``, ``mu``
+    and ``nu``: no amsgrad, and the step kept on the host (not
+    capturable, not fused)."""
+    return isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)) and not any(
+        g.get("amsgrad") or g.get("capturable") or g.get("fused")
+        for g in opt.param_groups)
+
+
+def materialize_adam_state(opt):
+    """Give every parameter of a plain torch ``Adam``/``AdamW`` the state
+    its first ``step()`` would build (``step`` 0 on the host, zero
+    ``exp_avg``/``exp_avg_sq``), so the state has its layout from step
+    0; ``step()`` then finds it and builds nothing. Parameters that have
+    state keep it; any other optimizer is left alone."""
+    if not _plain_adam(opt):
+        return
+    step_dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
+                  else torch.float32)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            state = opt.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0, dtype=step_dtype)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+def _adam_count(opt: torch.optim.Optimizer, names) -> int:
+    """optax's one ``count`` from torch's step a parameter, which agree."""
+    steps = {float(opt.state[p]["step"]) for p in names.values()}
+    if len(steps) != 1:
+        raise ValueError(f"Adam's parameters are at different steps {steps}")
+    return int(steps.pop())
+
+
+def _set_adam_count(opt: torch.optim.Optimizer, count: int):
+    for state in opt.state.values():
+        state["step"].fill_(float(count))
+
+
+def train_state_leaves(state, stacked: bool = True,
+                       groups: Optional[Dict[str, JaxLeaf]] = None
+                       ) -> List[StateLeaf]:
+    """The port's train state as the JAX train state's leaves, in the
+    order ``jax.tree_util.tree_flatten_with_path`` gives them:
+    ``['opt']...`` (optax ``adamw``: ``['opt'][0].count``, ``.mu[...]``,
+    ``.nu[...]``; ``adam8bit``: ``['opt'].step`` and ``.m[...]``/
+    ``.v[...]`` with ``.q`` and ``.scale``), ``['params'][...]``, then
+    ``['step']``. A stacked leaf lists its layers' tensors; nothing is
+    copied. Torch ``Adam``/``AdamW`` state is materialized first
+    (``materialize_adam_state``). ``groups``: ``jax_leaves`` of the
+    params, when the caller keeps it."""
+    params, opt = state["params"], state["opt"]
+    if groups is None:
+        groups = jax_leaves(((n, tuple(p.shape)) for n, p in params.items()),
+                            stacked=stacked)
+    order = _in_jax_order(groups)
+    leaves: List[StateLeaf] = []
+    if isinstance(opt, Adam8bitOptimizer):
+        st = opt.state
+        leaves.append(StateLeaf("['opt'].step", (), st.step.dtype,
+                                (st.step,)))
+        for moment in ("m", "v"):
+            tree = getattr(st, moment)
+            for path in _in_jax_order(tree):
+                for field in ("q", "scale"):
+                    t = getattr(tree[path], field)
+                    leaves.append(StateLeaf(
+                        keystr(f"['opt'].{moment}", path) + f".{field}",
+                        tuple(t.shape), t.dtype, (t,)))
+    elif _plain_adam(opt):
+        materialize_adam_state(opt)
+        leaves.append(StateLeaf(
+            "['opt'][0].count", (), torch.int32,
+            value=_adam_count(opt, params),
+            assign=lambda v: _set_adam_count(opt, v)))
+        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            for path in order:
+                members = tuple(opt.state[params[n]][key]
+                                for n in groups[path].names)
+                leaves.append(StateLeaf(
+                    keystr(f"['opt'][0].{moment}", path), groups[path].shape,
+                    members[0].dtype, members))
+    else:
+        raise TypeError(
+            f"no JAX train-state layout for optimizer {type(opt).__name__}; "
+            "the port lays out adam8bit and torch Adam/AdamW without "
+            "amsgrad, capturable or fused")
+    for path in order:
+        members = tuple(params[n] for n in groups[path].names)
+        leaves.append(StateLeaf(keystr("['params']", path),
+                                groups[path].shape, members[0].dtype,
+                                members))
+
+    def set_step(v: int):
+        state["step"] = int(v)
+
+    leaves.append(StateLeaf("['step']", (), torch.int32,
+                            value=int(state["step"]), assign=set_step))
+    return leaves
+
+
+def leaf_bytes(leaf: StateLeaf) -> torch.Tensor:
+    """A leaf's bytes as the JAX leaf holds them (its members' bytes one
+    after another; a host scalar as int32), as uint8 on the members'
+    device."""
+    if not leaf.members:
+        return torch.tensor([leaf.value], dtype=torch.int32).view(torch.uint8)
+    return torch.cat([m.detach().reshape(-1).view(torch.uint8)
+                      for m in leaf.members])

@@ -2,15 +2,22 @@
 ``dlrover_tpu/train/trainer.py``.
 
 ``Trainer`` wires ``auto_accelerate``, the lag-1 metric readback, the
-device prefetcher and HF-style callbacks into a ``fit()`` loop, so a
-training script is model + loss + data. The surface is the JAX
-trainer's: callbacks with a ``should_stop`` flag, ``LoggingCallback``,
-``evaluate()``, ``fit(pipeline=True/False)``.
+device prefetcher, the flash checkpoint and HF-style callbacks into a
+``fit()`` loop, so a training script is model + loss + data. The surface
+is the JAX trainer's: callbacks with a ``should_stop`` flag,
+``LoggingCallback``, ``evaluate()``, ``fit(pipeline=True/False)``,
+``checkpoint_dir`` / ``persist_every`` / ``restore()`` / ``close()``.
+
+With ``checkpoint_dir`` every step's state is snapshotted to host shared
+memory (``StorageType.MEMORY``, asynchronous: the copy is enqueued
+before the next step is dispatched) and every ``persist_every`` steps
+persisted to disk (``StorageType.DISK``); ``fit`` resumes from the
+newest snapshot, memory first, unless given ``start_step``.
 
 Pieces that need modules of later slices raise ``NotImplementedError``
-(ROADMAP queue 1): ``checkpoint_dir`` (flash checkpoint), a rescale
-engine, master reporting (a job with a master), chaos sites (a fault
-plan in the environment) and the profiler's trace capture. The comms
+(ROADMAP queue 1): a rescale engine, master reporting (a job with a
+master), chaos sites (a fault plan in the environment), the profiler's
+trace capture and a checkpoint over several processes. The comms
 governor needs the master, so it never arises here.
 """
 
@@ -23,6 +30,11 @@ import torch
 from dlrover_tpu_torch.common import env_utils
 from dlrover_tpu_torch.common.device import DeviceLike
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.train.checkpoint import (
+    FlashCheckpointer,
+    ShardedCheckpointer,
+    StorageType,
+)
 from dlrover_tpu_torch.train.data.device_prefetch import (
     DevicePrefetchIterator,
     to_device,
@@ -50,6 +62,9 @@ class TrainerCallback:
         pass
 
     def on_evaluate(self, trainer, step: int, metrics: dict):
+        pass
+
+    def on_save(self, trainer, step: int, storage: str):
         pass
 
     def on_train_end(self, trainer, step: int):
@@ -95,6 +110,7 @@ class Trainer:
         sample_batch,
         spec: Any = "auto",
         checkpoint_dir: str = "",
+        persist_every: int = 100,
         grad_accum: int = 1,
         profiler=None,
         report_metrics: bool = True,
@@ -103,8 +119,6 @@ class Trainer:
     ):
         from dlrover_tpu_torch.accel import auto_accelerate
 
-        if checkpoint_dir:
-            raise _later("checkpoint_dir", "flash checkpoint")
         if profiler is not None:
             raise _later("the profiler", "chaos and observability")
         if report_metrics and env_utils.MASTER_ADDR.get():
@@ -124,6 +138,31 @@ class Trainer:
         self._phases = (
             PhaseBreakdown() if env_utils.STRAGGLER_PHASES.get() else None
         )
+        self._persist_every = persist_every
+        self._ckpt = None
+        if checkpoint_dir:
+            cls = (ShardedCheckpointer if env_utils.NUM_PROCESSES.get() > 1
+                   else FlashCheckpointer)
+            self._ckpt = cls(checkpoint_dir)
+
+    @property
+    def checkpointer(self):
+        """The flash checkpointer (None without ``checkpoint_dir``)."""
+        return self._ckpt
+
+    def restore(self) -> int:
+        """Resume from the newest checkpoint, in place; returns the step
+        to start from (0 when there is none)."""
+        if self._ckpt is None:
+            return 0
+        step, self.state = self._ckpt.load_checkpoint(self.state)
+        if step > 0:
+            logger.info("trainer resumed from step %s", step)
+        return max(0, step)
+
+    def close(self):
+        if self._ckpt is not None:
+            self._ckpt.close()
 
     @property
     def phase_breakdown(self) -> Optional[PhaseBreakdown]:
@@ -179,10 +218,13 @@ class Trainer:
         loss back lag-1, so the host syncs with the card only on the
         previous step; ``pipeline=False`` copies each batch inside the
         step and syncs on every step. Both compute the same losses.
+        With a checkpoint, ``start_step=None`` resumes from it
+        (``restore()``); each step's state is snapshotted once the step
+        is dispatched, before the next one is.
         """
         if rescale_engine is not None:
             raise _later("rescale_engine", "ElasticTrainer / rescale")
-        start = 0 if start_step is None else start_step
+        start = self.restore() if start_step is None else start_step
         if pipeline:
             it = (
                 batches if isinstance(batches, DevicePrefetchIterator)
@@ -214,6 +256,15 @@ class Trainer:
             self.state, metrics = self.train_step(self.state, batch)
             dispatch_s = time.perf_counter() - t_step0
             done = step + 1
+            if self._ckpt is not None:
+                if self._persist_every and done % self._persist_every == 0:
+                    self._ckpt.save_checkpoint(done, self.state,
+                                               StorageType.DISK)
+                    self._fire("on_save", done, "disk")
+                else:
+                    # Enqueued behind step `done`, ahead of the next step.
+                    self._ckpt.save_checkpoint(done, self.state,
+                                               StorageType.MEMORY)
             last_loss = metrics["loss"]
             if pipeline:
                 # Lag-1 fence: wait for step N-1, never for step N.

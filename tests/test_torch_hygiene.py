@@ -1,7 +1,7 @@
 """Rules the PyTorch port keeps: no JAX, the card by default, sm_90a.
 
 - No module of ``dlrover_tpu_torch/``, and not ``chip_smoke.py``, imports
-  jax, flax, optax or anything of ``dlrover_tpu``.
+  jax, flax, optax, ml_dtypes or anything of ``dlrover_tpu``.
 - Entry points run on CUDA unless the caller asks for the CPU; without
   a card they raise instead of falling back.
 - The kernel build targets Hopper's ``sm_90a`` (checked without nvcc).
@@ -22,7 +22,7 @@ from dlrover_tpu_torch.train.data import DevicePrefetchIterator
 from dlrover_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "dlrover_tpu")
 
 
 def port_sources():
@@ -59,6 +59,8 @@ def test_walk_sees_the_whole_package():
     assert "dlrover_tpu_torch/optim/low_bit.py" in names
     assert "dlrover_tpu_torch/models/convert.py" in names
     assert "dlrover_tpu_torch/train/trainer.py" in names
+    assert "dlrover_tpu_torch/train/checkpoint/engine.py" in names
+    assert "dlrover_tpu_torch/agent/ckpt_saver.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -75,10 +77,12 @@ def tiny_model():
     return GPT(GPTConfig.tiny(), device="cpu")
 
 
-def test_trainer_raises_without_cuda(no_cuda):
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Trainer(tiny_model(), adamw(1e-3), loss,
-                torch.zeros(2, 8, dtype=torch.long))
+def test_trainer_raises_without_cuda(no_cuda, tmp_path):
+    for kwargs in ({}, {"checkpoint_dir": str(tmp_path)}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Trainer(tiny_model(), adamw(1e-3), loss,
+                    torch.zeros(2, 8, dtype=torch.long), **kwargs)
+    assert not list(tmp_path.iterdir())
 
 
 def test_auto_accelerate_raises_without_cuda(no_cuda):

@@ -188,7 +188,10 @@ def test_update_and_apply_branch():
 @pytest.mark.parametrize("kwargs", [
     dict(checkpoint_dir="/nonexistent"), dict(profiler=object()),
 ])
-def test_later_slices_raise(kwargs):
+def test_later_slices_raise(kwargs, monkeypatch):
+    # One process checkpoints (test_torch_checkpoint.py); a checkpoint
+    # over several processes comes with the multi-device slice.
+    monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_trainer(**kwargs)
 
