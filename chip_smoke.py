@@ -20,9 +20,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    launches alone (no host work) and through its wrapper; its plain
    version and, as yardsticks the port never calls, PyTorch's
    scaled_dot_product_attention and ATen's flash backward; compute each
-   kernel's bound from its bytes and FLOPs;
-4. check the GPT's kernel path against its einsum path on a small input,
-   then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
+   kernel's bound from its bytes and FLOPs; then the head_dim-128 forms
+   (LLaMA's): each held to its plain version at the LLaMA preset's
+   shapes (B 4, S 2048 and B 1, S 8192, 16 heads, causal), non-causal,
+   ragged and at S 192, and timed at both preset shapes the same way;
+4. check the GPT's and the LLaMA's kernel paths against their einsum
+   paths on a small input (2 layers at full width), then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
    the seed, one fixed batch, AdamW) through ``Trainer.fit``: 2 warm-up
    steps, then a window of 10 whose tokens over its wall time, fence to
    fence, give tokens/s; check that every flash kernel ran 12 times a
@@ -30,15 +33,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    3 more steps with torch.profiler: device time by kernel group, each
    flash kernel's device ms per launch, the card's busy share of the
    traced time and the kernels' time over the window's step;
-5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024) with the
-   port's fused ``adam8bit(2e-4)`` the same way (2 warm-up steps, a
-   window of 5, 3 traced): every flash kernel 48 times a step, the fused
+5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024, remat
+   "dots" as bench.py trains it) with the port's fused
+   ``adam8bit(2e-4)`` the same way (2 warm-up steps, a window of 5, 3
+   traced): every flash kernel 48 times a step (the forward 96: the
+   backward recomputes it), the fused
    8-bit Adam kernel once a step over every leaf, the unfused one never;
    in the traced steps, the optimizer's own ops (a profiler range
    around ``update_and_apply``) hold no cat and no copy kernel, and the
    fused kernel runs once a step; then 2
    steps of the optax-style loop (``update``, then apply), where the
-   unfused kernel runs once a step and the fused one never;
+   unfused kernel runs once a step and the fused one never; before
+   them, windows of 5 without remat and under remat "nothing" (step ms
+   and peak memory beside "dots"');
+   then the LLaMA preset (22 x 2048, 16 / 8 heads, vocab 32000, bf16
+   params, remat "dots", ``adam8bit(2e-4)``) at 4 x 2048 (a window of 5,
+   3 traced) and 1 x 8192 (a window of 3): step ms, tokens/s, MFU, peak
+   memory; the loss falls; each head_dim-128 kernel 22 times a step (the
+   forward 44), the fused 8-bit Adam once, no head_dim-64 kernel; and a
+   window at 4 x 2048 without remat;
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -56,13 +69,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ATen's copy into pinned memory, call to publish), a persist, restores
    from memory and from disk into fresh Trainers, each leaf held bit for
    bit to the state at its step, and one more step whose loss equals the
-   uninterrupted run's; (b) GPT-2 xl 1.5B, the same windows without the
-   DISK ones, a snapshot taken while the next step runs held bit for bit
+   uninterrupted run's; (b) GPT-2 xl 1.5B (without remat), the same
+   windows without the DISK ones, a snapshot taken while the next step runs held bit for bit
    (the race check), a restore from memory; (c) a child process training
    124M, SIGKILLed after step 4, the saver's flush of its last snapshot,
    and a resumed child whose losses equal an unkilled child's;
-8. print the card, a ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+8. print each phase's wall time, the card, a ``{"kernels": [...]}`` line
+   (all eight kernels; the head_dim-128 ones timed at B 4, S 2048), and
+   last ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits non-zero and prints no result. Float32 matmuls
 and convolutions run without TF32 wherever a comparison is made.
@@ -93,6 +107,7 @@ from dlrover_tpu_torch.common.comm import clear_job_sockets
 from dlrover_tpu_torch.common.shared_memory import SharedMemory
 from dlrover_tpu_torch.models.convert import leaf_bytes, train_state_leaves
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
+from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
 from dlrover_tpu_torch.optim import adam8bit, adamw
@@ -110,16 +125,22 @@ PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
 FLASH_SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attn.cu"
 ADAM8_SOURCE = "dlrover_tpu_torch/ops/csrc/adam8bit.cu"
+# The Pallas kernel each flash kernel replaces, at either head_dim.
+FLASH_REPLACES = {"flash_fwd": "dlrover_tpu/ops/attention.py:61",
+                  "flash_bwd_dq": "dlrover_tpu/ops/attention.py:179",
+                  "flash_bwd_dkv": "dlrover_tpu/ops/attention.py:230"}
 # Each kernel (named as its launch counter), its source and the Pallas
-# kernel it replaces.
-KERNELS = (
-    ("flash_fwd", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:61"),
-    ("flash_bwd_dq", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:179"),
-    ("flash_bwd_dkv", FLASH_SOURCE, "dlrover_tpu/ops/attention.py:230"),
+# kernel it replaces: the flash kernels at head_dim 64 (GPT-2) and 128
+# (LLaMA), then the 8-bit Adam kernels.
+KERNELS = tuple(
+    (attn.kernel_name(k, d), FLASH_SOURCE, FLASH_REPLACES[k])
+    for d in attn.HEAD_DIMS for k in attn.KERNELS
+) + (
     ("adam8", ADAM8_SOURCE, "dlrover_tpu/optim/low_bit.py:79"),
     ("adam8_fused", ADAM8_SOURCE, "dlrover_tpu/optim/low_bit.py:131"),
 )
-FLASH = [k[0] for k in KERNELS[:3]]
+FLASH = [attn.kernel_name(k, 64) for k in attn.KERNELS]
+FLASH128 = [attn.kernel_name(k, 128) for k in attn.KERNELS]
 # Kernel vs plain: bf16 outputs, and bf16 P / dS operands of the tensor-
 # core products where the plain version keeps fp32. Every 64-row tile of
 # every output must agree with the plain version's to attn.TILE_REL_TOL
@@ -136,11 +157,19 @@ WARMUP = 2
 GPT2 = dict(vocab_size=50257, max_seq_len=1024, num_layers=12, num_heads=12,
             d_model=768, attn_impl="pallas")
 BATCH, SEQ, STEPS = 16, 1024, 10
-# The JAX package's large preset (bench.py section_large) less remat,
-# which is a later slice of the port; the step fits 80 GB without it.
-XL = dataclasses.replace(GPTConfig.gpt2_xl(), remat=False,
+# The JAX package's large preset as bench.py section_large trains it
+# first: remat "dots"; and without remat (the step fits 80 GB either
+# way), which the checkpoint phases keep.
+XL = dataclasses.replace(GPTConfig.gpt2_xl(), remat_policy="dots",
                          param_dtype=torch.bfloat16, attn_impl="pallas")
+XL_NOREMAT = dataclasses.replace(XL, remat=False)
+XL_NOTHING = dataclasses.replace(XL, remat_policy="nothing")
 XL_BATCH, XL_STEPS, XL_UNFUSED_STEPS, XL_LR = 4, 5, 2, 2e-4
+# The LLaMA preset as bench.py section_llama trains it (22 x 2048, 16 /
+# 8 heads, head_dim 128, bf16 params, remat "dots", adam8bit(2e-4)):
+# (batch, seq, window steps) of each run.
+LLAMA_RUNS = ((4, 2048, 5), (1, 8192, 3))
+LLAMA_LR = 2e-4
 # fp32 operations per value of each 8-bit Adam kernel (its bound by
 # operations, under the bound by bytes by about 8x).
 ADAM8_OPS = {"adam8": 21, "adam8_fused": 23}
@@ -182,6 +211,18 @@ def build_kernels():
         "loading")
 
 
+def flash_want(cfg, steps):
+    """Each flash kernel's launches in ``steps`` training steps of
+    ``cfg``: its head_dim's forms once a layer a step, the other width's
+    never; under remat the forward twice (the backward recomputes it:
+    no policy can save a kernel's output)."""
+    want = dict.fromkeys(attn.LAUNCHES, 0)
+    for k in attn.KERNELS:
+        per = 2 if cfg.remat and k == "flash_fwd" else 1
+        want[attn.kernel_name(k, cfg.head_dim)] = per * cfg.num_layers * steps
+    return want
+
+
 def qkv_do(gen, b, s, h=12, d=64):
     return tuple(
         torch.randn((b, s, h, d), generator=gen, device="cuda").to(
@@ -217,10 +258,12 @@ def compare(q, k, v, do, causal, label):
     dk_ref, dv_ref = attn._bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
     errs, report = {}, {}
-    for name, pairs in (("flash_fwd", {"o": (o, o_ref)}),
-                        ("flash_bwd_dq", {"dq": (dq, dq_ref)}),
-                        ("flash_bwd_dkv", {"dk": (dk, dk_ref),
-                                           "dv": (dv, dv_ref)})):
+    d = q.shape[-1]
+    for kernel, pairs in (("flash_fwd", {"o": (o, o_ref)}),
+                          ("flash_bwd_dq", {"dq": (dq, dq_ref)}),
+                          ("flash_bwd_dkv", {"dk": (dk, dk_ref),
+                                             "dv": (dv, dv_ref)})):
+        name = attn.kernel_name(kernel, d)
         errs[name] = 0.0
         for out, (got, ref) in pairs.items():
             check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
@@ -272,9 +315,9 @@ def bounds(b, s, h, d, causal):
         "flash_bwd_dkv": (8 * d * pairs, 6 * tensor + 2 * rowvec),
     }
     out = {}
-    for name, (flops, nbytes) in work.items():
+    for kernel, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BYTES_S
-        out[name] = {
+        out[attn.kernel_name(kernel, d)] = {
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
@@ -288,14 +331,15 @@ def launchers(q, k, v, do, lse, delta, causal):
     new = lambda t: torch.empty(t.shape, dtype=t.dtype,  # noqa: E731
                                 device=t.device)
     o, dq, dk, dv, lse_out = new(q), new(q), new(k), new(v), new(lse)
+    entry = lambda k: attn.entry_name(k, q.shape[-1])  # noqa: E731
     return {
-        "flash_fwd": attn._launcher("flash_fwd_bf16", q, k, {
+        "flash_fwd": attn._launcher(entry("flash_fwd"), q, k, {
             "ptrs": (q, k, v, o, lse_out), "strided": (q, k, v, o)},
             causal),
-        "flash_bwd_dq": attn._launcher("flash_bwd_dq_bf16", q, k, {
+        "flash_bwd_dq": attn._launcher(entry("flash_bwd_dq"), q, k, {
             "ptrs": (q, k, v, do, lse, delta, dq),
             "strided": (q, k, v, do, dq)}, causal),
-        "flash_bwd_dkv": attn._launcher("flash_bwd_dkv_bf16", q, k, {
+        "flash_bwd_dkv": attn._launcher(entry("flash_bwd_dkv"), q, k, {
             "ptrs": (q, k, v, do, lse, delta, dk, dv),
             "strided": (q, k, v, do, dk, dv)}, causal),
     }
@@ -304,7 +348,14 @@ def launchers(q, k, v, do, lse, delta, causal):
 def time_kernels(q, k, v, do, yardsticks=True):
     """Each flash kernel's ms a launch, alone (``ms``) and through its
     wrapper (``wrapper_ms``), over LAUNCH_ITERS launches; with
-    ``yardsticks``, also its plain version and the library calls."""
+    ``yardsticks``, also its plain version and the library calls. Keyed
+    by the kernels of q's head_dim."""
+    out, yard = _time_kernels(q, k, v, do, yardsticks)
+    return {attn.kernel_name(n, q.shape[-1]): t for n, t in out.items()}, \
+        yard
+
+
+def _time_kernels(q, k, v, do, yardsticks):
     causal = True
     _, lse, delta, *_ = run_kernels(q, k, v, do, causal)
     alone = launchers(q, k, v, do, lse, delta, causal)
@@ -372,40 +423,49 @@ def token_loss(module, params, batch):
     return loss_fn(module(batch), batch)
 
 
-def model_check(seed):
-    """The GPT's kernel path against its einsum path, same weights, on a
-    2-layer GPT-2-width model and a 2 x 256 batch."""
-    small = dict(GPT2, num_layers=2)
+def model_check(seed, model_cls=GPT, cfg=None):
+    """A model's kernel path against its einsum path, same weights, on
+    2 layers at the config's widths (GPT-2's by default) and a 2 x 256
+    batch."""
+    cfg = dataclasses.replace(cfg or GPTConfig(**GPT2), num_layers=2,
+                              remat=False, attn_impl="pallas")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = GPT(GPTConfig(**small), device="cuda", generator=gen)
-    ref = GPT(GPTConfig(**dict(small, attn_impl="xla")), device="cuda")
+    model = model_cls(cfg, device="cuda", generator=gen)
+    ref = model_cls(dataclasses.replace(cfg, attn_impl="xla"), device="cuda")
     ref.load_state_dict(model.state_dict())
-    toks = torch.randint(0, small["vocab_size"], (2, 256), device="cuda",
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda",
                          generator=gen)
+    reset_counts()
     with torch.no_grad():
         a, b = model(toks), ref(toks)
-    check(a.shape == (2, 256, small["vocab_size"]), f"logits shape {a.shape}")
+    launched = read_counts()[attn.kernel_name("flash_fwd", cfg.head_dim)]
+    check(launched == 2, f"{model_cls.__name__}: {launched} forward kernels")
+    check(a.shape == (2, 256, cfg.vocab_size), f"logits shape {a.shape}")
     check(bool(torch.isfinite(a).all()), "non-finite logits")
     err = (a.float() - b.float()).abs().max().item()
     rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
     la, lb = float(loss_fn(a, toks)), float(loss_fn(b, toks))
-    log(f"[model] kernel vs einsum path: logits ||err|| / ||ref|| {rel:.3e} "
-        f"(limit {MODEL_TOL}), max |err| {err:.3e}, loss {la:.5f} vs "
-        f"{lb:.5f} (limit 1e-2)")
+    log(f"[model {model_cls.__name__}] kernel vs einsum path: logits "
+        f"||err|| / ||ref|| {rel:.3e} (limit {MODEL_TOL}), max |err| "
+        f"{err:.3e}, loss {la:.5f} vs {lb:.5f} (limit 1e-2)")
     check(rel <= MODEL_TOL, f"kernel path vs einsum path: logits {rel}")
     check(abs(la - lb) <= 1e-2, f"loss {la} vs einsum path {lb}")
 
 
-def train(label, cfg, optimizer, batch_size, steps, seed):
-    """``cfg`` from random weights (the seed) on one fixed batch through
-    ``Trainer.fit``: 2 warm-up steps, then a window of ``steps`` in which
-    every flash kernel runs once a layer a step, the fused 8-bit Adam
-    kernel its launches a step (none with AdamW), the unfused one never,
-    and the loss is finite and falls."""
+def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
+          seq=None):
+    """``cfg`` from random weights (the seed) on one fixed batch of
+    ``batch_size`` x ``seq`` through ``Trainer.fit``: 2 warm-up steps,
+    then a window of ``steps`` in which every flash kernel of the model's
+    head_dim runs once a layer a step (the forward twice under remat),
+    the fused 8-bit Adam kernel its launches a step (none with AdamW),
+    the unfused one never, and the loss is finite and falls; ``seq``
+    defaults to SEQ."""
+    seq = seq or SEQ
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = GPT(cfg, device="cuda", generator=gen)
+    model = model_cls(cfg, device="cuda", generator=gen)
     batch = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch_size, SEQ), dtype=np.int64)
+        0, cfg.vocab_size, (batch_size, seq), dtype=np.int64)
     rec = Record()
     trainer = Trainer(model, optimizer, token_loss, batch,
                       spec="auto", callbacks=[rec, LoggingCallback(every=5)])
@@ -426,7 +486,7 @@ def train(label, cfg, optimizer, batch_size, steps, seed):
     per_step = getattr(trainer.state["opt"], "launches_per_step", 0)
     check(per_step in (0, 1), f"{label}: {per_step} optimizer launches a "
           "step, want one")
-    want = {name: cfg.num_layers * steps for name in FLASH}
+    want = flash_want(cfg, steps)
     want.update(adam8=0, adam8_fused=per_step * steps)
     for name, count in launches.items():
         check(count == want[name],
@@ -435,10 +495,11 @@ def train(label, cfg, optimizer, batch_size, steps, seed):
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
     # End to end: every token of the window over its whole wall time,
     # fence to fence. The per-step median is the loop's own statistic.
-    tok_s = batch_size * SEQ * steps / window_s
+    tok_s = batch_size * seq * steps / window_s
     peak = device_peak_flops(torch.device("cuda"))
     stats = {
-        "steps": steps, "batch": [batch_size, SEQ], "window_s": window_s,
+        "steps": steps, "batch": [batch_size, seq], "window_s": window_s,
+        "remat": cfg.remat_policy if cfg.remat else None,
         "step_ms": window_s / steps * 1e3, "tokens_per_s": tok_s,
         "mfu": mfu(tok_s, cfg.flops_per_token(), peak or PEAK_BF16),
         "median_step_gap_ms": statistics.median(rec.step_s) * 1e3,
@@ -474,7 +535,7 @@ def train_unfused(trainer, batch, steps):
     torch.cuda.synchronize()
     launches = read_counts()
     losses = [float(x) for x in losses]
-    want = {name: XL.num_layers * steps for name in FLASH}
+    want = flash_want(XL, steps)
     want.update(adam8=opt.launches_per_step * steps, adam8_fused=0)
     log(f"[train gpt2-xl unfused] " + json.dumps(
         {"steps": steps, "losses": losses, "launches": launches}))
@@ -577,14 +638,15 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
             group = "elementwise / reductions"
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total
     per_launch = {}
-    for name, entry in (("flash_fwd", "::fwd_kernel("),
-                        ("flash_bwd_dq", "::bwd_dq_kernel("),
-                        ("flash_bwd_dkv", "::bwd_dkv_kernel(")):
-        hits = [e for e in kernels if entry in e.key]
-        launches = sum(e.count for e in hits)
-        if launches:
-            per_launch[name] = sum(
-                e.self_device_time_total for e in hits) / launches / 1e3
+    for kernel, entry in (("flash_fwd", "::fwd_kernel<"),
+                          ("flash_bwd_dq", "::bwd_dq_kernel<"),
+                          ("flash_bwd_dkv", "::bwd_dkv_kernel<")):
+        for d in attn.HEAD_DIMS:
+            hits = [e for e in kernels if f"{entry}{d}>" in e.key]
+            launches = sum(e.count for e in hits)
+            if launches:
+                per_launch[attn.kernel_name(kernel, d)] = sum(
+                    e.self_device_time_total for e in hits) / launches / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
     log(f"[profile {label}] " + json.dumps({
         "steps": steps,
@@ -1156,8 +1218,7 @@ def ckpt_gpt2(seed, root):
     launches = read_counts()
     saver = AsyncCheckpointSaver.get_ckpt_saver()
     in_loop = persist_record(saver)
-    want_counts = {name: cfg.num_layers * STEPS * len(kinds)
-                   for name in FLASH}
+    want_counts = flash_want(cfg, STEPS * len(kinds))
     want_counts.update(adam8=0, adam8_fused=0)
     for name, count in launches.items():
         check(count == want_counts[name], f"ckpt 124M: {name} launched "
@@ -1212,7 +1273,8 @@ def ckpt_xl(seed, root):
         0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
     ckpt_dir = os.path.join(root, "gpt2-xl")
     rec = Record()
-    trainer = ckpt_trainer(XL, adam8bit(XL_LR), batch, seed, ckpt_dir, 0, rec)
+    trainer = ckpt_trainer(XL_NOREMAT, adam8bit(XL_LR), batch, seed,
+                           ckpt_dir, 0, rec)
     engine = trainer.checkpointer.engine
     t0 = time.perf_counter()
     trainer.fit(iter([batch] * WARMUP), steps=WARMUP, start_step=0)
@@ -1228,8 +1290,7 @@ def ckpt_xl(seed, root):
     runs, step = timed_windows(trainer, rec, batch, WARMUP, CKPT_XL_STEPS,
                                kinds, 0)
     launches = read_counts()
-    want_counts = {name: XL.num_layers * CKPT_XL_STEPS * len(kinds)
-                   for name in FLASH}
+    want_counts = flash_want(XL_NOREMAT, CKPT_XL_STEPS * len(kinds))
     want_counts.update(adam8=0, adam8_fused=CKPT_XL_STEPS * len(kinds))
     for name, count in launches.items():
         check(count == want_counts[name], f"ckpt 1.5B: {name} launched "
@@ -1278,7 +1339,8 @@ def ckpt_xl(seed, root):
     del trainer
     torch.cuda.empty_cache()
     fresh, from_memory = restore_into_fresh(
-        "gpt2-xl", XL, adam8bit(XL_LR), batch, seed + 1, ckpt_dir, want,
+        "gpt2-xl", XL_NOREMAT, adam8bit(XL_LR), batch, seed + 1, ckpt_dir,
+        want,
         step, "memory")
     fresh.close()
     del fresh, want
@@ -1429,6 +1491,53 @@ def checkpoint_phases(seed, windows):
         ckpt_cleanup(job, root)
 
 
+class Phases:
+    """Prints each phase's wall time as it ends."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self, name):
+        t = time.perf_counter()
+        log(f"[phase] {name}: {t - self.t0:.1f}s")
+        self.t0 = t
+
+
+def d128_kernels(gen, errs):
+    """The head_dim-128 kernels against their plain versions at the LLaMA
+    preset's attention shapes (B 4, S 2048 and B 1, S 8192; 16 heads,
+    causal), non-causal, at a ragged S and at S 192; then each timed at
+    both shapes, alone and through its wrapper, beside its plain version,
+    SDPA's forward and ATen's flash backward. Adds the errors to
+    ``errs``; returns the times and bounds at B 4, S 2048."""
+    heads = LlamaConfig.preset().num_heads
+    shapes = {f"llama B{b} S{s}": (b, s) for b, s, _ in LLAMA_RUNS}
+    for label, (b, s) in shapes.items():
+        for name, err in compare(*qkv_do(gen, b, s, heads, 128), True,
+                                 f"d128 causal {label} H{heads}"
+                                 ).items():
+            errs[name] = max(errs[name], err)
+        torch.cuda.empty_cache()
+    compare(*qkv_do(gen, 2, 1024, 4, 128), False, "d128 non-causal B2 S1024")
+    compare(*qkv_do(gen, 2, 1000, 4, 128), True, "d128 causal ragged B2 S1000")
+    compare(*qkv_do(gen, 2, 192, 4, 128), True, "d128 causal B2 S192")
+    timing = {}
+    for label, (b, s) in shapes.items():
+        x = qkv_do(gen, b, s, heads, 128)
+        timing[label], yard = time_kernels(*x)
+        pair = timing[label]["flash_bwd_dq_d128"]["ms"] + \
+            timing[label]["flash_bwd_dkv_d128"]["ms"]
+        log("[timing] " + json.dumps({
+            "shape": f"{label} H{heads} D128", "kernels": timing[label],
+            "bounds": bounds(b, s, heads, 128, True),
+            "yardstick": yard, "dq_plus_dkv_ms": pair,
+            "dq_plus_dkv_over_aten_bwd": pair / yard["aten_flash_bwd_ms"]}))
+        del x
+        torch.cuda.empty_cache()
+    b, s, _ = LLAMA_RUNS[0]
+    return timing[f"llama B{b} S{s}"], bounds(b, s, heads, 128, True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1445,11 +1554,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
+    t_start = time.perf_counter()
+    phase = Phases()
     build_kernels()
+    phase("build")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     shapes = {"gpt2-124m": (BATCH, 12), "gpt2-xl": (XL_BATCH, XL.num_heads)}
-    flash_inputs, errs = {}, {name: 0.0 for name in FLASH}
+    flash_inputs, errs = {}, {name: 0.0 for name in FLASH + FLASH128}
     for label, (b, h) in shapes.items():
         flash_inputs[label] = qkv_do(gen, b, SEQ, h=h)
         for layout, x in (("contiguous", flash_inputs[label]),
@@ -1461,6 +1573,7 @@ def main():
     compare(*qkv_do(gen, 2, 1000), True, "causal ragged B2 S1000")
     compare(*qkv_do(gen, 2, 192), True, "causal B2 S192")
     errs.update(check_adam8(gen))
+    phase("kernels vs plain (head_dim 64, 8-bit Adam)")
 
     timing = {}
     for label, (b, h) in shapes.items():
@@ -1478,14 +1591,30 @@ def main():
         del x
     times, bound = timing["gpt2-124m"], bounds(BATCH, SEQ, 12, 64, True)
     torch.cuda.empty_cache()
+    phase("flash timing (head_dim 64)")
+
+    times128, bound128 = d128_kernels(gen, errs)
+    phase("flash head_dim 128: vs plain and timing")
 
     model_check(args.seed)
+    model_check(args.seed, Llama, LlamaConfig.preset())
+    phase("model checks")
     windows = {}
     windows["gpt2-124m"], trainer, batch, step_ms = train(
         "gpt2-124m", GPTConfig(**GPT2), adamw(3e-4), BATCH, STEPS, args.seed)
     profile_window("gpt2-124m", trainer, batch, step_ms)
     del trainer
     torch.cuda.empty_cache()
+    phase("gpt2-124m")
+    # Without remat and under "nothing" first: nothing else is held on
+    # the card in these windows, so the peaks compare.
+    for label, cfg in (("no remat", XL_NOREMAT),
+                       ("remat nothing", XL_NOTHING)):
+        windows[f"gpt2-xl {label}"], trainer, _, _ = train(
+            f"gpt2-xl {label}", cfg, adam8bit(XL_LR), XL_BATCH, XL_STEPS,
+            args.seed)
+        del trainer
+        torch.cuda.empty_cache()
     windows["gpt2-xl"], trainer, batch, step_ms = train(
         "gpt2-xl", XL, adam8bit(XL_LR), XL_BATCH, XL_STEPS, args.seed)
     profile_window("gpt2-xl", trainer, batch, step_ms)
@@ -1494,13 +1623,36 @@ def main():
     opt = trainer.state["opt"]
     del trainer
     torch.cuda.empty_cache()
+    phase("gpt2-xl (no remat, remat nothing, remat dots)")
     adam8_times = time_adam8(opt, args.seed)
     for name in ("adam8", "adam8_fused"):
         errs[name] = max(errs[name], adam8_times[name]["max_abs_err"])
     log("[timing] " + json.dumps({"adam8bit whole step": adam8_times}))
     del opt
     torch.cuda.empty_cache()
+    phase("8-bit Adam timing")
+    for b, seq, steps in LLAMA_RUNS:
+        label = f"llama B{b} S{seq}"
+        windows[label], trainer, batch, step_ms = train(
+            label, LlamaConfig.preset(seq), adam8bit(LLAMA_LR), b, steps,
+            args.seed, model_cls=Llama, seq=seq)
+        if seq == 2048:
+            profile_window(label, trainer, batch, step_ms)
+        del trainer
+        torch.cuda.empty_cache()
+        phase(label)
+    # What remat "dots" costs the preset: the same window without it.
+    b, seq, steps = LLAMA_RUNS[0]
+    label = f"llama B{b} S{seq} no remat"
+    windows[label], trainer, _, _ = train(
+        label, dataclasses.replace(LlamaConfig.preset(seq), remat=False),
+        adam8bit(LLAMA_LR), b, steps, args.seed, model_cls=Llama, seq=seq)
+    del trainer
+    torch.cuda.empty_cache()
+    phase(label)
     checkpoint_phases(args.seed, windows)
+    phase("checkpoint")
+    log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1514,6 +1666,9 @@ def main():
         check(launches > 0, f"{name} never ran on the main path")
         if name in FLASH:
             t, b, lib = times[name], bound[name], times[name]["library_ms"]
+        elif name in FLASH128:  # at the LLaMA preset's 4 x 2048
+            t, b = times128[name], bound128[name]
+            lib = times128[name]["library_ms"]
         else:  # no single PyTorch call computes blockwise 8-bit Adam
             t, b, lib = adam8_times[name], adam8_times[name], None
         rows.append({

@@ -1,14 +1,23 @@
-"""Carry GPT weights and 8-bit Adam state between the JAX package and the port.
+"""Carry GPT and LLaMA weights and 8-bit Adam state between the JAX package and the port.
 
-The JAX model's params are a tree of arrays (numpy here): ``wte/
-embedding``, ``wpe``, ``ln_f/{scale,bias}`` and, per block, ``ln1``,
-``qkv``, ``proj``, ``ln2``, ``up``, ``down`` — stacked along a leading
-layer axis under ``blocks`` when the layers are ``nn.scan``-ned, or one
-subtree ``block_<i>`` each when they are not. The port's ``state_dict``
-has one ``blocks.<i>`` per layer. Dense kernels keep flax's ``[in, out]``
-layout on both sides (the port multiplies ``x @ kernel``), and flax's
-LayerNorm ``scale`` is the port's ``weight``. Both directions copy the
-values bit for bit, bf16 included (through a 16-bit integer view).
+The JAX model's params are a tree of arrays (numpy here). Each family
+has its naming table (``Naming``):
+
+- GPT: ``wte/embedding``, ``wpe``, ``ln_f/{scale,bias}`` and, per block,
+  ``ln1``, ``qkv``, ``proj``, ``ln2``, ``up``, ``down``, stacked along a
+  leading layer axis under ``blocks`` when the layers are
+  ``nn.scan``-ned, or one subtree ``block_<i>`` each when they are not;
+- LLaMA: ``embed/embedding``, ``final_norm/scale``, ``lm_head/kernel``
+  and, per layer, ``attn_norm`` and ``mlp_norm`` (``scale``) and the
+  bias-free ``{q,k,v,o,gate,up,down}_proj`` kernels, under ``layers``
+  (scanned) or ``layer_<i>``.
+
+The port's ``state_dict`` has one ``blocks.<i>`` / ``layers.<i>`` per
+layer, and the table is chosen from the names (``naming_of``). Dense
+kernels keep flax's ``[in, out]`` layout on both sides (the port
+multiplies ``x @ kernel``), and flax's norm ``scale`` is the port's
+``weight``. Both directions copy the values bit for bit, bf16 included
+(through a 16-bit integer view).
 
 ``jax_leaves`` groups the port's named parameters into the JAX tree's
 leaves; the port's ``adam8bit`` keeps its state per JAX leaf, so that
@@ -44,20 +53,73 @@ from dlrover_tpu_torch.optim.low_bit import (
     QTensor,
 )
 
-_DENSE = ("qkv", "proj", "up", "down")
-_NORMS = ("ln1", "ln2")
-_BLOCK_PARAM = re.compile(r"blocks\.(\d+)\.(\w+)\.(\w+)$")
-# Port name <-> JAX leaf path, outside the blocks.
-_TOP = {"wte.weight": "wte/embedding", "wpe": "wpe",
-        "ln_f.weight": "ln_f/scale", "ln_f.bias": "ln_f/bias"}
-_TOP_NAME = {path: name for name, path in _TOP.items()}
-# (module, port leaf) <-> JAX leaf, inside a block.
-_BLOCK_LEAF = {
-    **{(m, "weight"): "scale" for m in _NORMS},
-    **{(m, "bias"): "bias" for m in _NORMS + _DENSE},
-    **{(m, "kernel"): "kernel" for m in _DENSE},
-}
-_PORT_LEAF = {(m, leaf): port for (m, port), leaf in _BLOCK_LEAF.items()}
+class Naming(NamedTuple):
+    """A model family's names on both sides: the layer stack (the port's
+    ``ModuleList`` and JAX's scanned subtree), the prefix of JAX's
+    unscanned layers, the parameters outside the layers (port name ->
+    JAX leaf path) and those inside a layer ((module, port leaf) -> JAX
+    leaf)."""
+
+    stack: str
+    unscanned: str
+    top: Mapping[str, str]
+    layer: Mapping[Tuple[str, str], str]
+
+    @property
+    def top_name(self) -> Dict[str, str]:
+        return {path: name for name, path in self.top.items()}
+
+    @property
+    def port_leaf(self) -> Dict[Tuple[str, str], str]:
+        return {(m, leaf): port for (m, port), leaf in self.layer.items()}
+
+    def layer_param(self, name: str):
+        """(layer, module, port leaf) of a port name inside the stack,
+        or None."""
+        hit = re.match(rf"{self.stack}\.(\d+)\.(\w+)\.(\w+)$", name)
+        if hit and (hit.group(2), hit.group(3)) in self.layer:
+            return int(hit.group(1)), hit.group(2), hit.group(3)
+        return None
+
+
+_GPT_DENSE = ("qkv", "proj", "up", "down")
+_GPT_NORMS = ("ln1", "ln2")
+GPT_NAMING = Naming(
+    stack="blocks", unscanned="block_",
+    top={"wte.weight": "wte/embedding", "wpe": "wpe",
+         "ln_f.weight": "ln_f/scale", "ln_f.bias": "ln_f/bias"},
+    layer={
+        **{(m, "weight"): "scale" for m in _GPT_NORMS},
+        **{(m, "bias"): "bias" for m in _GPT_NORMS + _GPT_DENSE},
+        **{(m, "kernel"): "kernel" for m in _GPT_DENSE},
+    },
+)
+_LLAMA_PROJ = tuple(f"{p}_proj" for p in ("q", "k", "v", "o", "gate", "up",
+                                           "down"))
+LLAMA_NAMING = Naming(
+    stack="layers", unscanned="layer_",
+    top={"embed.weight": "embed/embedding",
+         "final_norm.weight": "final_norm/scale",
+         "lm_head.kernel": "lm_head/kernel"},
+    layer={
+        **{(m, "weight"): "scale" for m in ("attn_norm", "mlp_norm")},
+        **{(m, "kernel"): "kernel" for m in _LLAMA_PROJ},
+    },
+)
+
+
+def naming_of(names: Iterable[str]) -> Naming:
+    """The naming table of a model from its parameter names (the port's,
+    ``layers.3.q_proj.kernel``) or its JAX leaf paths
+    (``layers/q_proj/kernel``): LLaMA's when one of them is LLaMA's,
+    GPT's otherwise."""
+    llama = LLAMA_NAMING
+    for name in names:
+        head = re.split(r"[./]", name, maxsplit=1)[0]
+        if (name in llama.top or name in llama.top_name
+                or head == llama.stack or head.startswith(llama.unscanned)):
+            return llama
+    return GPT_NAMING
 
 
 def _tensor(v) -> torch.Tensor:
@@ -99,35 +161,39 @@ def _nest(flat: Mapping[str, object]) -> Dict:
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX GPT params (a tree of arrays, or of anything shaped like them,
-    such as gradients) -> the port's ``state_dict``."""
+    """JAX GPT or LLaMA params (a tree of arrays, or of anything shaped
+    like them, such as gradients) -> the port's ``state_dict``."""
+    flat = dict(_flat(tree))
+    naming = naming_of(flat)
+    top_name, port_leaf = naming.top_name, naming.port_leaf
     out = {}
-    for path, value in _flat(tree):
-        if path in _TOP_NAME:
-            out[_TOP_NAME[path]] = _tensor(value)
+    for path, value in flat.items():
+        if path in top_name:
+            out[top_name[path]] = _tensor(value)
             continue
         prefix, module, leaf = path.split("/")
-        port = _PORT_LEAF[module, leaf]
-        if prefix == "blocks":
+        port = port_leaf[module, leaf]
+        if prefix == naming.stack:
             for i, layer in enumerate(np.asarray(value)):
-                out[f"blocks.{i}.{module}.{port}"] = _tensor(layer)
+                out[f"{naming.stack}.{i}.{module}.{port}"] = _tensor(layer)
         else:
-            i = int(prefix[len("block_"):])
-            out[f"blocks.{i}.{module}.{port}"] = _tensor(value)
+            i = int(prefix[len(naming.unscanned):])
+            out[f"{naming.stack}.{i}.{module}.{port}"] = _tensor(value)
     return out
 
 
 def flax_from_params(state_dict: Mapping[str, torch.Tensor],
                      stacked: bool = True) -> Dict:
-    """The port's ``state_dict`` -> JAX GPT params as numpy arrays:
-    stacked under ``blocks`` (``scan_layers=True``) or one ``block_<i>``
-    per layer."""
+    """The port's ``state_dict`` -> JAX params as numpy arrays: stacked
+    under ``blocks`` / ``layers`` (``scan_layers=True``) or one
+    ``block_<i>`` / ``layer_<i>`` per layer."""
     leaves = jax_leaves(((n, tuple(v.shape)) for n, v in state_dict.items()),
                         stacked=stacked)
+    stack = naming_of(state_dict).stack + "/"
     flat = {}
     for path, leaf in leaves.items():
         arrays = [_array(state_dict[n]) for n in leaf.names]
-        flat[path] = (np.stack(arrays) if path.startswith("blocks/")
+        flat[path] = (np.stack(arrays) if path.startswith(stack)
                       else arrays[0])
     return _nest(flat)
 
@@ -144,16 +210,16 @@ class JaxLeaf(NamedTuple):
     shape: Tuple[int, ...]
 
 
-def _jax_path(name: str, stacked: bool) -> Tuple[str, int]:
+def _jax_path(name: str, stacked: bool, naming: Naming) -> Tuple[str, int]:
     """(JAX leaf path, layer index or -1) of a port parameter name; a
-    name the GPT does not have is its own leaf, under its own name."""
-    if name in _TOP:
-        return _TOP[name], -1
-    hit = _BLOCK_PARAM.match(name)
-    if hit and (hit.group(2), hit.group(3)) in _BLOCK_LEAF:
-        i, module = int(hit.group(1)), hit.group(2)
-        leaf = _BLOCK_LEAF[module, hit.group(3)]
-        prefix = "blocks" if stacked else f"block_{i}"
+    name the model does not have is its own leaf, under its own name."""
+    if name in naming.top:
+        return naming.top[name], -1
+    hit = naming.layer_param(name)
+    if hit:
+        i, module, port = hit
+        leaf = naming.layer[module, port]
+        prefix = naming.stack if stacked else f"{naming.unscanned}{i}"
         return f"{prefix}/{module}/{leaf}", (i if stacked else -1)
     return name, -1
 
@@ -161,21 +227,27 @@ def _jax_path(name: str, stacked: bool) -> Tuple[str, int]:
 def jax_leaves(named_shapes: Iterable[Tuple[str, Tuple[int, ...]]],
                stacked: bool = True) -> Dict[str, JaxLeaf]:
     """Group the port's parameters (name, shape) into the leaves of the
-    JAX GPT's params tree, keyed by the leaf's ``/``-joined path:
+    JAX model's params tree, keyed by the leaf's ``/``-joined path:
     ``blocks/qkv/kernel`` holds every layer's ``qkv.kernel`` with shape
     ``[L, in, out]`` when ``stacked`` (``scan_layers=True``), and each
-    ``block_<i>/qkv/kernel`` holds one layer's otherwise."""
+    ``block_<i>/qkv/kernel`` holds one layer's otherwise (LLaMA's:
+    ``layers/...`` and ``layer_<i>/...``; its norm scales stack to
+    ``[L, d]`` leaves, which the 8-bit Adam quantizes whole, as the JAX
+    package does). The names select the model's table
+    (``naming_of``)."""
+    named_shapes = [(n, tuple(s)) for n, s in named_shapes]
+    naming = naming_of(n for n, _ in named_shapes)
     members: Dict[str, List[Tuple[int, str, Tuple[int, ...]]]] = {}
     for name, shape in named_shapes:
-        path, layer = _jax_path(name, stacked)
-        members.setdefault(path, []).append((layer, name, tuple(shape)))
+        path, layer = _jax_path(name, stacked, naming)
+        members.setdefault(path, []).append((layer, name, shape))
     out = {}
     for path, group in members.items():
         group.sort()
         shape = group[0][2]
         if any(s != shape for _, _, s in group):
             raise ValueError(f"layers of {path} differ in shape")
-        if path.startswith("blocks/"):
+        if path.startswith(naming.stack + "/"):
             if [layer for layer, _, _ in group] != list(range(len(group))):
                 raise ValueError(f"{path} misses a layer")
             shape = (len(group),) + shape

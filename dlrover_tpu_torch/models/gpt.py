@@ -18,9 +18,12 @@ Same config, same parameters and the same numerics as the JAX model:
   embedding, normal(0.01) for the position embedding.
 
 ``attn_impl="pallas"`` runs the hand-written flash-attention kernels
-(``ops/attention.py``), ``"xla"`` the plain einsum softmax. Dense blocks
-only in this slice: MoE, pipeline stages, int8 MLP, remat and ring /
-Ulysses attention raise ``NotImplementedError``.
+(``ops/attention.py``), ``"xla"`` the plain einsum softmax. ``remat``
+checkpoints each block under ``remat_policy`` (``models/remat.py``:
+"nothing", "dots", "dots_lite"; the block names ``attn_out`` and
+``ffn_act`` where JAX does). Dense blocks only: MoE, pipeline stages,
+int8 MLP, ``remat_policy="offload"`` and ring / Ulysses attention raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -32,6 +35,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models.remat import (
+    check_policy,
+    checkpoint_name,
+    run_block,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +112,7 @@ class GPTConfig:
     @staticmethod
     def gpt2_xl():
         """GPT-2 1.5B, the JAX package's large preset (``remat=True`` as
-        there; remat is a later slice of the port)."""
+        there)."""
         return GPTConfig(vocab_size=50257, max_seq_len=1024, num_layers=48,
                          num_heads=25, d_model=1600, remat=True)
 
@@ -121,11 +129,7 @@ def _check_supported(cfg: GPTConfig):
                 f"{what} comes with the sequence/expert/pipeline-parallel "
                 "slice of the port (ROADMAP queue 1)"
             )
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True comes with the remat slice of the port "
-            "(ROADMAP queue 1)"
-        )
+    check_policy(cfg)
     if cfg.mlp_precision != "bf16":
         raise NotImplementedError(
             f"mlp_precision={cfg.mlp_precision!r} comes with the int8 "
@@ -136,10 +140,12 @@ def _check_supported(cfg: GPTConfig):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel [in, out]`` and ``bias`` in
-    ``param_dtype``; the product runs in ``dtype``."""
+    """flax ``nn.Dense``: ``kernel [in, out]`` and ``bias`` (unless
+    ``use_bias=False``) in ``param_dtype``; the product runs in
+    ``dtype``."""
 
-    def __init__(self, d_in: int, d_out: int, cfg: GPTConfig, device):
+    def __init__(self, d_in: int, d_out: int, cfg, device,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = cfg.dtype
         self.kernel = nn.Parameter(
@@ -147,17 +153,19 @@ class Dense(nn.Module):
         )
         self.bias = nn.Parameter(
             torch.zeros(d_out, dtype=cfg.param_dtype, device=device)
-        )
+        ) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator):
         with torch.no_grad():
             self.kernel.normal_(0.0, 0.02, generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(
-            self.dtype
-        )
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -230,8 +238,10 @@ class Block(nn.Module):
             q.reshape(b, s, h, hd), k.reshape(b, s, h, hd),
             v.reshape(b, s, h, hd), cfg,
         ).reshape(b, s, d)
+        attn = checkpoint_name(attn, "attn_out")
         x = x + self.proj(attn)
         y = F.gelu(self.up(self.ln2(x)), approximate="tanh")
+        y = checkpoint_name(y, "ffn_act")
         return x + self.down(y)
 
 
@@ -277,7 +287,7 @@ class GPT(nn.Module):
         s = tokens.shape[1]
         x = self.wte(tokens).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = run_block(block, x, cfg)
         x = self.ln_f(x)
         # Tied output head: logits via the embedding table, in dtype.
         return x @ self.wte.weight.to(cfg.dtype).t()

@@ -14,7 +14,9 @@ Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
 the plain PyTorch version beside it (``_fwd_plain``, ``_bwd_dq_plain``,
 ``_bwd_dkv_plain``) only for a tensor on the CPU. The plain versions
 repeat the TPU kernels' arithmetic in fp32 and are the kernels' oracle.
-The kernels take bf16 with head_dim 64 and read the inputs through
+The kernels take bf16 with head_dim 64 (GPT-2) or 128 (LLaMA), each
+width a kernel of its own with a launch counter of its own
+(``flash_fwd`` and ``flash_fwd_d128``, ...), and read the inputs through
 their strides (through TMA maps built from them); their tiles are their
 own (128 x 128 forward, 128 kv x 64 q dK/dV, 128 q x 64 kv dQ), whatever
 ``block_q``/``block_k`` say.
@@ -31,12 +33,14 @@ from typing import Tuple
 import torch
 
 _NEG_INF = -1e30
-#: The head_dim the CUDA kernels are built for.
-HEAD_DIM = 64
+#: The head_dims the CUDA kernels are built for, and the suffix of each
+#: width's kernels (their C entries and launch counters).
+HEAD_DIMS = {64: "", 128: "_d128"}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 #: Launches of each kernel since the last ``reset_launch_counts()``; a
 #: wrapper adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {k + sfx: 0 for sfx in HEAD_DIMS.values() for k in KERNELS}
 
 
 def reset_launch_counts():
@@ -152,10 +156,21 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES, _FLOAT = ctypes.POINTER(ctypes.c_longlong), ctypes.c_float
 _TAIL = [_INT] * 5 + [_STRIDES, _FLOAT, _INT, _PTR]
 _SIGNATURES = {
-    "flash_fwd_bf16": [_PTR] * 5 + _TAIL,
-    "flash_bwd_dq_bf16": [_PTR] * 7 + _TAIL,
-    "flash_bwd_dkv_bf16": [_PTR] * 8 + _TAIL,
+    f"{kernel}{sfx}_bf16": [_PTR] * n + _TAIL
+    for sfx in HEAD_DIMS.values()
+    for kernel, n in zip(KERNELS, (5, 7, 8))
 }
+
+
+def kernel_name(kernel: str, head_dim: int) -> str:
+    """The launch counter of ``kernel`` ("flash_fwd", ...) at this
+    head_dim: ``flash_fwd`` at 64, ``flash_fwd_d128`` at 128."""
+    return kernel + HEAD_DIMS[head_dim]
+
+
+def entry_name(kernel: str, head_dim: int) -> str:
+    """The C entry of ``kernel`` at this head_dim."""
+    return kernel_name(kernel, head_dim) + "_bf16"
 
 
 def _lib():
@@ -170,15 +185,16 @@ def _check(q, k, v):
             raise TypeError(
                 f"flash attention kernels take bfloat16, got {t.dtype}"
             )
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+        if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS:
             raise ValueError(
-                f"flash attention kernels take [B, S, H, {HEAD_DIM}], got "
-                f"{tuple(t.shape)}"
+                f"flash attention kernels take [B, S, H, D] with D in "
+                f"{sorted(HEAD_DIMS)}, got {tuple(t.shape)}"
             )
         if t.device != q.device:
             raise ValueError("q, k and v must be on one device")
-    b, _, h, _ = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h:
+    b, _, h, d = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
+            or k.shape[3] != d):
         raise ValueError(
             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
             f"{tuple(q.shape)}"
@@ -226,10 +242,12 @@ def _launcher(entry: str, q, k, tensors, causal: bool):
     return launch
 
 
-def _launch(entry: str, counter: str, q, k, tensors, causal: bool):
+def _launch(kernel: str, q, k, tensors, causal: bool):
+    """Launches ``kernel``'s form for q's head_dim and counts it."""
+    d = q.shape[-1]
     with torch.cuda.device(q.device):
-        _launcher(entry, q, k, tensors, causal)()
-    LAUNCHES[counter] += 1
+        _launcher(entry_name(kernel, d), q, k, tensors, causal)()
+    LAUNCHES[kernel_name(kernel, d)] += 1
 
 
 def _fwd_cuda(q, k, v, causal):
@@ -238,7 +256,7 @@ def _fwd_cuda(q, k, v, causal):
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_bf16", "flash_fwd", q, k, {
+    _launch("flash_fwd", q, k, {
         "ptrs": (q, k, v, o, lse), "strided": (q, k, v, o),
     }, causal)
     return o, lse
@@ -257,7 +275,7 @@ def _bwd_inputs(q, k, v, do, lse, delta):
 def _bwd_dq_cuda(q, k, v, do, lse, delta, causal):
     q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("flash_bwd_dq_bf16", "flash_bwd_dq", q, k, {
+    _launch("flash_bwd_dq", q, k, {
         "ptrs": (q, k, v, do, lse, delta, dq),
         "strided": (q, k, v, do, dq),
     }, causal)
@@ -268,7 +286,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, causal):
     q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("flash_bwd_dkv_bf16", "flash_bwd_dkv", q, k, {
+    _launch("flash_bwd_dkv", q, k, {
         "ptrs": (q, k, v, do, lse, delta, dk, dv),
         "strided": (q, k, v, do, dk, dv),
     }, causal)

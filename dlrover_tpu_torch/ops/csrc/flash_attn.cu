@@ -74,9 +74,22 @@
 //     other: ops/flash_probe.py's dq_serial). In a causal item warpgroup 0
 //     skips the last kv tile, which none of its rows sees.
 //
-// Inputs are bf16 [B, S, H, 64] read through their strides (head_dim
-// stride 1, the others multiples of 8 elements, each at least the extent
-// of the one inside it: the wrapper copies anything else).
+// Head_dim 128 (LLaMA's): the same three kernels, templated on D. A
+// 128-wide tile lies as two 64-column panels (hopper.cuh), each a TMA box
+// with the 128-byte swizzle; a K-major operand steps to the second panel
+// after its fourth k-step, and the products with an MN-major B (P V,
+// P^T dO, dS^T Q, dS K) are m64n128k16 with the descriptor's leading
+// offset stepping between panels. Tiles and warpgroups stay as at D = 64;
+// what shrinks is the rings, to fit 227 KB of shared memory: the forward
+// keeps 2 K/V stages (192 KB), dQ 3 (225 KB), dK/dV 2 (195 KB). The
+// accumulators double: the forward's O and dQ's hold 64 fp32 a thread,
+// dK/dV's dK and dV 64 each beside S^T and dP^T (32 each), within the
+// 240 registers setmaxnreg gives a consumer. The forward at D = 128 does
+// not overlap a warpgroup's products with its softmax (see its loop).
+//
+// Inputs are bf16 [B, S, H, D], D 64 or 128, read through their strides
+// (head_dim stride 1, the others multiples of 8 elements, each at least
+// the extent of the one inside it: the wrapper copies anything else).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (dlrover_tpu_torch/ops/build.py). Every entry
@@ -92,7 +105,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int D = 64;        // head_dim
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -101,13 +113,16 @@ struct Layout {
   long long b, s, h;  // element strides of [B, S, H, D]; D stride is 1
 };
 
+// The most dynamic shared memory a block may use on an H100.
+constexpr size_t kMaxSmem = 232448;
+
 // ------------------------------------------------------- Hopper kernels
 
 constexpr int WG = 128;                  // threads of a warpgroup
 constexpr int HOPPER_THREADS = 3 * WG;   // two consumer warpgroups, a producer
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int ROW_BYTES = D * 2;         // one swizzled head row
+constexpr int ROW_BYTES = 128;           // one swizzled panel row
 
 // What setmaxnreg hands out must have been allocated at launch, or the
 // consumers' request waits forever: 128 x 24 + 256 x 240 = 384 x 168.
@@ -123,17 +138,57 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 }
 
 // Byte offset of 16-byte chunk ``chunk`` of row ``row`` in a 128-byte
-// swizzled tile (the layout TMA writes).
+// swizzled panel (the layout TMA writes).
 __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
   return row * ROW_BYTES + ((chunk ^ (row & 7)) << 4);
 }
 
-// Writes a warpgroup's 64 x 64 fp32 accumulator, times ``mul``, as bf16
+// Bytes of a tile of ``rows`` rows of D bf16: D / 64 panels of ``rows``
+// x 128 bytes.
+template <int D>
+constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+// Shared-memory address of k-step ``kk`` (16 columns) of a K-major
+// operand whose rows start at ``addr`` in the first panel of a tile whose
+// panels lie ``panel`` bytes apart.
+__device__ __forceinline__ uint32_t k_step(uint32_t addr, int kk, int panel) {
+  return addr + (kk / 4) * panel + (kk % 4) * 32;
+}
+
+// Descriptor of an MN-major B operand (N = head_dim contiguous) at
+// ``addr``, its 64-column panels ``panel`` bytes apart. At D = 64 it is
+// the one panel's descriptor the head_dim-64 kernels always used.
+template <int D>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, int panel) {
+  return D == 64 ? hopper::desc_mn_major(addr)
+                 : hopper::desc_mn_major(addr, panel);
+}
+
+// Loads the tile of ``rows`` rows at s0 of (b, h): one TMA box a panel,
+// all counted by ``bar``.
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int h,
+                                          int s0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) {
+    hopper::tma_load_4d(dst + p * rows * ROW_BYTES, map, bar, 64 * p, h, s0,
+                        b);
+  }
+}
+
+// Writes a warpgroup's 64 x D fp32 accumulator, times ``mul``, as bf16
 // rows [row0, row0 + 64) of a strided output, at most ``nrows`` of them.
-// The tile goes through ``stage`` (8 KB of shared memory the warpgroup
-// alone uses) so that every global store is a whole 16-byte chunk.
-__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul0,
-                                           float mul1, unsigned char* stage,
+// The tile goes through ``stage`` (64 rows of each panel, ``panel`` bytes
+// apart: 8 KB a panel of shared memory the warpgroup alone uses) so that
+// every global store is a whole 16-byte chunk.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float mul0, float mul1,
+                                           unsigned char* stage, int panel,
                                            bf16* out, long long row_stride,
                                            int row0, int nrows, int wg) {
   const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
@@ -142,19 +197,21 @@ __device__ __forceinline__ void store_rows(const float (&acc)[32], float mul0,
     const int r = warp * 16 + lane / 4 + 8 * i;
     const float mul = i ? mul1 : mul0;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<uint32_t*>(stage + swizzled(r, n) + (lane % 4) * 4) =
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(stage + (n / 8) * panel +
+                                   swizzled(r, n % 8) + (lane % 4) * 4) =
           hopper::pack_bf16(acc[4 * n + 2 * i] * mul,
                             acc[4 * n + 2 * i + 1] * mul);
     }
   }
   hopper::named_sync(1 + wg, WG);
-  for (int c = tid; c < 64 * 8; c += WG) {
-    const int r = c / 8, chunk = c % 8;
+  for (int c = tid; c < 64 * (D / 8); c += WG) {
+    const int r = c / (D / 8), chunk = c % (D / 8);
     if (row0 + r < nrows) {
       *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * row_stride +
                                 chunk * 8) =
-          *reinterpret_cast<const uint4*>(stage + swizzled(r, chunk));
+          *reinterpret_cast<const uint4*>(stage + (chunk / 8) * panel +
+                                          swizzled(r, chunk % 8));
     }
   }
 }
@@ -171,11 +228,18 @@ __device__ __forceinline__ int snake_item(int j, int n_items) {
 
 constexpr int FBM = 128;                 // query rows per block
 constexpr int FBN = 128;                 // kv rows per tile
-constexpr int FWD_STAGES = 4;
 constexpr int FWD_QBUF = 2;  // Q buffers
-constexpr int kFwdTile = FBN * ROW_BYTES;
-constexpr size_t kFwdSmem = 1024 + (FWD_QBUF + 2 * FWD_STAGES) * kFwdTile +
-                            (2 * FWD_QBUF + 3 * FWD_STAGES) * sizeof(uint64_t);
+constexpr int kFwdPanel = FBN * ROW_BYTES;  // a panel of Q, K or V
+
+template <int D>
+struct Fwd {
+  static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring
+  static constexpr int TILE = tile_bytes<D>(FBN);
+  static constexpr size_t SMEM = 1024 + (FWD_QBUF + 2 * STAGES) * TILE +
+                                 (2 * FWD_QBUF + 3 * STAGES) *
+                                     sizeof(uint64_t);
+  static_assert(SMEM <= kMaxSmem, "forward shared memory");
+};
 
 // One online-softmax step over a tile of raw scores ``s`` (64 rows x 128
 // columns of a warpgroup; this thread holds pieces of rows row0 and row0 +
@@ -272,24 +336,27 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
 }
 
 // S = Q K^T for a warpgroup's 64 query rows against a 128-row K tile.
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
                                          uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hopper::wgmma_m64n128k16_ss(s, hopper::desc_k_major(q_addr + kk * 32),
-                                hopper::desc_k_major(k_addr + kk * 32), kk);
+    hopper::wgmma_m64n128k16_ss(
+        s, hopper::desc_k_major(k_step(q_addr, kk, kFwdPanel)),
+        hopper::desc_k_major(k_step(k_addr, kk, kFwdPanel)), kk);
   }
   hopper::wgmma_commit();
 }
 
 // O += P V for a 128-row V tile (MN-major: head_dim is contiguous).
-__device__ __forceinline__ void issue_pv(float (&o_acc)[32],
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
                                          const uint32_t (&pa)[FBN / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < FBN / 16; ++kk) {
-    hopper::wgmma_m64n64k16_rs_tb(
-        o_acc, pa[kk], hopper::desc_mn_major(v_addr + kk * 16 * ROW_BYTES));
+    hopper::wgmma_rs_tb(o_acc, pa[kk],
+                        mn_desc<D>(v_addr + kk * 16 * ROW_BYTES, kFwdPanel));
   }
   hopper::wgmma_commit();
 }
@@ -303,12 +370,14 @@ __device__ __forceinline__ void issue_pv(float (&o_acc)[32],
 // V_{t-1}) are issued together, and the softmax of S_t runs while the
 // second one does. An item's last P V goes out with the next item's first
 // S = Q K^T in the same way, and its epilogue follows that softmax.
+template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
            float* __restrict__ lse, int BH, int H, int Sq, int Sk, Layout lo,
            float scale_log2, int causal) {
+  constexpr int FWD_STAGES = Fwd<D>::STAGES, kFwdTile = Fwd<D>::TILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);
   unsigned char* sK = sQ + FWD_QBUF * kFwdTile;
@@ -357,8 +426,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           hopper::mbar_wait(q_empty + qb, (j / FWD_QBUF - 1) & 1);
         }
         hopper::mbar_arrive_tx(q_full + qb, kFwdTile);
-        hopper::tma_load_4d(sQ + qb * kFwdTile, &tm_q, q_full + qb, 0, h, q0,
-                            b);
+        load_tile<D>(sQ + qb * kFwdTile, &tm_q, q_full + qb, FBM, h, q0, b);
         const int n_kv = n_kv_of(q0);
         for (int t = 0; t < n_kv; ++t, ++tile) {
           const int st = tile % FWD_STAGES;
@@ -366,11 +434,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             hopper::mbar_wait(empty + st, (tile / FWD_STAGES - 1) & 1);
           }
           hopper::mbar_arrive_tx(k_full + st, kFwdTile);
-          hopper::tma_load_4d(sK + st * kFwdTile, &tm_k, k_full + st, 0, h,
-                              t * FBN, b);
+          load_tile<D>(sK + st * kFwdTile, &tm_k, k_full + st, FBN, h,
+                       t * FBN, b);
           hopper::mbar_arrive_tx(v_full + st, kFwdTile);
-          hopper::tma_load_4d(sV + st * kFwdTile, &tm_v, v_full + st, 0, h,
-                              t * FBN, b);
+          load_tile<D>(sV + st * kFwdTile, &tm_v, v_full + st, FBN, h,
+                       t * FBN, b);
         }
       }
     }
@@ -380,7 +448,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int col_off = 2 * (lane % 4);
     const uint32_t k_base = hopper::smem_addr(sK);
     const uint32_t v_base = hopper::smem_addr(sV);
-    float o_acc[32] = {}, s[64], corr[2];
+    float o_acc[D / 2] = {}, s[64], corr[2];
     float m_run[2] = {NEG_INF, NEG_INF}, l_part[2] = {0.0f, 0.0f};
     uint32_t pa[FBN / 16][4] = {};
     // The previous item, whose last P V goes out with the next item's
@@ -409,12 +477,69 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           lse[(long long)p_bh * Sq + row] = m + logf(l_safe);
         }
       }
-      store_rows(o_acc, inv[0], inv[1],
-                 sQ + p_qb * kFwdTile + wg * 64 * ROW_BYTES,
-                 o + p_bh / H * lo.b + p_bh % H * lo.h, lo.s, row_lo, Sq, wg);
+      store_rows<D>(o_acc, inv[0], inv[1],
+                    sQ + p_qb * kFwdTile + wg * 64 * ROW_BYTES, kFwdPanel,
+                    o + p_bh / H * lo.b + p_bh % H * lo.h, lo.s, row_lo, Sq,
+                    wg);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(q_empty + p_qb);
     };
+    if constexpr (D == 128) {
+      // One product at a time inside a warpgroup: S = Q K^T, its softmax,
+      // then O += P V; the other warpgroup's products keep the tensor
+      // cores busy meanwhile. Overlapping S_t with P_{t-1} V_{t-1}, as at
+      // D = 64, keeps O, S and P (64 + 64 + 32 fp32 a thread) live at
+      // once: ptxas spilled 312 bytes and serialised every wgmma.
+      int ring = 0;  // position in the K/V ring, across items
+      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
+        const int q0 = q_start(item), n_kv = n_kv_of(q0);
+        const int qbuf = j % FWD_QBUF, row_lo = q0 + wg * 64;
+        const int row0 = row_lo + warp * 16 + lane / 4;
+        const uint32_t q_addr =
+            hopper::smem_addr(sQ + qbuf * kFwdTile + wg * 64 * ROW_BYTES);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_run[i] = NEG_INF;
+          l_part[i] = 0.0f;
+        }
+        hopper::mbar_wait(q_full + qbuf, (j / FWD_QBUF) & 1);
+        for (int t = 0; t < n_kv; ++t, ++ring) {
+          const int st = ring % FWD_STAGES, k0 = t * FBN;
+          const uint32_t parity = (ring / FWD_STAGES) & 1;
+          hopper::mbar_wait(k_full + st, parity);
+          hopper::wgmma_fence();
+          issue_qk<D>(s, q_addr, k_base + st * kFwdTile);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+          online_softmax(s, m_run, l_part, corr, scale_log2,
+                         k0 + FBN > Sk || (causal && k0 + FBN - 1 > row_lo),
+                         k0, row0, col_off, Sk, causal);
+#pragma unroll
+          for (int idx = 0; idx < D / 2; ++idx) {
+            o_acc[idx] *= corr[(idx / 2) % 2];
+          }
+          pack_p(s, pa);
+          hopper::mbar_wait(v_full + st, parity);
+          hopper::wgmma_fence();
+          issue_pv<D>(o_acc, pa, v_base + st * kFwdTile);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(o_acc);
+          if (lane == 0) hopper::mbar_arrive(empty + st);
+        }
+        p_q0 = q0;
+        p_bh = item % BH;
+        p_qb = qbuf;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          p_m[i] = m_run[i];
+          p_l[i] = l_part[i];
+        }
+        finish();
+      }
+      return;
+    }
     int tile = 0;
     for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
       const int q0 = q_start(item), bh = item % BH;
@@ -438,8 +563,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
       }
       hopper::wgmma_fence();
-      issue_qk(s, q_addr, k_base + (tile % FWD_STAGES) * kFwdTile);
-      issue_pv(o_acc, pa, v_base + pst * kFwdTile);
+      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * kFwdTile);
+      issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);
       hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on
       hopper::fence_regs(s);
 #pragma unroll
@@ -459,7 +584,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         finish();
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.0f;
       pack_p(s, pa);
       for (int t = 1; t < n_kv; ++t) {
         const int cur = tile + t;
@@ -467,8 +592,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::mbar_wait(k_full + st, (cur / FWD_STAGES) & 1);
         hopper::mbar_wait(v_full + prev, ((cur - 1) / FWD_STAGES) & 1);
         hopper::wgmma_fence();
-        issue_qk(s, q_addr, k_base + st * kFwdTile);
-        issue_pv(o_acc, pa, v_base + prev * kFwdTile);
+        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);
+        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);
         hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} runs on
         hopper::fence_regs(s);
         online_softmax(s, m_run, l_part, corr, scale_log2, masked(t * FBN),
@@ -479,7 +604,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::fence_regs(o_acc);
         if (lane == 0) hopper::mbar_arrive(empty + prev);
 #pragma unroll
-        for (int idx = 0; idx < 32; ++idx) o_acc[idx] *= corr[(idx / 2) % 2];
+        for (int idx = 0; idx < D / 2; ++idx) {
+          o_acc[idx] *= corr[(idx / 2) % 2];
+        }
         pack_p(s, pa);
       }
       p_q0 = q0;
@@ -493,7 +620,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int pst = p_last % FWD_STAGES;
     hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
     hopper::wgmma_fence();
-    issue_pv(o_acc, pa, v_base + pst * kFwdTile);
+    issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o_acc);
     if (lane == 0) hopper::mbar_arrive(empty + pst);
@@ -535,12 +662,19 @@ __device__ __forceinline__ void dkv_probs(float (&s)[32], float (&dp)[32],
 
 constexpr int DBN = 128;                   // kv rows per item
 constexpr int DBM = 64;                    // query rows per tile
-constexpr int DKV_STAGES = 3;
-constexpr int kDkvKv = DBN * ROW_BYTES;    // K or V
-constexpr int kDkvTile = DBM * ROW_BYTES;  // Q or dO
-constexpr int kDkvStage = 2 * kDkvTile + 1024;  // + lse and delta, aligned
-constexpr size_t kDkvSmem = 1024 + 4 * kDkvKv + DKV_STAGES * kDkvStage +
-                            (4 + 2 * DKV_STAGES) * sizeof(uint64_t);
+constexpr int kDkvKvPanel = DBN * ROW_BYTES;  // a panel of K or V
+constexpr int kDkvPanel = DBM * ROW_BYTES;    // a panel of Q or dO
+
+template <int D>
+struct Dkv {
+  static constexpr int STAGES = D == 64 ? 3 : 2;  // Q/dO ring
+  static constexpr int KV = tile_bytes<D>(DBN);    // K or V
+  static constexpr int TILE = tile_bytes<D>(DBM);  // Q or dO
+  static constexpr int STAGE = 2 * TILE + 1024;  // + lse and delta, aligned
+  static constexpr size_t SMEM = 1024 + 4 * KV + STAGES * STAGE +
+                                 (4 + 2 * STAGES) * sizeof(uint64_t);
+  static_assert(SMEM <= kMaxSmem, "dK/dV shared memory");
+};
 
 // A persistent kernel: one block on each SM walks the work items (kv tile
 // of 128 rows, batch*head) in snake_item's order, the low kv tiles (which
@@ -549,6 +683,7 @@ constexpr size_t kDkvSmem = 1024 + 4 * kDkvKv + DKV_STAGES * kDkvStage +
 // one's end; each item loops over the 64-row query tiles from the
 // diagonal. Scores are formed transposed (S^T = K Q^T), so the kv rows
 // are the M of every product.
+template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -558,6 +693,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int H,
                int Sq, int Sk, Layout ldk, Layout ldv, float scale,
                int causal) {
+  constexpr int DKV_STAGES = Dkv<D>::STAGES, kDkvKv = Dkv<D>::KV;
+  constexpr int kDkvTile = Dkv<D>::TILE, kDkvStage = Dkv<D>::STAGE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sKV = align_1024(smem_raw);  // two buffers of K then V
   unsigned char* stages = sKV + 4 * kDkvKv;
@@ -599,8 +736,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (j >= 2) hopper::mbar_wait(kv_empty + kb, (j / 2 - 1) & 1);
         if (lane == 0) {
           hopper::mbar_arrive_tx(kv_full + kb, 2 * kDkvKv);
-          hopper::tma_load_4d(sK, &tm_k, kv_full + kb, 0, h, k0, b);
-          hopper::tma_load_4d(sK + kDkvKv, &tm_v, kv_full + kb, 0, h, k0, b);
+          load_tile<D>(sK, &tm_k, kv_full + kb, DBN, h, k0, b);
+          load_tile<D>(sK + kDkvKv, &tm_v, kv_full + kb, DBN, h, k0, b);
         }
         for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
           const int st = ring % DKV_STAGES, q0 = t * DBM;
@@ -619,9 +756,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           __syncwarp();
           if (lane == 0) {
             hopper::mbar_arrive_tx(full + st, 2 * kDkvTile);
-            hopper::tma_load_4d(stage, &tm_q, full + st, 0, h, q0, b);
-            hopper::tma_load_4d(stage + kDkvTile, &tm_do, full + st, 0, h,
-                                q0, b);
+            load_tile<D>(stage, &tm_q, full + st, DBM, h, q0, b);
+            load_tile<D>(stage + kDkvTile, &tm_do, full + st, DBM, h, q0, b);
           } else {
             hopper::mbar_arrive(full + st);
           }
@@ -645,9 +781,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       unsigned char* v_rows = k_rows + kDkvKv;
       const uint32_t k_addr = hopper::smem_addr(k_rows);
       const uint32_t v_addr = hopper::smem_addr(v_rows);
-      float dk_acc[32], dv_acc[32];
+      float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
       hopper::mbar_wait(kv_full + kb, (j / 2) & 1);
 
       for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
@@ -669,14 +805,14 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           hopper::wgmma_m64n64k16_ss(
-              s, hopper::desc_k_major(k_addr + kk * 32),
-              hopper::desc_k_major(q_addr + kk * 32), kk);
+              s, hopper::desc_k_major(k_step(k_addr, kk, kDkvKvPanel)),
+              hopper::desc_k_major(k_step(q_addr, kk, kDkvPanel)), kk);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           hopper::wgmma_m64n64k16_ss(
-              dp, hopper::desc_k_major(v_addr + kk * 32),
-              hopper::desc_k_major(do_addr + kk * 32), kk);
+              dp, hopper::desc_k_major(k_step(v_addr, kk, kDkvKvPanel)),
+              hopper::desc_k_major(k_step(do_addr, kk, kDkvPanel)), kk);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -710,15 +846,15 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DBM / 16; ++kk) {
-          hopper::wgmma_m64n64k16_rs_tb(
+          hopper::wgmma_rs_tb(
               dv_acc, pa[kk],
-              hopper::desc_mn_major(do_addr + kk * 16 * ROW_BYTES));
+              mn_desc<D>(do_addr + kk * 16 * ROW_BYTES, kDkvPanel));
         }
 #pragma unroll
         for (int kk = 0; kk < DBM / 16; ++kk) {
-          hopper::wgmma_m64n64k16_rs_tb(
+          hopper::wgmma_rs_tb(
               dk_acc, da[kk],
-              hopper::desc_mn_major(q_addr + kk * 16 * ROW_BYTES));
+              mn_desc<D>(q_addr + kk * 16 * ROW_BYTES, kDkvPanel));
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -729,10 +865,10 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // This warpgroup's K and V rows are read; they stage its dK and dV,
       // and the buffer goes back to the producer once the rows are stored.
-      store_rows(dk_acc, scale, scale, k_rows, dk + b * ldk.b + h * ldk.h,
-                 ldk.s, kv_lo, Sk, wg);
-      store_rows(dv_acc, 1.0f, 1.0f, v_rows, dv + b * ldv.b + h * ldv.h,
-                 ldv.s, kv_lo, Sk, wg);
+      store_rows<D>(dk_acc, scale, scale, k_rows, kDkvKvPanel,
+                    dk + b * ldk.b + h * ldk.h, ldk.s, kv_lo, Sk, wg);
+      store_rows<D>(dv_acc, 1.0f, 1.0f, v_rows, kDkvKvPanel,
+                    dv + b * ldv.b + h * ldv.h, ldv.s, kv_lo, Sk, wg);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(kv_empty + kb);
     }
@@ -762,11 +898,18 @@ __device__ __forceinline__ void dq_probs(const float (&s)[32], float (&dp)[32],
 
 constexpr int QBM = 128;                    // query rows per item
 constexpr int QBN = 64;                     // kv rows per tile
-constexpr int DQ_STAGES = 4;
-constexpr int kDqRows = QBM * ROW_BYTES;    // Q or dO of an item
-constexpr int kDqTile = QBN * ROW_BYTES;    // K or V of a tile
-constexpr size_t kDqSmem = 1024 + 4 * kDqRows + DQ_STAGES * 2 * kDqTile +
-                           (4 + 2 * DQ_STAGES) * sizeof(uint64_t);
+constexpr int kDqRowsPanel = QBM * ROW_BYTES;  // a panel of Q or dO
+constexpr int kDqPanel = QBN * ROW_BYTES;      // a panel of K or V
+
+template <int D>
+struct Dq {
+  static constexpr int STAGES = D == 64 ? 4 : 3;  // K/V ring
+  static constexpr int ROWS = tile_bytes<D>(QBM);  // Q or dO of an item
+  static constexpr int TILE = tile_bytes<D>(QBN);  // K or V of a tile
+  static constexpr size_t SMEM = 1024 + 4 * ROWS + STAGES * 2 * TILE +
+                                 (4 + 2 * STAGES) * sizeof(uint64_t);
+  static_assert(SMEM <= kMaxSmem, "dQ shared memory");
+};
 
 // A persistent kernel: one block on each SM walks the work items (query
 // tile of 128 rows, batch*head) in snake_item's order, the last query
@@ -775,6 +918,7 @@ constexpr size_t kDqSmem = 1024 + 4 * kDqRows + DQ_STAGES * 2 * kDqTile +
 // one's end; each item loops over the 64-row K/V tiles up to the
 // diagonal. It is dK/dV with the roles of Q and K/V swapped: the query
 // rows are the M of every product, and dQ += dS K reads K MN-major.
+template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_k,
@@ -783,6 +927,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int BH, int H, int Sq, int Sk,
               Layout ldq, float scale, int causal) {
+  constexpr int DQ_STAGES = Dq<D>::STAGES, kDqRows = Dq<D>::ROWS;
+  constexpr int kDqTile = Dq<D>::TILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);  // two buffers of Q then dO
   unsigned char* sKV = sQ + 4 * kDqRows;     // stages of K then V
@@ -828,9 +974,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         unsigned char* q_buf = sQ + qb * 2 * kDqRows;
         if (j >= 2) hopper::mbar_wait(q_empty + qb, (j / 2 - 1) & 1);
         hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);
-        hopper::tma_load_4d(q_buf, &tm_q, q_full + qb, 0, h, q0, b);
-        hopper::tma_load_4d(q_buf + kDqRows, &tm_do, q_full + qb, 0, h, q0,
-                            b);
+        load_tile<D>(q_buf, &tm_q, q_full + qb, QBM, h, q0, b);
+        load_tile<D>(q_buf + kDqRows, &tm_do, q_full + qb, QBM, h, q0, b);
         const int n_kv = n_kv_of(q0);
         for (int t = 0; t < n_kv; ++t, ++ring) {
           const int st = ring % DQ_STAGES;
@@ -839,9 +984,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             hopper::mbar_wait(empty + st, (ring / DQ_STAGES - 1) & 1);
           }
           hopper::mbar_arrive_tx(full + st, 2 * kDqTile);
-          hopper::tma_load_4d(stage, &tm_k, full + st, 0, h, t * QBN, b);
-          hopper::tma_load_4d(stage + kDqTile, &tm_v, full + st, 0, h,
-                              t * QBN, b);
+          load_tile<D>(stage, &tm_k, full + st, QBN, h, t * QBN, b);
+          load_tile<D>(stage + kDqTile, &tm_v, full + st, QBN, h, t * QBN, b);
         }
       }
     }
@@ -870,10 +1014,10 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       unsigned char* q_rows = sQ + qb * 2 * kDqRows + wg * 64 * ROW_BYTES;
       const uint32_t q_addr = hopper::smem_addr(q_rows);
       const uint32_t do_addr = q_addr + kDqRows;
-      float acc[32], s[32], dp[32];
+      float acc[D / 2], s[32], dp[32];
       uint32_t da[QBN / 16][4];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
       hopper::mbar_wait(q_full + qb, (j / 2) & 1);
 
       // The item's kv tiles, and this warpgroup's: those that see one of
@@ -896,14 +1040,15 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t ka = k_addr(t), va = ka + kDqTile;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          hopper::wgmma_m64n64k16_ss(s, hopper::desc_k_major(q_addr + kk * 32),
-                                     hopper::desc_k_major(ka + kk * 32), kk);
+          hopper::wgmma_m64n64k16_ss(
+              s, hopper::desc_k_major(k_step(q_addr, kk, kDqRowsPanel)),
+              hopper::desc_k_major(k_step(ka, kk, kDqPanel)), kk);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           hopper::wgmma_m64n64k16_ss(
-              dp, hopper::desc_k_major(do_addr + kk * 32),
-              hopper::desc_k_major(va + kk * 32), kk);
+              dp, hopper::desc_k_major(k_step(do_addr, kk, kDqRowsPanel)),
+              hopper::desc_k_major(k_step(va, kk, kDqPanel)), kk);
         }
         hopper::wgmma_commit();
       };
@@ -912,8 +1057,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t ka = k_addr(t);
 #pragma unroll
         for (int kk = 0; kk < QBN / 16; ++kk) {
-          hopper::wgmma_m64n64k16_rs_tb(
-              acc, da[kk], hopper::desc_mn_major(ka + kk * 16 * ROW_BYTES));
+          hopper::wgmma_rs_tb(
+              acc, da[kk], mn_desc<D>(ka + kk * 16 * ROW_BYTES, kDqPanel));
         }
         hopper::wgmma_commit();
       };
@@ -984,8 +1129,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // This warpgroup's Q rows are read; they stage its dQ, and the
       // buffer goes back to the producer once both warpgroups stored.
-      store_rows(acc, scale, scale, q_rows, dq + b * ldq.b + h * ldq.h,
-                 ldq.s, row_lo, Sq, wg);
+      store_rows<D>(acc, scale, scale, q_rows, kDqRowsPanel,
+                    dq + b * ldq.b + h * ldq.h, ldq.s, row_lo, Sq, wg);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(q_empty + qb);
     }
@@ -998,8 +1143,8 @@ Layout layout_at(const long long* strides, int i) {
 
 // A TMA map over input ``i`` of ``strides`` (S rows, boxes of ``rows``).
 bool input_map(CUtensorMap* map, const void* base, int B, int S, int H,
-               const long long* strides, int i, int rows) {
-  return hopper::make_bshd_map(map, base, B, S, H, strides[3 * i],
+               int D, const long long* strides, int i, int rows) {
+  return hopper::make_bshd_map(map, base, B, S, H, D, strides[3 * i],
                                strides[3 * i + 1], strides[3 * i + 2], rows);
 }
 
@@ -1030,79 +1175,116 @@ int resident_blocks(int items) {
   return items < sms ? items : sms;
 }
 
-}  // namespace
-
-extern "C" {
-
 // strides: [b, s, h] element strides of q, k, v, o (12 values).
-int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Sq, int Sk, int head_dim,
-                   const long long* strides, float scale, int causal,
-                   void* stream) {
+template <int D>
+int flash_fwd(const void* q, const void* k, const void* v, void* o,
+              void* lse, int B, int H, int Sq, int Sk, int head_dim,
+              const long long* strides, float scale, int causal,
+              void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_hopper(fwd_kernel, kFwdSmem);
+  cudaError_t err = prepare_hopper(fwd_kernel<D>, Fwd<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
-  if (!input_map(&tq, q, B, Sq, H, strides, 0, FBM) ||
-      !input_map(&tk, k, B, Sk, H, strides, 1, FBN) ||
-      !input_map(&tv, v, B, Sk, H, strides, 2, FBN)) {
+  if (!input_map(&tq, q, B, Sq, H, D, strides, 0, FBM) ||
+      !input_map(&tk, k, B, Sk, H, D, strides, 1, FBN) ||
+      !input_map(&tv, v, B, Sk, H, D, strides, 2, FBN)) {
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sq + FBM - 1) / FBM * B * H;
-  fwd_kernel<<<resident_blocks(items), HOPPER_THREADS, kFwdSmem,
-               (cudaStream_t)stream>>>(
+  fwd_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Fwd<D>::SMEM,
+                  (cudaStream_t)stream>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, B * H, H, Sq, Sk,
       layout_at(strides, 3), scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 // strides: q, k, v, dO, dQ (15 values).
-int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Sq, int Sk, int head_dim,
-                      const long long* strides, float scale, int causal,
-                      void* stream) {
+template <int D>
+int flash_bwd_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int B, int H, int Sq, int Sk, int head_dim,
+                 const long long* strides, float scale, int causal,
+                 void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_hopper(bwd_dq_kernel, kDqSmem);
+  cudaError_t err = prepare_hopper(bwd_dq_kernel<D>, Dq<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!input_map(&tq, q, B, Sq, H, strides, 0, QBM) ||
-      !input_map(&tk, k, B, Sk, H, strides, 1, QBN) ||
-      !input_map(&tv, v, B, Sk, H, strides, 2, QBN) ||
-      !input_map(&tdo, dout, B, Sq, H, strides, 3, QBM)) {
+  if (!input_map(&tq, q, B, Sq, H, D, strides, 0, QBM) ||
+      !input_map(&tk, k, B, Sk, H, D, strides, 1, QBN) ||
+      !input_map(&tv, v, B, Sk, H, D, strides, 2, QBN) ||
+      !input_map(&tdo, dout, B, Sq, H, D, strides, 3, QBM)) {
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sq + QBM - 1) / QBM * B * H;
-  bwd_dq_kernel<<<resident_blocks(items), HOPPER_THREADS, kDqSmem,
-                  (cudaStream_t)stream>>>(
+  bwd_dq_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Dq<D>::SMEM,
+                     (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq,
       B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal);
   return (int)cudaGetLastError();
 }
 
 // strides: q, k, v, dO, dK, dV (18 values).
-int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int Sq, int Sk,
-                       int head_dim, const long long* strides, float scale,
-                       int causal, void* stream) {
+template <int D>
+int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int B, int H, int Sq, int Sk,
+                  int head_dim, const long long* strides, float scale,
+                  int causal, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_hopper(bwd_dkv_kernel, kDkvSmem);
+  cudaError_t err = prepare_hopper(bwd_dkv_kernel<D>, Dkv<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!input_map(&tq, q, B, Sq, H, strides, 0, DBM) ||
-      !input_map(&tk, k, B, Sk, H, strides, 1, DBN) ||
-      !input_map(&tv, v, B, Sk, H, strides, 2, DBN) ||
-      !input_map(&tdo, dout, B, Sq, H, strides, 3, DBM)) {
+  if (!input_map(&tq, q, B, Sq, H, D, strides, 0, DBM) ||
+      !input_map(&tk, k, B, Sk, H, D, strides, 1, DBN) ||
+      !input_map(&tv, v, B, Sk, H, D, strides, 2, DBN) ||
+      !input_map(&tdo, dout, B, Sq, H, D, strides, 3, DBM)) {
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sk + DBN - 1) / DBN * B * H;
-  bwd_dkv_kernel<<<resident_blocks(items), HOPPER_THREADS, kDkvSmem,
-                   (cudaStream_t)stream>>>(
+  bwd_dkv_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Dkv<D>::SMEM,
+                      (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, B * H, H, Sq, Sk, layout_at(strides, 4),
       layout_at(strides, 5), scale, causal);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// The C entries: one set for head_dim 64, one for 128 (``_d128``). Each
+// returns cudaGetLastError() after its launch, or an error for a head_dim
+// it was not built for.
+extern "C" {
+
+#define FLASH_ENTRIES(SUFFIX, D)                                              \
+  int flash_fwd##SUFFIX##_bf16(const void* q, const void* k, const void* v, \
+                               void* o, void* lse, int B, int H, int Sq,    \
+                               int Sk, int head_dim,                        \
+                               const long long* strides, float scale,       \
+                               int causal, void* stream) {                  \
+    return flash_fwd<D>(q, k, v, o, lse, B, H, Sq, Sk, head_dim, strides,   \
+                        scale, causal, stream);                             \
+  }                                                                         \
+  int flash_bwd_dq##SUFFIX##_bf16(                                          \
+      const void* q, const void* k, const void* v, const void* dout,        \
+      const void* lse, const void* delta, void* dq, int B, int H, int Sq,   \
+      int Sk, int head_dim, const long long* strides, float scale,          \
+      int causal, void* stream) {                                           \
+    return flash_bwd_dq<D>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,     \
+                           head_dim, strides, scale, causal, stream);       \
+  }                                                                         \
+  int flash_bwd_dkv##SUFFIX##_bf16(                                         \
+      const void* q, const void* k, const void* v, const void* dout,        \
+      const void* lse, const void* delta, void* dk, void* dv, int B, int H, \
+      int Sq, int Sk, int head_dim, const long long* strides, float scale,  \
+      int causal, void* stream) {                                           \
+    return flash_bwd_dkv<D>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,    \
+                            Sk, head_dim, strides, scale, causal, stream);  \
+  }
+
+FLASH_ENTRIES(, 64)
+FLASH_ENTRIES(_d128, 128)
+
+#undef FLASH_ENTRIES
 
 }  // extern "C"

@@ -6,10 +6,14 @@
 // Conventions, as the kernels of this package use them:
 // - Tiles are rows of 64 bf16 (128 bytes) loaded by TMA with the 128-byte
 //   swizzle into 1024-byte aligned shared memory; 8-row groups are then
-//   1024 bytes apart, which is what every descriptor here encodes.
+//   1024 bytes apart, which is what every descriptor here encodes. The
+//   swizzle caps a TMA box at 128 bytes a row, so a wider tile (head_dim
+//   128) lies as panels of 64 columns, one box each, one after another:
+//   panel p holds columns [64 p, 64 p + 64) of every row.
 // - A K-major operand (K contiguous) advances 16 elements (32 bytes) per
-//   k-step; an MN-major one (N contiguous, 64 wide) advances 16 rows
-//   (2048 bytes).
+//   k-step, and steps to the next panel after four; an MN-major one (N
+//   contiguous) advances 16 rows (2048 bytes), and its descriptor's
+//   leading offset steps from one 64-column panel to the next in N.
 // - Accumulators stay in registers. wgmma writes them asynchronously, so
 //   after ``wgmma_wait`` the caller passes them through ``fence_regs``:
 //   the compiler may not move a read of them above the wait.
@@ -110,9 +114,9 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 // Descriptor of a 128-byte-swizzled operand whose 8-row groups lie 1024
 // bytes apart (SBO = 64 x 16 bytes). For a K-major operand the leading
-// offset is unused (1, as CUTLASS sets it); for an MN-major operand of
-// 64 columns it would step to the next 64 columns, which never exist
-// here, and is given the same 1024 bytes.
+// offset is unused (1, as CUTLASS sets it); for an MN-major operand it
+// steps to the next 64 columns in N: the panel stride of a wider tile,
+// and 1024 bytes (never used) for a product 64 wide.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo) << 16) |
@@ -123,8 +127,9 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
   return desc_sw128(addr, 1);
 }
 
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return desc_sw128(addr, 64);
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
+                                                  uint32_t panel_bytes = 1024) {
+  return desc_sw128(addr, panel_bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -224,6 +229,52 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 16] * B[16 x 128]: A from registers (bf16 pairs
+// in the accumulator's layout), B MN-major in shared memory as two
+// 64-column panels, the descriptor's leading offset stepping between them.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The product of a 64-row warpgroup tile and an MN-major B as wide as the
+// accumulator: 64 (one panel) or 128 (two).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_m64n64k16_rs_tb(d, a, db);
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_m64n128k16_rs_tb(d, a, db);
+}
+
 // ----------------------------------------------------------- numerics
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -262,16 +313,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map over a bf16 [B, S, H, 64] tensor with element strides (b, s, h) and
-// head_dim stride 1, whose box is ``rows`` consecutive s of one (b, h),
-// 128-byte swizzled. S is a dimension of its own, so TMA zero-fills the
-// rows of a box that lie past S. Returns false if the driver refuses it.
+// A map over a bf16 [B, S, H, D] tensor (D a multiple of 64) with element
+// strides (b, s, h) and head_dim stride 1, whose box is 64 columns of
+// ``rows`` consecutive s of one (b, h), 128-byte swizzled: one panel of a
+// tile, so a tile of D columns is D / 64 boxes. S is a dimension of its
+// own, so TMA zero-fills the rows of a box that lie past S. Returns false
+// if the driver refuses it.
 inline bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
-                          int H, long long sb, long long ss, long long sh,
-                          int rows) {
+                          int H, int D, long long sb, long long ss,
+                          long long sh, int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};

@@ -4,8 +4,8 @@ Builds variants of ``csrc/flash_attn.cu``, each a list of text
 replacements of the committed source, into libraries of their own, and
 for each times the forward, dQ and dK/dV launches alone (100 launches
 after 5) at GPT-2 124M's and GPT-2 xl's attention shapes (B*H 16*12 and
-4*25, S 1024, D 64, bf16, causal), beside their tile errors against the
-plain versions (``dq_serial``: dQ's products and its dS one after the
+4*25, S 1024, D 64, bf16, causal) and the LLaMA preset's (B*H 4*16,
+S 2048, D 128), beside their tile errors against the plain versions (``dq_serial``: dQ's products and its dS one after the
 other, not overlapped). The variant ``clocks`` adds ``clock64()`` marks to the
 forward's consumer warpgroups and prints where a warpgroup's clocks go,
 per kv tile of the main loop and per item (the marks cost registers and
@@ -27,17 +27,19 @@ import torch
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
 
-SHAPES = {"gpt2-124m": (16, 12), "gpt2-xl": (4, 25)}
-SEQ = 1024
+# label: (batch, heads, seq, head_dim)
+SHAPES = {"gpt2-124m": (16, 12, 1024, 64), "gpt2-xl": (4, 25, 1024, 64),
+          "llama-2048": (4, 16, 2048, 128)}
 SOURCES = build.CSRC  # the committed sources every variant starts from
 
 _RR = ("  const int i = j * g + (j % 2 ? g - 1 - (int)blockIdx.x : "
        "(int)blockIdx.x);", "  const int i = j * g + (int)blockIdx.x;")
 
 
-def _stages(name, committed, n):
-    return (f"constexpr int {name} = {committed};",
-            f"constexpr int {name} = {n};")
+def _stages(committed, d128, ring, n):
+    """A ring of ``n`` stages at D = 64 (the probe's head_dim)."""
+    return (f"STAGES = D == 64 ? {committed} : {d128};  // {ring} ring",
+            f"STAGES = D == 64 ? {n} : {d128};  // {ring} ring")
 
 
 def _mark(k):
@@ -62,14 +64,14 @@ _TURNS = [
      "\"r\"(2 * WG) : \"memory\");\n    };\n"
      "    if (wg == 1) pass_turn();\n"),
     _turns("      ", "      hopper::wgmma_fence();\n"
-           "      issue_qk(s, q_addr, k_base + (tile % FWD_STAGES) * "
+           "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
            "kFwdTile);\n"
-           "      issue_pv(o_acc, pa, v_base + pst * kFwdTile);\n"),
+           "      issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);\n"),
     _turns("        ", "        hopper::wgmma_fence();\n"
-           "        issue_qk(s, q_addr, k_base + st * kFwdTile);\n"
-           "        issue_pv(o_acc, pa, v_base + prev * kFwdTile);\n"),
+           "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+           "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n"),
     _turns("    ", "    hopper::wgmma_fence();\n"
-           "    issue_pv(o_acc, pa, v_base + pst * kFwdTile);\n"),
+           "    issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);\n"),
     ("    finish();\n  }\n}\n",
      "    finish();\n    if (wg == 0) my_turn();\n  }\n}\n"),
 ]
@@ -131,15 +133,15 @@ VARIANTS = {
     "committed": [],
     "round_robin": [("flash_attn.cu",) + _RR],
     "turns": [("flash_attn.cu",) + r for r in _TURNS],
-    "fwd_stages_2": [("flash_attn.cu",) + _stages("FWD_STAGES", 4, 2)],
-    "fwd_stages_3": [("flash_attn.cu",) + _stages("FWD_STAGES", 4, 3)],
-    "dkv_stages_2": [("flash_attn.cu",) + _stages("DKV_STAGES", 3, 2)],
-    "dq_stages_2": [("flash_attn.cu",) + _stages("DQ_STAGES", 4, 2)],
+    "fwd_stages_2": [("flash_attn.cu",) + _stages(4, 2, "K/V", 2)],
+    "fwd_stages_3": [("flash_attn.cu",) + _stages(4, 2, "K/V", 3)],
+    "dkv_stages_2": [("flash_attn.cu",) + _stages(3, 2, "Q/dO", 2)],
+    "dq_stages_2": [("flash_attn.cu",) + _stages(4, 3, "K/V", 2)],
     "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL)],
     "clocks": [("flash_attn.cu", old, new) for old, new in (
-        ("namespace {\n\nconstexpr int D = 64;",
+        ("namespace {\n\nconstexpr float NEG_INF",
          "__device__ unsigned long long g_clocks[32];\n"
-         "namespace {\n\nconstexpr int D = 64;"),
+         "namespace {\n\nconstexpr float NEG_INF"),
         ("    uint32_t pa[FBN / 16][4] = {};\n",
          "    uint32_t pa[FBN / 16][4] = {};\n"
          "    unsigned long long P[16] = {};\n"
@@ -153,10 +155,10 @@ VARIANTS = {
          "      " + _mark(0)
          + "      hopper::mbar_wait(q_full + qb, (j / FWD_QBUF) & 1);\n"),
         ("      hopper::wgmma_fence();\n"
-         "      issue_qk(s, q_addr, k_base + (tile % FWD_STAGES) * "
+         "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
          "kFwdTile);",
          "      " + _mark(1) + "      hopper::wgmma_fence();\n"
-         "      issue_qk(s, q_addr, k_base + (tile % FWD_STAGES) * "
+         "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
          "kFwdTile);"),
         ("      hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on\n"
          "      hopper::fence_regs(s);\n",
@@ -169,17 +171,17 @@ VARIANTS = {
          "      hopper::fence_regs(s);\n      " + _mark(3)
          + "      hopper::wgmma_wait<0>();\n"
          "      hopper::fence_regs(o_acc);\n      " + _mark(4)),
-        ("        finish();\n      }\n",
-         "        finish();\n      }\n      " + _mark(5)),
+        ("        finish();\n      }\n#pragma unroll\n",
+         "        finish();\n      }\n      " + _mark(5) + "#pragma unroll\n"),
         ("      pack_p(s, pa);\n      for (int t = 1; t < n_kv; ++t) {",
          "      pack_p(s, pa);\n      " + _mark(6)
          + "      for (int t = 1; t < n_kv; ++t) {"),
         ("        hopper::wgmma_fence();\n"
-         "        issue_qk(s, q_addr, k_base + st * kFwdTile);\n"
-         "        issue_pv(o_acc, pa, v_base + prev * kFwdTile);\n",
+         "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+         "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n",
          "        " + _mark(7) + "        hopper::wgmma_fence();\n"
-         "        issue_qk(s, q_addr, k_base + st * kFwdTile);\n"
-         "        issue_pv(o_acc, pa, v_base + prev * kFwdTile);\n"
+         "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+         "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n"
          "        " + _mark(8)),
         ("        hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} "
          "runs on\n        hopper::fence_regs(s);\n",
@@ -285,12 +287,13 @@ def probe(name, inputs):
         o = torch.empty_like(q)
         lse = torch.empty_like(lse_ref)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        fwd = attn._launcher("flash_fwd_bf16", q, k, {
+        entry = lambda k_: attn.entry_name(k_, q.shape[-1])  # noqa: E731
+        fwd = attn._launcher(entry("flash_fwd"), q, k, {
             "ptrs": (q, k, v, o, lse), "strided": (q, k, v, o)}, True)
-        dkv = attn._launcher("flash_bwd_dkv_bf16", q, k, {
+        dkv = attn._launcher(entry("flash_bwd_dkv"), q, k, {
             "ptrs": (q, k, v, do, lse_ref, delta, dk, dv),
             "strided": (q, k, v, do, dk, dv)}, True)
-        dq_ = attn._launcher("flash_bwd_dq_bf16", q, k, {
+        dq_ = attn._launcher(entry("flash_bwd_dq"), q, k, {
             "ptrs": (q, k, v, do, lse_ref, delta, dq),
             "strided": (q, k, v, do, dq)}, True)
         row = {"flash_fwd_ms": time_ms(fwd), "flash_bwd_dq_ms": time_ms(dq_),
@@ -301,7 +304,7 @@ def probe(name, inputs):
         row["tile_rel_err"] = max(attn.tile_rel_err(a, r) for a, r in (
             (o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
         row["lse_err"] = (lse - lse_ref).abs().max().item()
-        if name == "clocks":
+        if name == "clocks" and q.shape[-1] == 64:
             row["clocks"] = clocks(lib, fwd)
         res[label] = row
     return res
@@ -313,9 +316,9 @@ def main(names):
         return 2
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {label: tuple(
-        torch.randn((b, SEQ, h, attn.HEAD_DIM), generator=gen,
+        torch.randn((b, s, h, d), generator=gen,
                     device="cuda").to(torch.bfloat16) for _ in range(4))
-        for label, (b, h) in SHAPES.items()}
+        for label, (b, h, s, d) in SHAPES.items()}
     for name in names or list(VARIANTS):
         print(name, json.dumps(probe(name, inputs)), flush=True)
     return 0

@@ -6,7 +6,11 @@ device prefetcher, the flash checkpoint and HF-style callbacks into a
 ``fit()`` loop, so a training script is model + loss + data. The surface
 is the JAX trainer's: callbacks with a ``should_stop`` flag,
 ``LoggingCallback``, ``evaluate()``, ``fit(pipeline=True/False)``,
-``checkpoint_dir`` / ``persist_every`` / ``restore()`` / ``close()``.
+``checkpoint_dir`` / ``persist_every`` / ``restore()`` / ``close()``,
+and ``lr_schedule=``: the schedule the optimizer follows (a callable of
+the step), whose value at each finished step the loop reports as
+``metrics["lr"]`` (and ``LoggingCallback`` logs), as the JAX trainer
+does.
 
 With ``checkpoint_dir`` every step's state is snapshotted to host shared
 memory (``StorageType.MEMORY``, asynchronous: the copy is enqueued
@@ -72,7 +76,7 @@ class TrainerCallback:
 
 
 class LoggingCallback(TrainerCallback):
-    """Interval logging: loss, step time, tokens/s."""
+    """Interval logging: loss, step time, tokens/s, learning rate."""
 
     def __init__(self, every: int = 10):
         self.every = max(1, every)
@@ -85,6 +89,8 @@ class LoggingCallback(TrainerCallback):
             parts.append(f"{metrics['step_time_s'] * 1e3:.0f} ms/step")
         if "tokens_per_s" in metrics:
             parts.append(f"{metrics['tokens_per_s'] / 1e3:.1f}k tok/s")
+        if "lr" in metrics:
+            parts.append(f"lr {metrics['lr']:.2e}")
         logger.info("train | %s", " | ".join(parts))
 
     def on_evaluate(self, trainer, step, metrics):
@@ -115,6 +121,7 @@ class Trainer:
         profiler=None,
         report_metrics: bool = True,
         callbacks: Sequence[TrainerCallback] = (),
+        lr_schedule: Optional[Callable[[int], float]] = None,
         device: DeviceLike = None,
     ):
         from dlrover_tpu_torch.accel import auto_accelerate
@@ -132,6 +139,7 @@ class Trainer:
         self.state = self._result.state
         self._loss = loss
         self._callbacks = list(callbacks)
+        self._lr_schedule = lr_schedule
         self.should_stop = False
         # Per-step phase breakdown (input / compute / collective /
         # readback) from the fences the loop takes anyway.
@@ -298,6 +306,8 @@ class Trainer:
                 step_metrics["tokens_per_s"] = (
                     tokens / step_metrics["step_time_s"]
                 )
+            if self._lr_schedule is not None:
+                step_metrics["lr"] = float(self._lr_schedule(done))
             self._fire("on_step_end", done, step_metrics)
             if (eval_batches is not None and eval_every
                     and done % eval_every == 0):

@@ -5,9 +5,12 @@
 - Entry points run on CUDA unless the caller asks for the CPU; without
   a card they raise instead of falling back.
 - The kernel build targets Hopper's ``sm_90a`` (checked without nvcc).
+- A head_dim-128 input goes to the head_dim-128 kernels, never to a
+  plain version or another width, and any other head_dim raises.
 """
 
 import ast
+import contextlib
 import os
 
 import pytest
@@ -15,7 +18,8 @@ import torch
 
 from dlrover_tpu_torch.accel import auto_accelerate
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
-from dlrover_tpu_torch.ops import build
+from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+from dlrover_tpu_torch.ops import attention, build
 from dlrover_tpu_torch.optim import adamw
 from dlrover_tpu_torch.train import init_training
 from dlrover_tpu_torch.train.data import DevicePrefetchIterator
@@ -58,10 +62,23 @@ def test_walk_sees_the_whole_package():
     assert "dlrover_tpu_torch/ops/attention.py" in names
     assert "dlrover_tpu_torch/optim/low_bit.py" in names
     assert "dlrover_tpu_torch/models/convert.py" in names
+    assert "dlrover_tpu_torch/models/llama.py" in names
+    assert "dlrover_tpu_torch/models/remat.py" in names
     assert "dlrover_tpu_torch/train/trainer.py" in names
     assert "dlrover_tpu_torch/train/checkpoint/engine.py" in names
     assert "dlrover_tpu_torch/agent/ckpt_saver.py" in names
     assert "chip_smoke.py" in names
+
+
+def test_import_check_catches_a_planted_import(tmp_path):
+    """The walk's import check finds each forbidden root, in both import
+    forms, as a port module would write it."""
+    path = tmp_path / "planted.py"
+    path.write_text("import torch\nimport jax.numpy as jnp\n"
+                    "from dlrover_tpu.models import llama\n"
+                    "from . import sibling\n")
+    assert sorted(set(imported_roots(str(path))) & set(FORBIDDEN)) == [
+        "dlrover_tpu", "jax"]
 
 
 @pytest.fixture
@@ -94,6 +111,7 @@ def test_auto_accelerate_raises_without_cuda(no_cuda):
 def test_other_entry_points_raise_without_cuda(no_cuda):
     for make in (lambda: init_training(),
                  lambda: GPT(GPTConfig.tiny()),
+                 lambda: Llama(LlamaConfig.tiny()),
                  lambda: DevicePrefetchIterator(iter([]))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -121,6 +139,60 @@ def test_adam8bit_raises_on_a_non_cuda_device():
     with pytest.raises(ValueError, match="no adam8bit kernel"):
         low_bit.adam8_update([g], state, state, torch.ones(2), (4,),
                              low_bit._Hyper(1e-3, 0.9, 0.999, 1e-8, 0.0, 256))
+
+
+def test_flash_source_exports_every_entry():
+    """Each C entry the wrapper binds (head_dim 64 and 128) is made by the
+    source's FLASH_ENTRIES macro."""
+    with open(build.source_path("flash_attn")) as f:
+        text = f.read()
+    for suffix, d in (("", 64), ("_d128", 128)):
+        assert f"FLASH_ENTRIES({suffix}, {d})" in text
+    assert sorted(attention._SIGNATURES) == sorted(
+        f"{k}{sfx}_bf16" for k in attention.KERNELS
+        for sfx in ("", "_d128"))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """CPU tensors taken for CUDA ones: each launch records its C entry
+    instead of running; a plain version called raises."""
+    launched = []
+    monkeypatch.setattr(attention, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(
+        attention, "_launcher",
+        lambda entry, q, k, tensors, causal: lambda: launched.append(entry))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran for a card tensor")
+
+    for name in ("_fwd_plain", "_bwd_dq_plain", "_bwd_dkv_plain"):
+        monkeypatch.setattr(attention, name, plain)
+    attention.reset_launch_counts()
+    return launched
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_card_tensors_launch_their_width_kernels(fake_card, d):
+    q, k, v = (torch.zeros(1, 128, 2, d, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    attention.flash_attention(q, k, v).sum().backward()
+    sfx = "" if d == 64 else "_d128"
+    assert fake_card == [f"flash_fwd{sfx}_bf16", f"flash_bwd_dq{sfx}_bf16",
+                         f"flash_bwd_dkv{sfx}_bf16"]
+    assert attention.LAUNCHES == {
+        name: int(name.endswith("_d128") == (d == 128))
+        for name in attention.LAUNCHES}
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_card_tensors_of_other_widths_raise(fake_card, d):
+    q = torch.zeros(1, 128, 2, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim|D in"):
+        attention.flash_fwd(q, q, q)
+    assert fake_card == []
 
 
 def test_library_name_follows_the_source():

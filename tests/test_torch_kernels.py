@@ -67,6 +67,12 @@ def test_cuda_kernels_match_plain(cuda_device, causal, s, b, h, fused):
     if fused:
         q, k, v = fused_views(q, k, v)
         assert q.stride(1) == 3 * h * 64 and port._aligned(q) is q
+    _check_kernels(q, k, v, g, causal)
+
+
+def _check_kernels(q, k, v, g, causal):
+    """Each kernel of q's head_dim, launched once, against its plain
+    version; no kernel of the other width runs."""
     port.reset_launch_counts()
     o, lse = port.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = port._fwd_plain(q, k, v, causal)
@@ -74,13 +80,35 @@ def test_cuda_kernels_match_plain(cuda_device, causal, s, b, h, fused):
     dq = port.flash_bwd_dq(q, k, v, g, lse_ref, delta, causal)
     dk, dv = port.flash_bwd_dkv(q, k, v, g, lse_ref, delta, causal)
     torch.cuda.synchronize()
-    assert port.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                             "flash_bwd_dkv": 1}
+    d = q.shape[-1]
+    assert port.LAUNCHES == {
+        name: int(name in [port.kernel_name(k, d) for k in port.KERNELS])
+        for name in port.LAUNCHES}
     dq_ref = port._bwd_dq_plain(q, k, v, g, lse_ref, delta, causal)
     dk_ref, dv_ref = port._bwd_dkv_plain(q, k, v, g, lse_ref, delta, causal)
     for got, ref in zip((o, dq, dk, dv), (o_ref, dq_ref, dk_ref, dv_ref)):
         assert port.tile_rel_err(got, ref) <= port.TILE_REL_TOL
-    assert (lse - lse_ref).abs().max().item() < 1e-3
+    assert (lse - lse_ref).abs().max().item() < port.LSE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,s,b,h,fused", [
+    (True, 128, 2, 2, False),
+    (False, 96, 2, 2, False),
+    (True, 200, 2, 2, False),
+    (True, 192, 2, 2, False),  # one 128-row block half empty
+    (True, 1000, 3, 5, False),
+    (True, 2048, 4, 16, False),  # the LLaMA preset's attention
+    (True, 200, 2, 2, True),
+])
+def test_cuda_d128_kernels_match_plain(cuda_device, causal, s, b, h, fused):
+    """The head_dim 128 kernels (two 64-column panels a tile)."""
+    q, k, v, g = (torch.tensor(x).to(cuda_device, torch.bfloat16)
+                  for x in inputs(s, seed=5, b=b, h=h, d=128))
+    if fused:
+        q, k, v = fused_views(q, k, v)
+        assert q.stride(1) == 3 * h * 128 and port._aligned(q) is q
+    _check_kernels(q, k, v, g, causal)
 
 
 # ------------------------------------------- the check, on the CPU
@@ -100,12 +128,29 @@ def _tiles_transposed(x):
     return x.reshape(b, h, s // d, d, d).transpose(-1, -2).reshape(x.shape)
 
 
+def _first_panel_twice(x):
+    """[..., 128] read with its second 64-column panel taken from the
+    first: a head_dim-128 operand whose descriptor does not step to the
+    second panel."""
+    return torch.cat([x[..., :64], x[..., :64]], dim=-1)
+
+
+def _k_operand(k, fault):
+    """K as the score products read it: "k_panel_not_stepped" leaves the
+    K-major k-steps 4..7 in the first panel."""
+    k = _bhsd(k)
+    return _first_panel_twice(k) if fault == "k_panel_not_stepped" else k
+
+
 def emulated_fwd(q, k, v, mask, fault=None):
     """The forward kernel's arithmetic with ``mask`` as its causal mask:
     fp32 scores and softmax, P rounded to bf16 before P.V, O in bf16;
     (O, logsumexp). ``fault`` "v_tile_transposed" reads V's tiles
-    transposed, "lse_base2" stores the logsumexp in base 2."""
-    s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) / math.sqrt(q.shape[-1])
+    transposed, "lse_base2" stores the logsumexp in base 2; at head_dim
+    128, "k_panel_not_stepped" (see ``_k_operand``) and "v_panel_lbo"
+    reads V's second panel as its first (a wrong leading offset)."""
+    s = _bhsd(q) @ _k_operand(k, fault).transpose(-1, -2) / math.sqrt(
+        q.shape[-1])
     s = s.masked_fill(~mask, -1e30)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
@@ -114,6 +159,8 @@ def emulated_fwd(q, k, v, mask, fault=None):
     vt = _bhsd(v)
     if fault == "v_tile_transposed":
         vt = _tiles_transposed(vt)
+    if fault == "v_panel_lbo":
+        vt = _first_panel_twice(vt)
     o = (p.bfloat16().float() @ vt) / l
     lse = (m + torch.log(l)).squeeze(-1)
     if fault == "lse_base2":
@@ -125,20 +172,27 @@ def emulated_bwd(q, k, v, do, lse, delta, mask, fault=None):
     """The dQ and dK/dV kernels' arithmetic with ``mask``: P and dS
     rounded to bf16 before their products, outputs in bf16. ``fault``
     "do_tile_transposed" reads dO's tiles transposed in dV += P^T dO,
-    "k_tile_transposed" K's tiles transposed in dQ += dS K."""
+    "k_tile_transposed" K's tiles transposed in dQ += dS K; at head_dim
+    128, "k_panel_not_stepped" as in ``emulated_fwd``, "do_panel_lbo"
+    and "k_panel_lbo" read dO's (dV) or K's (dQ) second panel as its
+    first."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) * scale
+    s = _bhsd(q) @ _k_operand(k, fault).transpose(-1, -2) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
     dp = _bhsd(do) @ _bhsd(v).transpose(-1, -2)
     ds = (p * (dp - delta[..., None])).bfloat16().float()
     kt = _bhsd(k)
     if fault == "k_tile_transposed":
         kt = _tiles_transposed(kt)
+    if fault == "k_panel_lbo":
+        kt = _first_panel_twice(kt)
     dq = ds @ kt * scale
     dk = ds.transpose(-1, -2) @ _bhsd(q) * scale
     dot = _bhsd(do)
     if fault == "do_tile_transposed":
         dot = _tiles_transposed(dot)
+    if fault == "do_panel_lbo":
+        dot = _first_panel_twice(dot)
     dv = p.bfloat16().float().transpose(-1, -2) @ dot
     return tuple(x.transpose(1, 2).bfloat16() for x in (dq, dk, dv))
 
@@ -157,18 +211,27 @@ def _wrong_masks():
     }
 
 
-@pytest.fixture(scope="module")
-def check_case():
+def _check_case(d):
     """bf16 q, k, v, dO at the main path's S (batch 1, 2 heads), and the
     plain versions' outputs on them."""
     q, k, v, do = (torch.tensor(x).bfloat16()
-                   for x in inputs(S_CHECK, seed=7, b=1))
+                   for x in inputs(S_CHECK, seed=7, b=1, d=d))
     o, lse = port._fwd_plain(q, k, v, True)
     delta = port.attention_delta(o, do)
     dq = port._bwd_dq_plain(q, k, v, do, lse, delta, True)
     dk, dv = port._bwd_dkv_plain(q, k, v, do, lse, delta, True)
     return (q, k, v, do, lse, delta), {"o": o, "lse": lse, "dq": dq,
                                        "dk": dk, "dv": dv}
+
+
+@pytest.fixture(scope="module")
+def check_case():
+    return _check_case(64)
+
+
+@pytest.fixture(scope="module")
+def check_case_d128():
+    return _check_case(128)
 
 
 def _emulated(case, mask, fault=None):
@@ -193,8 +256,16 @@ def _err_over_limit(name, got, ref):
 def test_check_passes_kernel_rounding(check_case):
     """The kernels' one departure from the plain versions, bf16 P and dS
     operands, stays well inside the limit."""
+    _passes_rounding(check_case)
+
+
+def test_check_passes_d128_kernel_rounding(check_case_d128):
+    _passes_rounding(check_case_d128)
+
+
+def _passes_rounding(case):
     right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
-    got, refs = _emulated(check_case, right), check_case[1]
+    got, refs = _emulated(case, right), case[1]
     for name, ref in refs.items():
         assert _err_over_limit(name, got[name], ref) <= 0.5, name
 
@@ -221,6 +292,28 @@ def test_check_rejects_wrong_kernel(check_case, wrong, outputs):
     got = _emulated(check_case, masks.get(wrong, right),
                     None if wrong in masks else wrong)
     refs = check_case[1]
+    worst = max(_err_over_limit(n, got[n], refs[n])
+                for n in _OUTPUTS[outputs])
+    assert worst > 2
+
+
+# Faults of the head_dim-128 forms, each with the outputs it reaches: a
+# K-major operand whose descriptor stays in the first 64-column panel,
+# and an MN-major operand whose leading offset misses the second panel.
+_PANEL_FAULTS = [("k_panel_not_stepped", "fwd"), ("k_panel_not_stepped",
+                                                   "lse"),
+                 ("k_panel_not_stepped", "dq"), ("k_panel_not_stepped",
+                                                  "dkv"),
+                 ("v_panel_lbo", "fwd"), ("do_panel_lbo", "dkv"),
+                 ("k_panel_lbo", "dq")]
+
+
+@pytest.mark.parametrize("wrong,outputs", _PANEL_FAULTS,
+                         ids=[f"{w}-{o}" for w, o in _PANEL_FAULTS])
+def test_check_rejects_wrong_d128_kernel(check_case_d128, wrong, outputs):
+    right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
+    got = _emulated(check_case_d128, right, wrong)
+    refs = check_case_d128[1]
     worst = max(_err_over_limit(n, got[n], refs[n])
                 for n in _OUTPUTS[outputs])
     assert worst > 2

@@ -5,6 +5,8 @@ across with ``models/convert.py``), see the same numpy batches and use
 AdamW with optax's defaults, on one device each (the port on the CPU).
 """
 
+import logging
+
 import numpy as np
 import optax
 import pytest
@@ -18,12 +20,17 @@ from dlrover_tpu.train.trainer import Trainer as JaxTrainer
 from dlrover_tpu.train.trainer import TrainerCallback as JaxCallback
 from dlrover_tpu_torch import train as ttrain
 from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.models.convert import params_from_flax
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
 from dlrover_tpu_torch.optim import adamw
 from dlrover_tpu_torch.train.data import DevicePrefetchIterator
 from dlrover_tpu_torch.train.metrics import DeferredMetrics, batch_token_count
-from dlrover_tpu_torch.train.trainer import Trainer, TrainerCallback
+from dlrover_tpu_torch.train.trainer import (
+    LoggingCallback,
+    Trainer,
+    TrainerCallback,
+)
 
 # fp32 losses agree to summation order (1e-5). Params after three AdamW
 # steps to 5e-5 absolute: a step moves a param by at most lr = 1e-3, and
@@ -299,3 +306,41 @@ def test_init_training_joins_a_gloo_group(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
         assert out.split() == ["cpu", "2", "3.0"]
+
+
+def test_lr_schedule_is_reported_like_jax():
+    """``lr_schedule=`` (the JAX trainer's): both loops report the
+    schedule's value at each finished step as ``metrics["lr"]``, and
+    ``LoggingCallback`` logs it."""
+    import jax.numpy as jnp
+    import optax
+
+    sched = optax.linear_schedule(1e-3, 1e-4, transition_steps=4)
+
+    class Lrs(TrainerCallback, JaxCallback):
+        def __init__(self):
+            self.values = []
+
+        def on_step_end(self, trainer, step, metrics):
+            self.values.append(metrics["lr"])
+
+    data = batches()
+    j_cb, t_cb = Lrs(), Lrs()
+    jt = JaxTrainer(
+        JaxGPT(JaxConfig(**BASE, dtype=jnp.float32)), optax.adamw(sched),
+        jax_token_loss, data[0], spec=JaxSpec(), callbacks=[j_cb],
+        lr_schedule=sched,
+    )
+    jt.fit(iter(data), steps=3)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger.addHandler(handler)
+    try:
+        port_trainer(callbacks=[t_cb, LoggingCallback(every=1)],
+                     lr_schedule=sched).fit(iter(data), steps=3)
+    finally:
+        logger.removeHandler(handler)
+    assert t_cb.values == j_cb.values == [float(sched(s)) for s in (1, 2, 3)]
+    assert all(isinstance(v, float) for v in t_cb.values)
+    assert any(m.endswith("| lr 7.75e-04") for m in logged)
