@@ -33,25 +33,34 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    3 more steps with torch.profiler: device time by kernel group, each
    flash kernel's device ms per launch, the card's busy share of the
    traced time and the kernels' time over the window's step;
-5. train GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024, remat
-   "dots" as bench.py trains it) with the port's fused
-   ``adam8bit(2e-4)`` the same way (2 warm-up steps, a window of 5, 3
-   traced): every flash kernel 48 times a step (the forward 96: the
-   backward recomputes it), the fused
-   8-bit Adam kernel once a step over every leaf, the unfused one never;
-   in the traced steps, the optimizer's own ops (a profiler range
-   around ``update_and_apply``) hold no cat and no copy kernel, and the
-   fused kernel runs once a step; then 2
-   steps of the optax-style loop (``update``, then apply), where the
-   unfused kernel runs once a step and the fused one never; before
-   them, windows of 5 without remat and under remat "nothing" (step ms
-   and peak memory beside "dots"');
-   then the LLaMA preset (22 x 2048, 16 / 8 heads, vocab 32000, bf16
-   params, remat "dots", ``adam8bit(2e-4)``) at 4 x 2048 (a window of 5,
-   3 traced) and 1 x 8192 (a window of 3): step ms, tokens/s, MFU, peak
-   memory; the loss falls; each head_dim-128 kernel 22 times a step (the
-   forward 44), the fused 8-bit Adam once, no head_dim-64 kernel; and a
-   window at 4 x 2048 without remat;
+5. remat on GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024, the
+   port's fused ``adam8bit(2e-4)``, as bench.py trains it): windows of 4
+   steps (after 2 warm-up) without remat and under "nothing", "dots",
+   "dots_lite" and "offload", in turns, three rounds of alternating order, the last round's traced
+   (busy share, of the kernels and with the copies): each policy's
+   median step ms, tokens/s, MFU, peak memory, busy share, and
+   "offload"'s GB and GB/s each way a step; every window's losses equal
+   no remat's of its round bit for bit; "offload" peaks below "dots";
+   every flash kernel 48 times a step (the forward 96 under remat), the
+   fused 8-bit Adam once a step over every leaf, the unfused one never;
+   in the traced steps the optimizer's own
+   ops (a profiler range around ``update_and_apply``) hold no cat and no
+   copy kernel. Then the flagship window ("dots") and 2 steps of the
+   optax-style loop (``update``, then apply) on it, where the unfused
+   kernel runs once a step and the fused one never. Then the optimizer's
+   state in host memory: GPT-2 xl without remat under
+   ``bf16_master_weights(adamw)`` and ``adam8bit``, each without and with
+   ``offload_optimizer=True`` (equal losses, a lower peak, the moved
+   leaves in pinned host memory between steps, the state's GB and the
+   copies' GB/s). Then remat on the LLaMA preset (22 x 2048, 16 / 8
+   heads, vocab 32000, bf16 params, ``adam8bit(2e-4)``) at 4 x 2048 the
+   same way without remat and under "nothing", "dots" and "offload"
+   (each head_dim-128 kernel 22 times a step, the forward 44 under
+   remat, no head_dim-64 kernel), and a window at 1 x 8192 under
+   "dots". Then AGD (through ``Trainer.fit``) and WeightedSAM (its own
+   step; the flash kernels twice a step) on GPT-2 124M: the loss falls,
+   and each first update equals the same update on the CPU from the
+   card's gradients within 1e-6;
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -110,7 +119,13 @@ from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
 from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
-from dlrover_tpu_torch.optim import adam8bit, adamw
+from dlrover_tpu_torch.optim import (
+    WeightedSAM,
+    adam8bit,
+    adamw,
+    agd,
+    bf16_master_weights,
+)
 from dlrover_tpu_torch.optim import low_bit as lowbit
 from dlrover_tpu_torch.train.checkpoint import StorageType
 from dlrover_tpu_torch.train.trainer import (
@@ -163,11 +178,26 @@ BATCH, SEQ, STEPS = 16, 1024, 10
 XL = dataclasses.replace(GPTConfig.gpt2_xl(), remat_policy="dots",
                          param_dtype=torch.bfloat16, attn_impl="pallas")
 XL_NOREMAT = dataclasses.replace(XL, remat=False)
-XL_NOTHING = dataclasses.replace(XL, remat_policy="nothing")
-XL_BATCH, XL_STEPS, XL_UNFUSED_STEPS, XL_LR = 4, 5, 2, 2e-4
+XL_BATCH, XL_UNFUSED_STEPS, XL_LR = 4, 2, 2e-4
+# Remat on the one-chip presets: a window of REMAT_STEPS under each
+# policy ("none": no remat), from the same seed and batch, in turns, in
+# REMAT_ROUNDS rounds of alternating order, so the host's swing between
+# windows spreads over all of them.
+XL_POLICIES = ("none", "nothing", "dots", "dots_lite", "offload")
+LLAMA_POLICIES = ("none", "nothing", "dots", "offload")
+REMAT_ROUNDS, REMAT_STEPS = 3, 4
+# The optimizer's state in host memory: GPT-2 xl without remat.
+OPT_OFFLOAD_STEPS = 3
+# AGD and WeightedSAM on GPT-2 124M: steps on the card, and the largest
+# difference of any parameter between the first update on the card and
+# the same update on the CPU from the card's gradients: a few fp32 ulps
+# of values below 4 (the card divides by a scalar as a multiply by its
+# reciprocal; both round p + u once).
+AGD_WSAM_STEPS, AGD_WSAM_BATCH, AGD_WSAM_LR, UPDATE_TOL = 5, 8, 3e-4, 1e-6
 # The LLaMA preset as bench.py section_llama trains it (22 x 2048, 16 /
 # 8 heads, head_dim 128, bf16 params, remat "dots", adam8bit(2e-4)):
-# (batch, seq, window steps) of each run.
+# (batch, seq, window steps) of each run; the first is also the remat
+# rounds' shape.
 LLAMA_RUNS = ((4, 2048, 5), (1, 8192, 3))
 LLAMA_LR = 2e-4
 # fp32 operations per value of each 8-bit Adam kernel (its bound by
@@ -453,14 +483,17 @@ def model_check(seed, model_cls=GPT, cfg=None):
 
 
 def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
-          seq=None):
+          seq=None, **accel):
     """``cfg`` from random weights (the seed) on one fixed batch of
     ``batch_size`` x ``seq`` through ``Trainer.fit``: 2 warm-up steps,
     then a window of ``steps`` in which every flash kernel of the model's
     head_dim runs once a layer a step (the forward twice under remat),
     the fused 8-bit Adam kernel its launches a step (none with AdamW),
     the unfused one never, and the loss is finite and falls; ``seq``
-    defaults to SEQ."""
+    defaults to SEQ. ``accel`` goes to the Trainer (``offload_optimizer``). Returns the
+    window's launches, the trainer, the batch and the window's stats
+    (with its losses, and the copies of "offload" and of an offloaded
+    optimizer: bytes and device ms each way a step)."""
     seq = seq or SEQ
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = model_cls(cfg, device="cuda", generator=gen)
@@ -468,10 +501,18 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
         0, cfg.vocab_size, (batch_size, seq), dtype=np.int64)
     rec = Record()
     trainer = Trainer(model, optimizer, token_loss, batch,
-                      spec="auto", callbacks=[rec, LoggingCallback(every=5)])
+                      spec="auto", callbacks=[rec, LoggingCallback(every=5)],
+                      **accel)
     trainer.fit(iter([batch] * WARMUP), steps=WARMUP)  # outside the window
     first = float(rec.losses[0])
     rec.losses, rec.step_s = [], []
+    copiers = {}
+    if model.remat.pool is not None:
+        copiers["remat offload"] = model.remat.pool.take_copy_stats
+    if hasattr(trainer.state["opt"], "take_copy_stats"):
+        copiers["optimizer offload"] = trainer.state["opt"].take_copy_stats
+    for take in copiers.values():
+        take()  # the window's copies only
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -481,6 +522,15 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
     window_s = time.perf_counter() - t0
     launches = read_counts()
     losses = [float(x) for x in rec.losses]
+    copies = {}
+    for what, take in copiers.items():
+        c = take()
+        copies[what] = {
+            **{f"gb_{way}": c[f"{way}_bytes"] / steps / 1e9
+               for way in ("out", "in")},
+            **{f"{way}_ms": c[f"{way}_ms"] / steps for way in ("out", "in")},
+            **{f"{way}_gb_s": c[f"{way}_bytes"] / 1e9 / (c[f"{way}_ms"] / 1e3)
+               for way in ("out", "in")}}
     log(f"[train {label}] loss at init {first}; window losses {losses}")
     check(out["step"] == steps, f"{label}: fit stopped at {out['step']}")
     per_step = getattr(trainer.state["opt"], "launches_per_step", 0)
@@ -507,10 +557,11 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
         "params": sum(p.numel() for p in model.parameters()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "first_loss": losses[0], "last_loss": losses[-1],
-        "launches": launches,
+        "launches": launches, "copies": copies,
     }
     log(f"[train {label}] " + json.dumps(stats))
-    return launches, trainer, batch, stats["step_ms"]
+    stats["losses"] = losses
+    return launches, trainer, batch, stats
 
 
 def train_unfused(trainer, batch, steps):
@@ -648,11 +699,13 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
                 per_launch[attn.kernel_name(kernel, d)] = sum(
                     e.self_device_time_total for e in hits) / launches / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
-    log(f"[profile {label}] " + json.dumps({
+    out = {
         "steps": steps,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "kernel_ms_per_step": total / steps / 1e3,
         "device_busy_share": total / wall_us,
+        # Kernels alone: the copy engines run beside them.
+        "kernel_busy_share": (total - groups.get("copies", 0.0)) / wall_us,
         "kernel_share_of_window_step": total / steps / 1e3 / window_step_ms,
         "groups_ms_per_step": {g: t / steps / 1e3 for g, t in
                                sorted(groups.items(), key=lambda x: -x[1])},
@@ -661,7 +714,206 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
             [e.key[:90], e.self_device_time_total / steps / 1e3, e.count]
             for e in top
         ],
-    }))
+    }
+    log(f"[profile {label}] " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------- remat, optimizers
+
+
+def with_policy(cfg, policy):
+    """``cfg`` under a remat policy of the rounds ("none": no remat)."""
+    if policy == "none":
+        return dataclasses.replace(cfg, remat=False)
+    return dataclasses.replace(cfg, remat=True, remat_policy=policy)
+
+
+def remat_rounds(label, base, policies, lr, b, seq, seed, windows,
+                 model_cls=GPT):
+    """Every policy's window in turns (``REMAT_ROUNDS`` rounds), the last
+    round's traced (busy share). Checks each window's losses against no
+    remat's of its round, bit for bit, and that "offload" peaks below
+    "dots"; prints each policy's median step ms, tokens/s, MFU, peak
+    memory, busy share and "offload"'s copies. Returns the summary."""
+    runs = {p: [] for p in policies}
+    for r in range(REMAT_ROUNDS):
+        for policy in (policies if r % 2 == 0 else policies[::-1]):
+            name = f"{label} {policy} r{r}"
+            windows[name], trainer, batch, stats = train(
+                name, with_policy(base, policy), adam8bit(lr), b,
+                REMAT_STEPS, seed, model_cls=model_cls, seq=seq)
+            if r == REMAT_ROUNDS - 1:
+                prof = profile_window(name, trainer, batch, stats["step_ms"])
+                stats["busy"] = prof["kernel_busy_share"]
+                stats["busy_with_copies"] = prof["device_busy_share"]
+            runs[policy].append(stats)
+            del trainer
+            torch.cuda.empty_cache()
+    peak_flops = device_peak_flops(torch.device("cuda")) or PEAK_BF16
+    summary = {}
+    for policy, rs in runs.items():
+        for r, st in enumerate(rs):
+            check(st["losses"] == runs["none"][r]["losses"],
+                  f"{label} {policy} round {r}: losses {st['losses']} "
+                  f"differ from no remat's {runs['none'][r]['losses']}")
+        step = statistics.median(st["step_ms"] for st in rs)
+        tok_s = b * seq / (step / 1e3)
+        summary[policy] = {
+            "median_step_ms": step, "step_ms": [st["step_ms"] for st in rs],
+            "tokens_per_s": tok_s,
+            "mfu": mfu(tok_s, base.flops_per_token(), peak_flops),
+            "peak_mem_gib": max(st["peak_mem_gib"] for st in rs),
+            "busy_share": rs[-1]["busy"],
+            "busy_share_with_copies": rs[-1]["busy_with_copies"],
+            "copies": [st["copies"].get("remat offload") for st in rs]
+            if policy == "offload" else None,
+        }
+    log(f"[remat {label}] " + json.dumps(summary))
+    dots, nothing = (summary[p]["median_step_ms"]
+                     for p in ("dots", "nothing"))
+    log(f"[remat {label}] dots {dots:.2f} ms against nothing {nothing:.2f} "
+        f"ms a step: dots faster: {dots < nothing}")
+    check(summary["offload"]["peak_mem_gib"] < summary["dots"]["peak_mem_gib"],
+          f"{label}: offload peaks at {summary['offload']['peak_mem_gib']} "
+          f"GiB, dots at {summary['dots']['peak_mem_gib']}")
+    return summary
+
+
+def optimizer_offload(seed, windows):
+    """GPT-2 xl without remat under ``bf16_master_weights(adamw)`` and
+    ``adam8bit``, each without and with ``offload_optimizer=True``: the
+    same losses bit for bit, a lower peak when offloaded, the moved
+    leaves in pinned host memory between steps, and the state's bytes and
+    copy rates."""
+    out = {}
+    for name, make in (("bf16 adamw",
+                        lambda: bf16_master_weights(adamw(XL_LR))),
+                       ("adam8bit", lambda: adam8bit(XL_LR))):
+        runs = {}
+        for off in (False, True):
+            label = f"gpt2-xl {name}" + (" offloaded" if off else "")
+            windows[label], trainer, _, stats = train(
+                label, XL_NOREMAT, make(), XL_BATCH, OPT_OFFLOAD_STEPS, seed,
+                offload_optimizer=off)
+            if off:
+                moved = trainer.state["opt"].moved
+                check(bool(moved) and all(
+                    t.device.type == "cpu" and t.is_pinned() for t in moved),
+                    f"{label}: a moved leaf is not in pinned host memory")
+                stats["state_gb"] = trainer.state["opt"].nbytes / 1e9
+            runs[off] = stats
+            del trainer
+            torch.cuda.empty_cache()
+        check(runs[True]["losses"] == runs[False]["losses"],
+              f"{name}: losses with offload {runs[True]['losses']} differ "
+              f"from {runs[False]['losses']}")
+        check(runs[True]["peak_mem_gib"] < runs[False]["peak_mem_gib"],
+              f"{name}: offloaded peak {runs[True]['peak_mem_gib']} GiB not "
+              f"below {runs[False]['peak_mem_gib']}")
+        out[name] = {
+            ("offloaded" if off else "on the card"): {
+                "step_ms": st["step_ms"], "peak_mem_gib": st["peak_mem_gib"],
+                "state_gb": st.get("state_gb"),
+                "copies": st["copies"].get("optimizer offload")}
+            for off, st in runs.items()}
+    log("[optimizer offload] " + json.dumps(out))
+    return out
+
+
+def first_update_vs_cpu(label, cfg, seed, step_on):
+    """The largest difference of any parameter between one update on the
+    card and the same update on the CPU, from the card's gradients:
+    ``step_on(model, batch, grads)`` updates ``model`` (grads None: its
+    own, on the card, returning them on the CPU; else the given ones)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = GPT(cfg, device="cuda", generator=gen)
+    cpu = GPT(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, SEQ))).cuda()
+    grads = step_on(model, batch, None)
+    step_on(cpu, None, grads)
+    cpu_params = dict(cpu.named_parameters())
+    err = max((p.detach().cpu() - cpu_params[n].detach()).abs().max().item()
+              for n, p in model.named_parameters())
+    log(f"[{label}] first update, card vs CPU from the card's gradients: "
+        f"max |err| {err:.3e} (limit {UPDATE_TOL})")
+    check(err <= UPDATE_TOL, f"{label}: first update differs by {err}")
+    return err
+
+
+def agd_step(model, batch, grads):
+    opt = agd(AGD_WSAM_LR)(model.parameters())
+    if grads is None:
+        loss_fn(model(batch), batch).backward()
+        grads = [p.grad.detach().cpu() for p in model.parameters()]
+    else:
+        for p, g in zip(model.parameters(), grads):
+            p.grad = g
+    opt.step()
+    return grads
+
+
+def wsam_step(model, batch, grads):
+    """One WeightedSAM step; on the CPU its two passes' gradients are the
+    card's (``_grads`` replaced), so only the update's arithmetic runs."""
+    wsam = WeightedSAM(adamw(AGD_WSAM_LR)).init(model.named_parameters())
+    if grads is None:
+        seen, take = [], wsam._grads
+
+        def keep(loss_fn_, params):
+            loss, g = take(loss_fn_, params)
+            seen.append((loss.cpu(), [x.detach().cpu() for x in g]))
+            return loss, g
+
+        wsam._grads = keep
+        wsam.step(lambda: loss_fn(model(batch), batch))
+        return seen
+    passes = iter(grads)
+    wsam._grads = lambda loss_fn_, params: next(passes)
+    wsam.step(None)
+    return grads
+
+
+def agd_and_wsam(seed, windows):
+    """AGD through ``Trainer.fit`` and WeightedSAM through its own step
+    on GPT-2 124M: the loss falls, the flash kernels run at their counts
+    (twice a step under WSAM's two passes), and each first update equals
+    the CPU's (``first_update_vs_cpu``)."""
+    cfg = GPTConfig(**GPT2)
+    windows["gpt2-124m agd"], trainer, _, _ = train(
+        "gpt2-124m agd", cfg, agd(AGD_WSAM_LR), AGD_WSAM_BATCH,
+        AGD_WSAM_STEPS, seed)
+    del trainer
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = GPT(cfg, device="cuda", generator=gen)
+    wsam = WeightedSAM(adamw(AGD_WSAM_LR)).init(model.named_parameters())
+    batch = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (AGD_WSAM_BATCH, SEQ))).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = [wsam.step(lambda: loss_fn(model(batch), batch))
+              for _ in range(AGD_WSAM_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    windows["gpt2-124m wsam"] = launches
+    losses = [float(x) for x in losses]
+    log("[train gpt2-124m wsam] " + json.dumps(
+        {"steps": AGD_WSAM_STEPS, "losses": losses, "launches": launches}))
+    want = flash_want(cfg, 2 * AGD_WSAM_STEPS)  # two passes a step
+    want.update(adam8=0, adam8_fused=0)
+    for name, count in launches.items():
+        check(count == want[name],
+              f"wsam: {name} launched {count} times, want {want[name]}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"wsam: loss did not fall: {losses}")
+    del model, wsam
+    torch.cuda.empty_cache()
+    return {"agd_first_update_err": first_update_vs_cpu(
+                "gpt2-124m agd", cfg, seed, agd_step),
+            "wsam_first_update_err": first_update_vs_cpu(
+                "gpt2-124m wsam", cfg, seed, wsam_step)}
 
 
 # ------------------------------------------------------- 8-bit Adam
@@ -1600,30 +1852,24 @@ def main():
     model_check(args.seed, Llama, LlamaConfig.preset())
     phase("model checks")
     windows = {}
-    windows["gpt2-124m"], trainer, batch, step_ms = train(
+    windows["gpt2-124m"], trainer, batch, stats = train(
         "gpt2-124m", GPTConfig(**GPT2), adamw(3e-4), BATCH, STEPS, args.seed)
-    profile_window("gpt2-124m", trainer, batch, step_ms)
+    profile_window("gpt2-124m", trainer, batch, stats["step_ms"])
     del trainer
     torch.cuda.empty_cache()
     phase("gpt2-124m")
-    # Without remat and under "nothing" first: nothing else is held on
-    # the card in these windows, so the peaks compare.
-    for label, cfg in (("no remat", XL_NOREMAT),
-                       ("remat nothing", XL_NOTHING)):
-        windows[f"gpt2-xl {label}"], trainer, _, _ = train(
-            f"gpt2-xl {label}", cfg, adam8bit(XL_LR), XL_BATCH, XL_STEPS,
-            args.seed)
-        del trainer
-        torch.cuda.empty_cache()
-    windows["gpt2-xl"], trainer, batch, step_ms = train(
-        "gpt2-xl", XL, adam8bit(XL_LR), XL_BATCH, XL_STEPS, args.seed)
-    profile_window("gpt2-xl", trainer, batch, step_ms)
+    remat_rounds("gpt2-xl", XL, XL_POLICIES, XL_LR, XL_BATCH, SEQ,
+                 args.seed, windows)
+    # The flagship as bench.py trains it (remat "dots"), then the
+    # optax-style loop on the same trainer.
+    windows["gpt2-xl"], trainer, batch, _ = train(
+        "gpt2-xl", XL, adam8bit(XL_LR), XL_BATCH, REMAT_STEPS, args.seed)
     windows["gpt2-xl unfused"] = train_unfused(trainer, batch,
                                                XL_UNFUSED_STEPS)
     opt = trainer.state["opt"]
     del trainer
     torch.cuda.empty_cache()
-    phase("gpt2-xl (no remat, remat nothing, remat dots)")
+    phase("gpt2-xl remat rounds (" + ", ".join(XL_POLICIES) + ")")
     adam8_times = time_adam8(opt, args.seed)
     for name in ("adam8", "adam8_fused"):
         errs[name] = max(errs[name], adam8_times[name]["max_abs_err"])
@@ -1631,25 +1877,24 @@ def main():
     del opt
     torch.cuda.empty_cache()
     phase("8-bit Adam timing")
-    for b, seq, steps in LLAMA_RUNS:
+    optimizer_offload(args.seed, windows)
+    phase("gpt2-xl optimizer offload")
+    b, seq, _ = LLAMA_RUNS[0]
+    remat_rounds(f"llama B{b} S{seq}", LlamaConfig.preset(seq),
+                 LLAMA_POLICIES, LLAMA_LR, b, seq, args.seed, windows,
+                 model_cls=Llama)
+    phase(f"llama B{b} S{seq} remat rounds (" + ", ".join(LLAMA_POLICIES)
+          + ")")
+    for b, seq, steps in LLAMA_RUNS[1:]:
         label = f"llama B{b} S{seq}"
-        windows[label], trainer, batch, step_ms = train(
+        windows[label], trainer, _, _ = train(
             label, LlamaConfig.preset(seq), adam8bit(LLAMA_LR), b, steps,
             args.seed, model_cls=Llama, seq=seq)
-        if seq == 2048:
-            profile_window(label, trainer, batch, step_ms)
         del trainer
         torch.cuda.empty_cache()
         phase(label)
-    # What remat "dots" costs the preset: the same window without it.
-    b, seq, steps = LLAMA_RUNS[0]
-    label = f"llama B{b} S{seq} no remat"
-    windows[label], trainer, _, _ = train(
-        label, dataclasses.replace(LlamaConfig.preset(seq), remat=False),
-        adam8bit(LLAMA_LR), b, steps, args.seed, model_cls=Llama, seq=seq)
-    del trainer
-    torch.cuda.empty_cache()
-    phase(label)
+    agd_and_wsam(args.seed, windows)
+    phase("gpt2-124m agd and wsam")
     checkpoint_phases(args.seed, windows)
     phase("checkpoint")
     log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")

@@ -10,14 +10,20 @@ over live modules: forward, backward, optimizer update.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 import torch
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.models.convert import materialize_adam_state
+from dlrover_tpu_torch.optim.base import bind
+from dlrover_tpu_torch.optim.offload import OffloadOptimizer
+
+# The JAX package's auto_accelerate arguments that come with the
+# multi-device slice of the port (its mesh and strategy search).
+_MULTI_DEVICE = ("devices", "profile", "profile_steps", "allow_tensor",
+                 "registry", "search_top_k")
 
 
 @dataclass(frozen=True)
@@ -145,18 +151,38 @@ def auto_accelerate(
     spec: Any = "auto",
     device: DeviceLike = None,
     grad_accum: int = 1,
+    offload_optimizer: bool = False,
+    precision: str = "bf16",
+    **later,
 ) -> AccelerateResult:
     """Place the model, bind the optimizer, build the train step.
 
     ``optimizer`` is unbound (a ``params -> torch.optim.Optimizer``
     factory such as ``dlrover_tpu_torch.optim.adamw(lr)``, the analog of
     an optax transformation) or an optimizer already bound to
-    ``module``'s parameters. A factory whose ``takes_named_parameters``
-    is true (``adam8bit``, whose state follows the JAX params tree by
-    name) is given ``module.named_parameters()``. ``device`` defaults to
+    ``module``'s parameters (``optim.base.bind``). ``device`` defaults to
     this worker's card and raises without CUDA; the CPU runs only when
-    named.
+    named. ``offload_optimizer=True`` keeps the optimizer's big state
+    leaves in host memory between steps (``optim/offload.py``).
+    ``precision="int8"`` and the JAX package's other arguments
+    (``devices``, ``profile``, ...) raise, naming the slice that brings
+    them.
     """
+    for name in later:
+        if name not in _MULTI_DEVICE:
+            # rng too: a port model is initialized where it is built.
+            raise TypeError(f"auto_accelerate() got an unexpected keyword "
+                            f"argument {name!r}")
+        raise NotImplementedError(
+            f"auto_accelerate({name}=...) comes with the multi-device "
+            "ParallelSpec slice of the port (ROADMAP queue 1, item 2)")
+    if precision == "int8":
+        raise NotImplementedError(
+            'precision="int8" comes with the int8 matmul slice of the port '
+            "(ROADMAP queue 1, item 9)")
+    if precision != "bf16":
+        raise ValueError(f"precision must be 'bf16' or 'int8', got "
+                         f"{precision!r}")
     dev = resolve_device(device)
     spec = _one_device_spec(spec)
     if sample_batch.shape[0] % grad_accum:
@@ -165,19 +191,14 @@ def auto_accelerate(
             f"{grad_accum}"
         )
     module = module.to(dev)
-    opt: Optional[torch.optim.Optimizer] = optimizer
-    if getattr(optimizer, "takes_named_parameters", False):
-        opt = optimizer(module.named_parameters())
-    elif not isinstance(optimizer, torch.optim.Optimizer) and not hasattr(
-            optimizer, "update_and_apply"):
-        opt = optimizer(module.parameters())
-    # Torch Adam builds its state at its first step; build it now, the
-    # same zeros, so the train state has its layout from step 0.
-    materialize_adam_state(opt)
+    opt = bind(optimizer, module.named_parameters())
+    if offload_optimizer:
+        opt = OffloadOptimizer(opt, module.named_parameters())
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
-    logger.info("auto_accelerate: %.1fM params on %s, %s",
-                sum(p.numel() for p in module.parameters()) / 1e6, dev, spec)
+    logger.info("auto_accelerate: %.1fM params on %s, %s%s",
+                sum(p.numel() for p in module.parameters()) / 1e6, dev, spec,
+                ", optimizer state offloaded" if offload_optimizer else "")
     return AccelerateResult(
         spec=spec, device=dev, state=state,
         train_step=make_train_step(module, loss, grad_accum=grad_accum),

@@ -295,7 +295,10 @@ class StateLeaf(NamedTuple):
     JAX shape and dtype, and the port's tensors that hold it, in layer
     order (one, or one per layer of a stacked leaf). A host scalar (the
     loop's ``step``, AdamW's ``count``) has no tensor: ``value`` is its
-    int32 value and ``assign`` sets it."""
+    int32 value and ``assign`` sets it. An optimizer leaf that mirrors a
+    params leaf (a master, a moment) names it in ``param_path`` (a
+    ``jax_leaves`` key): its members belong to that leaf's parameters, in
+    order."""
 
     path: str
     shape: Tuple[int, ...]
@@ -303,6 +306,7 @@ class StateLeaf(NamedTuple):
     members: Tuple[torch.Tensor, ...] = ()
     value: Optional[int] = None
     assign: Optional[Callable[[int], None]] = None
+    param_path: Optional[str] = None
 
 
 def keystr(prefix: str, path: str) -> str:
@@ -360,6 +364,62 @@ def _set_adam_count(opt: torch.optim.Optimizer, count: int):
         state["step"].fill_(float(count))
 
 
+def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
+                groups: Dict[str, JaxLeaf], order: List[str]
+                ) -> List[StateLeaf]:
+    """The leaves of a bound optimizer's state under ``prefix``, over
+    ``params`` (the tensors it updates, by name)."""
+    # The wrappers import this module's callers; import them here.
+    from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
+    from dlrover_tpu_torch.optim.offload import OffloadOptimizer
+
+    leaves: List[StateLeaf] = []
+    if isinstance(opt, OffloadOptimizer):
+        # JAX's offload keeps its inner transform's state as it is.
+        return _opt_leaves(opt.inner, prefix, params, groups, order)
+    if isinstance(opt, Bf16MasterOptimizer):
+        # Bf16MasterState(master, inner).
+        for path in order:
+            members = tuple(opt.master[n] for n in groups[path].names)
+            leaves.append(StateLeaf(keystr(f"{prefix}.master", path),
+                                    groups[path].shape, members[0].dtype,
+                                    members, param_path=path))
+        return leaves + _opt_leaves(opt.inner, f"{prefix}.inner", opt.master,
+                                    groups, order)
+    if isinstance(opt, Adam8bitOptimizer):
+        st = opt.state
+        leaves.append(StateLeaf(f"{prefix}.step", (), st.step.dtype,
+                                (st.step,)))
+        for moment in ("m", "v"):
+            tree = getattr(st, moment)
+            for path in _in_jax_order(tree):
+                for field in ("q", "scale"):
+                    t = getattr(tree[path], field)
+                    leaves.append(StateLeaf(
+                        keystr(f"{prefix}.{moment}", path) + f".{field}",
+                        tuple(t.shape), t.dtype, (t,)))
+    elif _plain_adam(opt):
+        materialize_adam_state(opt)
+        leaves.append(StateLeaf(
+            f"{prefix}[0].count", (), torch.int32,
+            value=_adam_count(opt, params),
+            assign=lambda v: _set_adam_count(opt, v)))
+        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            for path in order:
+                members = tuple(opt.state[params[n]][key]
+                                for n in groups[path].names)
+                leaves.append(StateLeaf(
+                    keystr(f"{prefix}[0].{moment}", path), groups[path].shape,
+                    members[0].dtype, members, param_path=path))
+    else:
+        raise TypeError(
+            f"no JAX train-state layout for optimizer {type(opt).__name__}; "
+            "the port lays out adam8bit, torch Adam/AdamW without amsgrad, "
+            "capturable or fused, and bf16_master_weights and offload "
+            "around them")
+    return leaves
+
+
 def train_state_leaves(state, stacked: bool = True,
                        groups: Optional[Dict[str, JaxLeaf]] = None
                        ) -> List[StateLeaf]:
@@ -367,7 +427,10 @@ def train_state_leaves(state, stacked: bool = True,
     order ``jax.tree_util.tree_flatten_with_path`` gives them:
     ``['opt']...`` (optax ``adamw``: ``['opt'][0].count``, ``.mu[...]``,
     ``.nu[...]``; ``adam8bit``: ``['opt'].step`` and ``.m[...]``/
-    ``.v[...]`` with ``.q`` and ``.scale``), ``['params'][...]``, then
+    ``.v[...]`` with ``.q`` and ``.scale``; ``bf16_master_weights``:
+    ``['opt'].master[...]``, then its inner state under
+    ``['opt'].inner``; ``offload``: its inner state as it is),
+    ``['params'][...]``, then
     ``['step']``. A stacked leaf lists its layers' tensors; nothing is
     copied. Torch ``Adam``/``AdamW`` state is materialized first
     (``materialize_adam_state``). ``groups``: ``jax_leaves`` of the
@@ -377,37 +440,7 @@ def train_state_leaves(state, stacked: bool = True,
         groups = jax_leaves(((n, tuple(p.shape)) for n, p in params.items()),
                             stacked=stacked)
     order = _in_jax_order(groups)
-    leaves: List[StateLeaf] = []
-    if isinstance(opt, Adam8bitOptimizer):
-        st = opt.state
-        leaves.append(StateLeaf("['opt'].step", (), st.step.dtype,
-                                (st.step,)))
-        for moment in ("m", "v"):
-            tree = getattr(st, moment)
-            for path in _in_jax_order(tree):
-                for field in ("q", "scale"):
-                    t = getattr(tree[path], field)
-                    leaves.append(StateLeaf(
-                        keystr(f"['opt'].{moment}", path) + f".{field}",
-                        tuple(t.shape), t.dtype, (t,)))
-    elif _plain_adam(opt):
-        materialize_adam_state(opt)
-        leaves.append(StateLeaf(
-            "['opt'][0].count", (), torch.int32,
-            value=_adam_count(opt, params),
-            assign=lambda v: _set_adam_count(opt, v)))
-        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            for path in order:
-                members = tuple(opt.state[params[n]][key]
-                                for n in groups[path].names)
-                leaves.append(StateLeaf(
-                    keystr(f"['opt'][0].{moment}", path), groups[path].shape,
-                    members[0].dtype, members))
-    else:
-        raise TypeError(
-            f"no JAX train-state layout for optimizer {type(opt).__name__}; "
-            "the port lays out adam8bit and torch Adam/AdamW without "
-            "amsgrad, capturable or fused")
+    leaves = _opt_leaves(opt, "['opt']", params, groups, order)
     for path in order:
         members = tuple(params[n] for n in groups[path].names)
         leaves.append(StateLeaf(keystr("['params']", path),

@@ -20,10 +20,10 @@ Same config, same parameters and the same numerics as the JAX model:
 ``attn_impl="pallas"`` runs the hand-written flash-attention kernels
 (``ops/attention.py``), ``"xla"`` the plain einsum softmax. ``remat``
 checkpoints each block under ``remat_policy`` (``models/remat.py``:
-"nothing", "dots", "dots_lite"; the block names ``attn_out`` and
+"nothing", "dots", "dots_lite", "offload"; every matrix product goes
+through ``remat.product`` and the block names ``attn_out`` and
 ``ffn_act`` where JAX does). Dense blocks only: MoE, pipeline stages,
-int8 MLP, ``remat_policy="offload"`` and ring / Ulysses attention raise
-``NotImplementedError``.
+int8 MLP and ring / Ulysses attention raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -36,9 +36,10 @@ from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.models.remat import (
+    Remat,
     check_policy,
     checkpoint_name,
-    run_block,
+    product,
 )
 
 
@@ -162,7 +163,10 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x = x.to(self.dtype)
+        # x @ kernel as matmul folds it: one mm over the flattened rows.
+        y = product(x.reshape(-1, x.shape[-1]), self.kernel.to(self.dtype))
+        y = y.view(*x.shape[:-1], y.shape[-1])
         if self.bias is None:
             return y
         return y + self.bias.to(self.dtype)
@@ -206,13 +210,18 @@ def _attention(q, k, v, cfg: GPTConfig):
             q, k, v, causal=True,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
+    # The einsums "bqhd,bkhd->bhqk" and "bhqk,bkhd->bqhd" as the two
+    # batched products remat "dots" keeps.
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    s = q.shape[1]
+    b, s, h, d = q.shape
+    heads = lambda t: t.transpose(1, 2).reshape(b * h, s, d)  # noqa: E731
+    kt = k.permute(0, 2, 3, 1).reshape(b * h, d, s)
+    logits = product(heads(q), kt).view(b, h, s, s) * scale
     mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
     logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = product(probs.reshape(b * h, s, s), heads(v))
+    return out.view(b, h, s, d).transpose(1, 2)
 
 
 class Block(nn.Module):
@@ -270,6 +279,7 @@ class GPT(nn.Module):
             Block(cfg, device) for _ in range(cfg.num_layers)
         )
         self.ln_f = LayerNorm(cfg.d_model, cfg, device)
+        self.remat = Remat(cfg)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
@@ -286,9 +296,7 @@ class GPT(nn.Module):
         cfg = self.cfg
         s = tokens.shape[1]
         x = self.wte(tokens).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)
-        for block in self.blocks:
-            x = run_block(block, x, cfg)
-        x = self.ln_f(x)
+        x = self.ln_f(self.remat.run(self.blocks, x))
         # Tied output head: logits via the embedding table, in dtype.
         return x @ self.wte.weight.to(cfg.dtype).t()
 

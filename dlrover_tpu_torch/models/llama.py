@@ -21,8 +21,8 @@ config, parameters and numerics:
 ``attn_impl="pallas"`` runs the hand-written flash kernels (head_dim 128
 in the presets), ``"xla"`` the einsum softmax; ``remat`` checkpoints each
 layer under ``remat_policy`` (``models/remat.py``). MoE, pipeline stages,
-int8 MLP, ``remat_policy="offload"`` and ring / Ulysses attention raise
-``NotImplementedError``, as in the port's GPT.
+int8 MLP and ring / Ulysses attention raise ``NotImplementedError``, as
+in the port's GPT.
 """
 
 import dataclasses
@@ -39,7 +39,7 @@ from dlrover_tpu_torch.models.gpt import (  # shared attention + loss
     _check_supported,
     loss_fn,
 )
-from dlrover_tpu_torch.models.remat import checkpoint_name, run_block
+from dlrover_tpu_torch.models.remat import Remat, checkpoint_name
 
 __all__ = ["LlamaConfig", "Llama", "LlamaBlock", "RMSNorm", "rope",
            "loss_fn"]
@@ -242,6 +242,7 @@ class Llama(nn.Module):
             LlamaBlock(cfg, device) for _ in range(cfg.num_layers)
         )
         self.final_norm = RMSNorm(cfg.d_model, cfg, device)
+        self.remat = Remat(cfg)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, device,
                              use_bias=False)
         if generator is None:
@@ -258,6 +259,5 @@ class Llama(nn.Module):
     def forward(self, tokens):
         cfg = self.cfg
         x = self.embed(tokens).to(cfg.dtype)
-        for layer in self.layers:
-            x = run_block(layer, x, cfg)
+        x = self.remat.run(self.layers, x)
         return self.lm_head(self.final_norm(x))

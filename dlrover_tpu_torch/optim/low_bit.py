@@ -308,7 +308,10 @@ class _Table:
     every member. Built once; ``point`` refreshes the member pointers
     each step with one small host-to-device copy, and skips it when they
     have not moved (gradients are new tensors every step, but the caching
-    allocator tends to put them where they were)."""
+    allocator tends to put them where they were). It holds the state's
+    pointers, not its tensors: its users build it again when the state's
+    storage moves (``_state_key``), as it does each step under
+    ``offload``, whose device copies must be freed after the update."""
 
     def __init__(self, leaves, dtype: torch.dtype, dev: torch.device,
                  names=(), out: Optional[Mapping[str, torch.Tensor]] = None):
@@ -323,7 +326,6 @@ class _Table:
         self.names = [(ns, tuple(shape))
                       for ns, (shape, *_) in zip(names, leaves)]
         self.n = []  # values of each member
-        self.state = []  # keeps the state's tensors referenced
         specs = []
         for shape, members, qm, qv in leaves:
             members = _members(members, shape)
@@ -349,7 +351,6 @@ class _Table:
                         f"adam8bit state {tuple(t.shape)} {t.dtype} does "
                         f"not match a leaf {shape} of {row.nblocks} blocks "
                         f"(contiguous, 16-byte aligned, on {dev})")
-            self.state.append((qm, qv))
             table.append(list(row) + [qm.q.data_ptr(), qm.scale.data_ptr(),
                                       qv.q.data_ptr(), qv.scale.data_ptr()])
         self.nblocks = self.rows[-1].block0 + self.rows[-1].nblocks

@@ -164,14 +164,17 @@ class _Plan:
                 self.scalars.append((i, offset))
             offset += _aligned(nbytes)
         self.used = offset
-        devices = {m.device for leaf in leaves for m in leaf.members}
-        if len(devices) > 1:
-            raise ValueError(f"the train state spans devices {devices}")
-        self.device = devices.pop() if devices else torch.device("cpu")
-        # Member indices by dtype: one foreach copy each.
-        self.groups: Dict[torch.dtype, List[int]] = {}
-        for j, (_, _, dtype, _) in enumerate(self.spans):
-            self.groups.setdefault(dtype, []).append(j)
+        # The state's card; leaves an offloaded optimizer keeps in host
+        # memory between steps may lie beside it on the CPU.
+        members = [m for leaf in leaves for m in leaf.members]
+        cards = {m.device for m in members if m.device.type != "cpu"}
+        if len(cards) > 1:
+            raise ValueError(f"the train state spans devices {cards}")
+        self.device = cards.pop() if cards else torch.device("cpu")
+        # Member indices by dtype and place: one foreach copy each.
+        self.groups: Dict[tuple, List[int]] = {}
+        for j, ((_, _, dtype, _), m) in enumerate(zip(self.spans, members)):
+            self.groups.setdefault((dtype, m.device.type), []).append(j)
         self._stage: Optional[torch.Tensor] = None
         self._stage_views: List[torch.Tensor] = []
 
@@ -208,12 +211,18 @@ def _members(leaves: List[StateLeaf]) -> List[torch.Tensor]:
 def _copy_groups(plan: _Plan, dst: List[torch.Tensor],
                  src: List[torch.Tensor]):
     """``dst[i].copy_(src[i])`` for every member, one foreach call a
-    dtype (a foreach copy takes its fast path only within one dtype);
-    outside autograd, as the members include the parameters."""
+    dtype and place (a foreach copy takes its fast path only within one
+    dtype and device); a member in host memory beside a state on the card
+    is copied on its own, in stream order; outside autograd, as the
+    members include the parameters."""
     with torch.no_grad():
         for idx in plan.groups.values():
-            torch._foreach_copy_([dst[i] for i in idx],
-                                 [src[i] for i in idx])
+            d, s = [dst[i] for i in idx], [src[i] for i in idx]
+            if d[0].device == s[0].device:
+                torch._foreach_copy_(d, s)
+                continue
+            for a, b in zip(d, s):
+                a.copy_(b, non_blocking=True)
 
 
 class CheckpointEngine:

@@ -18,6 +18,10 @@ before the next step is dispatched) and every ``persist_every`` steps
 persisted to disk (``StorageType.DISK``); ``fit`` resumes from the
 newest snapshot, memory first, unless given ``start_step``.
 
+``**accel_kwargs`` go to ``auto_accelerate``, as in the JAX trainer:
+``offload_optimizer=True`` keeps the optimizer's big state leaves in
+host memory between steps; the others raise there, naming their slice.
+
 Pieces that need modules of later slices raise ``NotImplementedError``
 (ROADMAP queue 1): a rescale engine, master reporting (a job with a
 master), chaos sites (a fault plan in the environment), the profiler's
@@ -123,6 +127,7 @@ class Trainer:
         callbacks: Sequence[TrainerCallback] = (),
         lr_schedule: Optional[Callable[[int], float]] = None,
         device: DeviceLike = None,
+        **accel_kwargs,
     ):
         from dlrover_tpu_torch.accel import auto_accelerate
 
@@ -134,7 +139,7 @@ class Trainer:
             raise _later("chaos sites", "chaos and observability")
         self._result = auto_accelerate(
             model, optimizer, sample_batch, loss, spec=spec,
-            device=device, grad_accum=grad_accum,
+            device=device, grad_accum=grad_accum, **accel_kwargs,
         )
         self.state = self._result.state
         self._loss = loss

@@ -1,7 +1,9 @@
 """Step statistics and MFU for the port — the part of
 ``dlrover_tpu/utils/profiler.py`` the trainer uses: the device's peak
-FLOP/s, ``StepStats`` and ``PhaseBreakdown``. Trace capture and module
-cost analysis come with the observability slice.
+FLOP/s, ``StepStats`` and ``PhaseBreakdown``; and ``CopyClock``, which
+times host-device copies ("offload" remat and the offloaded optimizer).
+Trace capture and module cost analysis come with the observability
+slice.
 """
 
 from collections import deque
@@ -97,3 +99,52 @@ class PhaseBreakdown:
             self.stats[k].add(v)
         self.last = phases
         return phases
+
+
+class CopyClock:
+    """Bytes and device ms of copies, by way ("out" to the host, "in" to
+    the device), timed with a CUDA event pair each batch of copies (none
+    on the CPU: bytes only). Pairs that have ended fold into the totals
+    as new ones come, so a long run keeps only those in flight."""
+
+    WAYS = ("out", "in")
+
+    def __init__(self):
+        self._reset()
+
+    def _reset(self):
+        self._bytes = dict.fromkeys(self.WAYS, 0)
+        self._ms = dict.fromkeys(self.WAYS, 0.0)
+        self._pending: deque = deque()
+
+    def events(self, device: torch.device):
+        """A (start, end) event pair for a batch on ``device``'s card, or
+        (None, None) on the CPU."""
+        if device.type != "cuda":
+            return None, None
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def add(self, way: str, nbytes: int, start=None, end=None):
+        self._bytes[way] += nbytes
+        if start is not None:
+            self._pending.append((way, start, end))
+        self._fold(block=False)
+
+    def _fold(self, block: bool):
+        while self._pending and (block or self._pending[0][2].query()):
+            way, start, end = self._pending.popleft()
+            end.synchronize()
+            self._ms[way] += start.elapsed_time(end)
+
+    def take(self) -> Dict[str, float]:
+        """``{"out_bytes", "out_ms", "in_bytes", "in_ms"}``: the bytes
+        copied each way and the copies' device ms (0 on the CPU) since the
+        last call (waits for the copies in flight), then starts again."""
+        self._fold(block=True)
+        out = {}
+        for way in self.WAYS:
+            out[f"{way}_bytes"] = self._bytes[way]
+            out[f"{way}_ms"] = self._ms[way]
+        self._reset()
+        return out

@@ -180,7 +180,6 @@ def test_init_is_seeded_by_the_generator():
 
 @pytest.mark.parametrize("change", [
     dict(num_experts=4), dict(pipeline_stages=2),
-    dict(remat=True, remat_policy="offload"),
     dict(mlp_precision="int8"), dict(attn_impl="ring"),
     dict(attn_impl="ulysses"),
 ])

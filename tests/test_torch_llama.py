@@ -276,7 +276,7 @@ def test_init_is_seeded_by_the_generator():
 @pytest.mark.parametrize("change", [
     dict(num_experts=4), dict(pipeline_stages=2),
     dict(mlp_precision="int8"), dict(attn_impl="ring"),
-    dict(attn_impl="ulysses"), dict(remat=True, remat_policy="offload"),
+    dict(attn_impl="ulysses"),
 ])
 def test_later_slices_raise(change):
     cfg = dataclasses.replace(LlamaConfig.tiny(), **change)
