@@ -36,7 +36,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 5. remat on GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024, the
    port's fused ``adam8bit(2e-4)``, as bench.py trains it): windows of 4
    steps (after 2 warm-up) without remat and under "nothing", "dots",
-   "dots_lite" and "offload", in turns, three rounds of alternating order, the last round's traced
+   "dots_lite" and "offload", in turns, two rounds of alternating order, the last round's traced
    (busy share, of the kernels and with the copies): each policy's
    median step ms, tokens/s, MFU, peak memory, busy share, and
    "offload"'s GB and GB/s each way a step; every window's losses equal
@@ -60,7 +60,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    "dots". Then AGD (through ``Trainer.fit``) and WeightedSAM (its own
    step; the flash kernels twice a step) on GPT-2 124M: the loss falls,
    and each first update equals the same update on the CPU from the
-   card's gradients within 1e-6;
+   card's gradients within 1e-6. Then each mesh branch of
+   ``accelerate_on_mesh`` on an NCCL process group of one rank, on a mesh
+   that has its axis (size 1), beside the one-device path of the same
+   seed and batch: GPT-2 xl ("dots", ``adam8bit``, 4 x 1024) under fsdp
+   (FSDP2) and data, the LLaMA preset (4 x 2048, "dots") under tensor
+   (its kernels DTensors, the head vocab-parallel): 2 warm-up steps, a
+   window of 4 and 3 traced, each window's losses equal the one-device
+   path's bit for bit (fsdp's parameters too), the kernels' launches as
+   many, and a sharded snapshot of the fsdp run persisted and restored
+   into a fresh one-device trainer bit for bit, leaf by leaf; step ms,
+   peak GiB and busy share of each beside the one-device path's
+   (``[mesh]`` lines);
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -100,6 +111,7 @@ import os
 import resource
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -110,6 +122,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.accel import (
+    ParallelSpec,
+    accelerate_on_mesh,
+    auto_accelerate,
+    create_mesh,
+    sharding,
+)
 from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
 from dlrover_tpu_torch.common import checksum, ckpt_persist, env_utils
 from dlrover_tpu_torch.common.comm import clear_job_sockets
@@ -127,7 +146,11 @@ from dlrover_tpu_torch.optim import (
     bf16_master_weights,
 )
 from dlrover_tpu_torch.optim import low_bit as lowbit
-from dlrover_tpu_torch.train.checkpoint import StorageType
+from dlrover_tpu_torch.train.checkpoint import (
+    FlashCheckpointer,
+    ShardedCheckpointer,
+    StorageType,
+)
 from dlrover_tpu_torch.train.trainer import (
     LoggingCallback,
     Trainer,
@@ -185,7 +208,7 @@ XL_BATCH, XL_UNFUSED_STEPS, XL_LR = 4, 2, 2e-4
 # windows spreads over all of them.
 XL_POLICIES = ("none", "nothing", "dots", "dots_lite", "offload")
 LLAMA_POLICIES = ("none", "nothing", "dots", "offload")
-REMAT_ROUNDS, REMAT_STEPS = 3, 4
+REMAT_ROUNDS, REMAT_STEPS = 2, 4
 # The optimizer's state in host memory: GPT-2 xl without remat.
 OPT_OFFLOAD_STEPS = 3
 # AGD and WeightedSAM on GPT-2 124M: steps on the card, and the largest
@@ -1719,6 +1742,180 @@ def crash_drill(seed, root):
     return drill
 
 
+# ------------------------------------------------------- the mesh branches
+
+# Each branch's window on its one-rank mesh, after WARMUP steps; then 3
+# traced steps (profile_window), as on the one-device path beside it.
+MESH_STEPS = 4
+
+
+class MeshLoop:
+    """``res.train_step`` on one batch already on the card, with the
+    surface ``profile_window`` drives (``state``, ``fit``); the losses
+    stay on the card until read."""
+
+    def __init__(self, res, batch):
+        self.res, self.state = res, res.state
+        self.batch = torch.from_numpy(res.local_batch(batch)).cuda()
+        self.losses = []
+
+    def fit(self, batches, steps):
+        for _ in batches:
+            _, metrics = self.res.train_step(self.state, self.batch)
+            self.losses.append(metrics["loss"])
+        return {"step": self.state["step"]}
+
+
+def mesh_window(label, res, batch, cfg, base):
+    """WARMUP steps, a timed window of MESH_STEPS (each flash kernel of
+    the model's head_dim once a layer a step, the forward twice under
+    remat, the fused 8-bit Adam once a step), then 3 traced steps. The
+    peak is the window's above ``base`` (the bytes allocated before the
+    branch was built: the reference kept beside it)."""
+    loop = MeshLoop(res, batch)
+    loop.fit(range(WARMUP), WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop.losses = []
+    reset_counts()
+    t0 = time.perf_counter()
+    loop.fit(range(MESH_STEPS), MESH_STEPS)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in loop.losses]
+    want = flash_want(cfg, MESH_STEPS)
+    want.update(adam8=0, adam8_fused=MESH_STEPS)
+    for name, count in launches.items():
+        check(count == want[name],
+              f"{label}: {name} launched {count} times, want {want[name]}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    stats = {"step_ms": window_s / MESH_STEPS * 1e3,
+             "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+             / 2**30, "losses": losses, "launches": launches}
+    prof = profile_window(label, loop, batch, stats["step_ms"])
+    stats["busy_share"] = prof["kernel_busy_share"]
+    stats["kernel_ms"] = prof["kernel_ms_per_step"]
+    log(f"[mesh {label}] " + json.dumps(stats))
+    return stats, loop
+
+
+def mesh_phases(seed, windows):
+    """Each axis's branch of ``accelerate_on_mesh`` on an NCCL world of
+    one rank, on a mesh that has the axis (size 1): GPT-2 xl (remat
+    "dots", adam8bit, 4 x 1024) under fsdp, then data, and the LLaMA
+    preset (4 x 2048) under tensor, each beside the one-device path of
+    the same seed and batch. Each window's losses equal the one-device
+    path's bit for bit (so do fsdp's parameters); the kernels launch as
+    often; a sharded snapshot of the fsdp run, persisted, restores into
+    a fresh one-device trainer bit for bit, leaf by leaf. Records each
+    window's step ms, peak GiB and busy share beside the one-device
+    path's."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launch = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                  WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(launch)
+    dev = torch.device("cuda", 0)
+    root = os.path.join("build", f"mesh-ckpt-{os.getpid()}")
+    job = f"mesh-{os.getpid()}-{uuid.uuid4().hex[:6]}"
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    summary = {}
+
+    def model(cfg, model_cls, s):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        return model_cls(cfg, device="cuda", generator=gen)
+
+    def branch(label, cfg, model_cls, lr, batch, axis):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        if axis is None:
+            res = auto_accelerate(model(cfg, model_cls, seed), adam8bit(lr),
+                                  batch, token_loss, spec=ParallelSpec(),
+                                  device=dev)
+        else:
+            mesh = create_mesh([(axis, 1)], dev)
+            check(dist.get_backend() == "nccl", "the mesh is not on NCCL")
+            res = accelerate_on_mesh(model(cfg, model_cls, seed),
+                                     adam8bit(lr), batch, token_loss, mesh,
+                                     device=dev)
+            check(res.mesh is mesh, f"{label}: not on the mesh")
+        name = f"{label} {axis or 'one device'}"
+        stats, loop = mesh_window(name, res, batch, cfg, base)
+        windows[f"mesh {name}"] = stats["launches"]
+        summary[name] = {k: stats[k] for k in ("step_ms", "peak_mem_gib",
+                                                "busy_share", "kernel_ms")}
+        return stats, res
+
+    try:
+        batch = np.random.default_rng(seed).integers(
+            0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
+        one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, None)
+        got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "fsdp")
+        check(got["losses"] == one["losses"],
+              f"fsdp losses {got['losses']} differ from one device's "
+              f"{one['losses']}")
+        bad = [n for n, p in res.state["params"].items()
+               if not torch.equal(sharding.local(p),
+                                  one_res.state["params"][n])]
+        check(not bad, f"fsdp parameters differ from one device's: {bad}")
+        # The fsdp run's sharded snapshot, persisted, into a fresh
+        # one-device trainer of another seed.
+        step = res.state["step"]
+        ck = ShardedCheckpointer(root, mesh_axes={"fsdp": 1})
+        check(ck.save_checkpoint(step, res.state, StorageType.DISK),
+              "fsdp: the sharded save failed")
+        ck.close()
+        del res
+        torch.cuda.empty_cache()
+        fresh = auto_accelerate(model(XL, GPT, seed + 1), adam8bit(XL_LR),
+                                batch, token_loss, spec=ParallelSpec(),
+                                device=dev)
+        ck = FlashCheckpointer(root)
+        restored = ck.load_checkpoint(fresh.state)[0]
+        ck.close()
+        check(restored == step, f"restored step {restored}, want {step}")
+        bad = differing(state_bytes(fresh), state_bytes(one_res))
+        check(not bad, f"the fsdp snapshot restored with leaves {bad} "
+              "differing")
+        log(f"[mesh gpt2-xl] fsdp snapshot of step {step}: every leaf "
+            "restored bit for bit on one device")
+        del fresh
+        torch.cuda.empty_cache()
+        got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "data")
+        check(got["losses"] == one["losses"],
+              f"data losses {got['losses']} differ from one device's "
+              f"{one['losses']}")
+        del one_res, res
+        torch.cuda.empty_cache()
+        b, seq = LLAMA_RUNS[0][:2]
+        cfg = LlamaConfig.preset(seq)
+        batch = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (b, seq), dtype=np.int64)
+        one, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
+                          None)
+        del res
+        torch.cuda.empty_cache()
+        got, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
+                          "tensor")
+        check(got["losses"] == one["losses"],
+              f"tensor losses {got['losses']} differ from one device's "
+              f"{one['losses']}")
+        del res
+        torch.cuda.empty_cache()
+        log("[mesh] " + json.dumps(summary))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in launch:
+            os.environ.pop(name, None)
+        unlink_segments(job)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def checkpoint_phases(seed, windows):
     """Phases (a)-(c) with the agent's saver running in this process; adds
     each phase's kernel launches to ``windows``; cleans up after itself."""
@@ -1895,6 +2092,8 @@ def main():
         phase(label)
     agd_and_wsam(args.seed, windows)
     phase("gpt2-124m agd and wsam")
+    mesh_phases(args.seed, windows)
+    phase("mesh branches on an NCCL world of one (fsdp, data, tensor)")
     checkpoint_phases(args.seed, windows)
     phase("checkpoint")
     log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")

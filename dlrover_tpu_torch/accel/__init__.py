@@ -1,12 +1,17 @@
-"""Acceleration layer of the port (counterpart of ``dlrover_tpu/accel``).
-
-One device in this slice; DDP, FSDP2 and tensor parallelism come with
-the multi-device slice.
-"""
+"""Acceleration layer of the port (counterpart of ``dlrover_tpu/accel``):
+``auto_accelerate`` on one device, or on a ``DeviceMesh`` of ``data``
+(gradient averaging), ``fsdp`` (FSDP2) and ``tensor`` (DTensor tensor
+parallelism) axes over several processes."""
 
 from dlrover_tpu_torch.accel.accelerate import (  # noqa: F401
     AccelerateResult,
     ParallelSpec,
+    accelerate_on_mesh,
     auto_accelerate,
     make_train_step,
+)
+from dlrover_tpu_torch.accel.mesh import (  # noqa: F401
+    AXIS_ORDER,
+    MeshConfig,
+    create_mesh,
 )

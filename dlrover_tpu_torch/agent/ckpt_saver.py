@@ -274,12 +274,14 @@ class CommonDirCheckpointSaver:
 
     def _wait_local_step(self, step: int, timeout: float) -> Dict[int, ShardMeta]:
         """Give laggard local ranks a moment to finish their memory copy of
-        `step` before declaring them stale."""
+        `step` before declaring them stale: every local rank's shard (one a
+        worker process on this node) must have published one."""
         deadline = time.monotonic() + timeout
         backoff = ExponentialBackoff(initial=0.05, max_delay=0.5)
         while True:
             metas = self._local_metas()
-            if metas and all(m.step >= step for m in metas.values()):
+            if len(metas) >= self.local_shard_num and \
+                    all(m.step >= step for m in metas.values()):
                 return metas
             if time.monotonic() >= deadline:
                 return metas

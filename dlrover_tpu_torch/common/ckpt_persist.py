@@ -62,6 +62,33 @@ class StepCorruptionError(Exception):
         self.reason = reason
 
 
+class TopologyMismatchError(Exception):
+    """A checkpoint can't be re-sliced for the restoring mesh topology:
+    the step on disk is intact, but the persisted blocks of some leaf do
+    not tile the requested template (the JAX package's error, same
+    message). Deliberately not a :class:`StepCorruptionError`: falling
+    back to an older step would silently load wrong slices, so it
+    propagates, naming both topologies."""
+
+    def __init__(self, step: int, saved_axes, restore_axes, detail: str = ""):
+        msg = (
+            f"checkpoint step {step} was saved under mesh axes "
+            f"{saved_axes or 'unknown'} but is being restored under "
+            f"{restore_axes or 'unknown'}, and the persisted blocks do "
+            "not cover the requested template"
+        )
+        if detail:
+            msg += f" ({detail})"
+        msg += (
+            "; restore with a coverable topology or re-save under the "
+            "new mesh"
+        )
+        super().__init__(msg)
+        self.step = step
+        self.saved_axes = saved_axes
+        self.restore_axes = restore_axes
+
+
 def step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"{CheckpointConstant.STEP_DIR_PREFIX}{step}")
 

@@ -2,8 +2,10 @@
 ``dlrover_tpu/common/env_utils.py`` that the ported modules use.
 
 Names, types and defaults are the JAX package's, so one launch
-environment configures both packages. Reads go to ``os.environ`` at call
-time, not import time.
+environment configures both packages. A worker's rank, world and local
+rank fall back to torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``
+and ``LOCAL_WORLD_SIZE`` when the package's names are unset. Reads go
+to ``os.environ`` at call time, not import time.
 """
 
 import os
@@ -15,16 +17,21 @@ class EnvVar:
     """One declared variable; ``get()`` returns the typed value or the
     declared default when it is unset or does not parse."""
 
-    __slots__ = ("name", "kind", "default", "doc")
+    __slots__ = ("name", "kind", "default", "doc", "fallback")
 
-    def __init__(self, name: str, kind: type, default, doc: str):
+    def __init__(self, name: str, kind: type, default, doc: str,
+                 fallback: str = ""):
         self.name = name
         self.kind = kind
         self.default = default
         self.doc = doc
+        #: torchrun's name for the same value, read when ``name`` is unset.
+        self.fallback = fallback
 
     def get(self):
         raw = os.environ.get(self.name)
+        if raw is None and self.fallback:
+            raw = os.environ.get(self.fallback)
         if raw is None:
             return self.default
         if self.kind is bool:
@@ -44,11 +51,14 @@ COORDINATOR_ADDR = EnvVar(
     "DLROVER_TPU_COORDINATOR_ADDR", str, "",
     "host:port of the process-group rendezvous, exported by the agent.")
 PROCESS_ID = EnvVar(
-    "DLROVER_TPU_PROCESS_ID", int, 0, "This worker's global rank.")
+    "DLROVER_TPU_PROCESS_ID", int, 0, "This worker's global rank.",
+    fallback="RANK")
 NUM_PROCESSES = EnvVar(
-    "DLROVER_TPU_NUM_PROCESSES", int, 1, "Total process count (world).")
+    "DLROVER_TPU_NUM_PROCESSES", int, 1, "Total process count (world).",
+    fallback="WORLD_SIZE")
 LOCAL_RANK = EnvVar(
-    "DLROVER_TPU_LOCAL_RANK", int, 0, "Worker index on this host.")
+    "DLROVER_TPU_LOCAL_RANK", int, 0, "Worker index on this host.",
+    fallback="LOCAL_RANK")
 SPAWN_TS = EnvVar(
     "DLROVER_TPU_SPAWN_TS", float, 0.0,
     "time.time() stamped by the agent at worker spawn.")
@@ -66,7 +76,8 @@ JOB_NAME = EnvVar(
 NODE_RANK = EnvVar(
     "DLROVER_TPU_NODE_RANK", int, 0, "Rendezvous rank of this node.")
 LOCAL_WORLD_SIZE = EnvVar(
-    "DLROVER_TPU_LOCAL_WORLD_SIZE", int, 1, "Worker processes per host.")
+    "DLROVER_TPU_LOCAL_WORLD_SIZE", int, 1, "Worker processes per host.",
+    fallback="LOCAL_WORLD_SIZE")
 SOCK_DIR = EnvVar(
     "DLROVER_TPU_SOCK_DIR", str, "/tmp/dlrover_tpu/sock",
     "Directory for per-job unix sockets (shm coordination).")

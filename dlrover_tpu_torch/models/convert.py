@@ -34,6 +34,7 @@ checkpoint of either package restores into the other.
 
 import re
 from typing import (
+    Any,
     Callable,
     Dict,
     Iterable,
@@ -298,7 +299,14 @@ class StateLeaf(NamedTuple):
     int32 value and ``assign`` sets it. An optimizer leaf that mirrors a
     params leaf (a master, a moment) names it in ``param_path`` (a
     ``jax_leaves`` key): its members belong to that leaf's parameters, in
-    order."""
+    order.
+
+    On a mesh a leaf is one block of this rank: ``shape`` is the block's,
+    ``index`` its region ``((start, stop), ...)`` of the leaf of
+    ``global_shape`` in the JAX leaf's global coordinates (both None for
+    the whole leaf), its members views of the local tensors, and
+    ``persist`` whether this rank is the replica that writes it;
+    ``layout`` is the ``accel.sharding.Layout`` it came from."""
 
     path: str
     shape: Tuple[int, ...]
@@ -307,6 +315,10 @@ class StateLeaf(NamedTuple):
     value: Optional[int] = None
     assign: Optional[Callable[[int], None]] = None
     param_path: Optional[str] = None
+    index: Optional[Tuple[Tuple[int, int], ...]] = None
+    global_shape: Optional[Tuple[int, ...]] = None
+    persist: bool = True
+    layout: Any = None
 
 
 def keystr(prefix: str, path: str) -> str:
@@ -370,10 +382,18 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
     """The leaves of a bound optimizer's state under ``prefix``, over
     ``params`` (the tensors it updates, by name)."""
     # The wrappers import this module's callers; import them here.
+    from dlrover_tpu_torch.accel import sharding
+    from dlrover_tpu_torch.accel.accelerate import MeshOptimizer
     from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
     from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 
     leaves: List[StateLeaf] = []
+    if isinstance(opt, MeshOptimizer):
+        # Its inner optimizer's state is whole, on every rank.
+        whole = sharding.Layout.replicated(
+            next(iter(opt.layouts.values())).mesh)
+        return [leaf._replace(layout=whole) for leaf in _opt_leaves(
+            opt.inner, prefix, opt.full, groups, order)]
     if isinstance(opt, OffloadOptimizer):
         # JAX's offload keeps its inner transform's state as it is.
         return _opt_leaves(opt.inner, prefix, params, groups, order)
@@ -410,7 +430,8 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
                                 for n in groups[path].names)
                 leaves.append(StateLeaf(
                     keystr(f"{prefix}[0].{moment}", path), groups[path].shape,
-                    members[0].dtype, members, param_path=path))
+                    members[0].dtype, members, param_path=path,
+                    layout=sharding.layout_of(params[groups[path].names[0]])))
     else:
         raise TypeError(
             f"no JAX train-state layout for optimizer {type(opt).__name__}; "
@@ -435,6 +456,8 @@ def train_state_leaves(state, stacked: bool = True,
     copied. Torch ``Adam``/``AdamW`` state is materialized first
     (``materialize_adam_state``). ``groups``: ``jax_leaves`` of the
     params, when the caller keeps it."""
+    from dlrover_tpu_torch.accel import sharding
+
     params, opt = state["params"], state["opt"]
     if groups is None:
         groups = jax_leaves(((n, tuple(p.shape)) for n, p in params.items()),
@@ -445,14 +468,47 @@ def train_state_leaves(state, stacked: bool = True,
         members = tuple(params[n] for n in groups[path].names)
         leaves.append(StateLeaf(keystr("['params']", path),
                                 groups[path].shape, members[0].dtype,
-                                members))
+                                members, layout=sharding.layout_of(members[0])))
 
     def set_step(v: int):
         state["step"] = int(v)
 
     leaves.append(StateLeaf("['step']", (), torch.int32,
                             value=int(state["step"]), assign=set_step))
-    return leaves
+    return _blocks(leaves)
+
+
+def _blocks(leaves: List[StateLeaf]) -> List[StateLeaf]:
+    """On a mesh (a leaf has a layout), each leaf as this rank's blocks:
+    a leaf without a layout is whole on every rank, and only the first
+    replica persists it; off a mesh, the leaves as they are."""
+    from dlrover_tpu_torch.accel import sharding
+
+    world = next((leaf.layout.mesh for leaf in leaves if leaf.layout), None)
+    if world is None:
+        return leaves
+    out = []
+    for leaf in leaves:
+        lay = leaf.layout or sharding.Layout.replicated(world)
+        persist = lay.replica() == 0
+        if not leaf.members:
+            out.append(leaf._replace(persist=persist, layout=lay))
+            continue
+        member = tuple(leaf.members[0].shape)  # a DTensor's: global
+        stacked = member != tuple(leaf.shape)
+        per = [sharding.blocks(m, lay, member) for m in leaf.members]
+        for k, (region, _) in enumerate(per[0]):
+            views = tuple(p[k][1] for p in per)
+            shape = tuple(views[0].shape)
+            index = global_shape = None
+            if region is not None:
+                index = (((0, len(views)),) if stacked else ()) + region
+                global_shape = tuple(leaf.shape)
+            out.append(leaf._replace(
+                shape=((len(views),) if stacked else ()) + shape,
+                members=views, index=index, global_shape=global_shape,
+                persist=persist, layout=lay))
+    return out
 
 
 def leaf_bytes(leaf: StateLeaf) -> torch.Tensor:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import tensor_parallel as tp
 from dlrover_tpu_torch.models.remat import (
     Remat,
     check_policy,
@@ -143,12 +144,21 @@ def _check_supported(cfg: GPTConfig):
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel [in, out]`` and ``bias`` (unless
     ``use_bias=False``) in ``param_dtype``; the product runs in
-    ``dtype``."""
+    ``dtype``. ``axes`` are the kernel's logical axes (the bias has the
+    last one), as the JAX model annotates them.
+
+    Under tensor parallelism (``tp``: ``("column" | "row", group)``, set
+    by ``accel.accelerate``) the kernel is a DTensor and the product
+    runs on its local shard: a column-parallel layer gives this rank's
+    output columns, a row-parallel one sums its partial products over
+    the group before the (replicated) bias."""
 
     def __init__(self, d_in: int, d_out: int, cfg, device,
-                 use_bias: bool = True):
+                 use_bias: bool = True, axes=("embed", "mlp")):
         super().__init__()
         self.dtype = cfg.dtype
+        self.axes = tuple(axes)
+        self.tp = None
         self.kernel = nn.Parameter(
             torch.empty(d_in, d_out, dtype=cfg.param_dtype, device=device)
         )
@@ -164,12 +174,19 @@ class Dense(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
+        kernel, bias = self.kernel, self.bias
+        if self.tp is not None:
+            kernel = kernel.to_local()
+            if self.tp[0] == "column" and bias is not None:
+                bias = bias.to_local()
         # x @ kernel as matmul folds it: one mm over the flattened rows.
-        y = product(x.reshape(-1, x.shape[-1]), self.kernel.to(self.dtype))
+        y = product(x.reshape(-1, x.shape[-1]), kernel.to(self.dtype))
         y = y.view(*x.shape[:-1], y.shape[-1])
-        if self.bias is None:
+        if self.tp is not None and self.tp[0] == "row":
+            y = tp.reduce(y, self.tp[1])
+        if bias is None:
             return y
-        return y + self.bias.to(self.dtype)
+        return y + bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -225,31 +242,38 @@ def _attention(q, k, v, cfg: GPTConfig):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block. Under tensor parallelism (``tp_group``
+    set by ``accel.accelerate``) it computes on this rank's ``heads``
+    of q, of k and of v (the local columns of ``qkv``, three regions)
+    and its ``mlp`` columns."""
 
     def __init__(self, cfg: GPTConfig, device):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
+        self.heads = cfg.num_heads
+        self.tp_group = None
         self.ln1 = LayerNorm(d, cfg, device)
-        self.qkv = Dense(d, 3 * d, cfg, device)
-        self.proj = Dense(d, d, cfg, device)
+        self.qkv = Dense(d, 3 * d, cfg, device, axes=("embed", "heads"))
+        self.proj = Dense(d, d, cfg, device, axes=("heads", "embed"))
         self.ln2 = LayerNorm(d, cfg, device)
-        self.up = Dense(d, cfg.ff_dim, cfg, device)
-        self.down = Dense(cfg.ff_dim, d, cfg, device)
+        self.up = Dense(d, cfg.ff_dim, cfg, device, axes=("embed", "mlp"))
+        self.down = Dense(cfg.ff_dim, d, cfg, device, axes=("mlp", "embed"))
 
     def forward(self, x):
         cfg = self.cfg
-        b, s, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
-        q, k, v = self.qkv(self.ln1(x)).split(d, dim=-1)
+        b, s, _ = x.shape
+        h, hd = self.heads, cfg.head_dim
+        y = tp.enter(self.ln1(x), self.tp_group)
+        q, k, v = self.qkv(y).split(h * hd, dim=-1)
         attn = _attention(
             q.reshape(b, s, h, hd), k.reshape(b, s, h, hd),
             v.reshape(b, s, h, hd), cfg,
-        ).reshape(b, s, d)
+        ).reshape(b, s, h * hd)
         attn = checkpoint_name(attn, "attn_out")
         x = x + self.proj(attn)
-        y = F.gelu(self.up(self.ln2(x)), approximate="tanh")
+        y = tp.enter(self.ln2(x), self.tp_group)
+        y = F.gelu(self.up(y), approximate="tanh")
         y = checkpoint_name(y, "ffn_act")
         return x + self.down(y)
 
@@ -292,6 +316,12 @@ class GPT(nn.Module):
             if isinstance(m, (Dense, LayerNorm)):
                 m.reset_parameters(generator)
 
+    def logical_axes(self):
+        """Each parameter's logical axes, as the JAX GPT annotates them
+        (``dlrover_tpu/models/gpt.py``)."""
+        return _logical_axes(self, {"wte.weight": ("vocab", "embed"),
+                                    "wpe": ("seq", "embed")})
+
     def forward(self, tokens):
         cfg = self.cfg
         s = tokens.shape[1]
@@ -301,10 +331,40 @@ class GPT(nn.Module):
         return x @ self.wte.weight.to(cfg.dtype).t()
 
 
+def _logical_axes(model: nn.Module, top, norms=(LayerNorm,)) -> dict:
+    """``{parameter name: logical axes}``: ``top`` for the parameters
+    outside the layers, a ``Dense``'s kernel axes (its bias: the last),
+    and ``("embed",)`` for a norm's."""
+    out = {}
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(module, Dense):
+            out[prefix + "kernel"] = module.axes
+            if module.bias is not None:
+                out[prefix + "bias"] = module.axes[-1:]
+        elif isinstance(module, norms):
+            for leaf, _ in module.named_parameters(recurse=False):
+                out[prefix + leaf] = ("embed",)
+    out.update(top)
+    return out
+
+
 def loss_fn(logits, tokens):
     """Next-token cross entropy; logits[B,S,V], tokens[B,S]: logsumexp
-    minus the target logit, in fp32."""
+    minus the target logit, in fp32. Logits that are a DTensor sharded
+    along the vocab (a vocab-parallel head) take the logsumexp and the
+    target logit across the shards (``models/tensor_parallel.py``)."""
+    from torch.distributed.tensor import DTensor
+
     targets = tokens[:, 1:]
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        x = logits.to_local()[:, :-1].float()
+        lo = mesh.get_local_rank() * x.shape[-1]
+        group = mesh.get_group()
+        lse = tp.vocab_parallel_lse(x, group)
+        tgt = tp.vocab_parallel_target(x, targets.long(), lo, group)
+        return torch.mean(lse - tgt)
     logits = logits[:, :-1].float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]

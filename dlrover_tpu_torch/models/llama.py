@@ -33,10 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import tensor_parallel as tp
 from dlrover_tpu_torch.models.gpt import (  # shared attention + loss
     Dense,
     _attention,
     _check_supported,
+    _logical_axes,
     loss_fn,
 )
 from dlrover_tpu_torch.models.remat import Remat, checkpoint_name
@@ -179,29 +181,39 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class LlamaBlock(nn.Module):
-    """Pre-norm decoder layer: GQA attention with RoPE, SwiGLU MLP."""
+    """Pre-norm decoder layer: GQA attention with RoPE, SwiGLU MLP. Under
+    tensor parallelism (``tp_group`` set by ``accel.accelerate``) it
+    computes on this rank's ``heads`` and ``kv_heads`` (both counts
+    split) and its ``mlp`` columns."""
 
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         kv = cfg.kv_heads * hd
         self.cfg = cfg
+        self.heads, self.kv_heads = cfg.num_heads, cfg.kv_heads
+        self.tp_group = None
         self.attn_norm = RMSNorm(d, cfg, device)
+        heads, mlp = ("embed", "heads"), ("embed", "mlp")
         self.q_proj = Dense(d, cfg.num_heads * hd, cfg, device,
-                            use_bias=False)
-        self.k_proj = Dense(d, kv, cfg, device, use_bias=False)
-        self.v_proj = Dense(d, kv, cfg, device, use_bias=False)
-        self.o_proj = Dense(d, d, cfg, device, use_bias=False)
+                            use_bias=False, axes=heads)
+        self.k_proj = Dense(d, kv, cfg, device, use_bias=False, axes=heads)
+        self.v_proj = Dense(d, kv, cfg, device, use_bias=False, axes=heads)
+        self.o_proj = Dense(d, d, cfg, device, use_bias=False,
+                            axes=("heads", "embed"))
         self.mlp_norm = RMSNorm(d, cfg, device)
-        self.gate_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False)
-        self.up_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False)
-        self.down_proj = Dense(cfg.ff_dim, d, cfg, device, use_bias=False)
+        self.gate_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False,
+                               axes=mlp)
+        self.up_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False,
+                             axes=mlp)
+        self.down_proj = Dense(cfg.ff_dim, d, cfg, device, use_bias=False,
+                               axes=("mlp", "embed"))
 
     def forward(self, x):
         cfg = self.cfg
-        b, s, d = x.shape
-        h, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        y = self.attn_norm(x)
+        b, s, _ = x.shape
+        h, kvh, hd = self.heads, self.kv_heads, cfg.head_dim
+        y = tp.enter(self.attn_norm(x), self.tp_group)
         q = self.q_proj(y).reshape(b, s, h, hd)
         k = self.k_proj(y).reshape(b, s, kvh, hd)
         v = self.v_proj(y).reshape(b, s, kvh, hd)
@@ -211,10 +223,10 @@ class LlamaBlock(nn.Module):
         if kvh != h:
             k = torch.repeat_interleave(k, h // kvh, dim=2)
             v = torch.repeat_interleave(v, h // kvh, dim=2)
-        attn = _attention(q, k, v, cfg).reshape(b, s, d)
+        attn = _attention(q, k, v, cfg).reshape(b, s, h * hd)
         attn = checkpoint_name(attn, "attn_out")
         x = x + self.o_proj(attn)
-        y = self.mlp_norm(x)
+        y = tp.enter(self.mlp_norm(x), self.tp_group)
         y = F.silu(self.gate_proj(y)) * self.up_proj(y)
         y = checkpoint_name(y, "ffn_act")
         return x + self.down_proj(y)
@@ -244,7 +256,11 @@ class Llama(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg, device)
         self.remat = Remat(cfg)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, device,
-                             use_bias=False)
+                             use_bias=False, axes=("embed", "vocab"))
+        # The tensor-parallel group's mesh when the head is vocab-parallel
+        # (set by accel.accelerate): the logits are then a DTensor
+        # sharded along the vocab.
+        self.vocab_mesh = None
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
@@ -256,8 +272,21 @@ class Llama(nn.Module):
             if isinstance(m, (Dense, RMSNorm)):
                 m.reset_parameters(generator)
 
+    def logical_axes(self):
+        """Each parameter's logical axes, as the JAX LLaMA annotates them
+        (``dlrover_tpu/models/llama.py``)."""
+        return _logical_axes(self, {"embed.weight": ("vocab", "embed")},
+                             norms=(RMSNorm,))
+
     def forward(self, tokens):
         cfg = self.cfg
         x = self.embed(tokens).to(cfg.dtype)
         x = self.remat.run(self.layers, x)
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        if self.vocab_mesh is None:
+            return self.lm_head(x)
+        from torch.distributed.tensor import DTensor, Shard
+
+        logits = self.lm_head(tp.enter(x, self.vocab_mesh.get_group()))
+        return DTensor.from_local(logits, self.vocab_mesh, [Shard(2)],
+                                  run_check=False)

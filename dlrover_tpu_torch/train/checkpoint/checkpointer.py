@@ -10,9 +10,12 @@
             ckpt.save_checkpoint(step, state, StorageType.DISK)
 
 A crash restores the last MEMORY snapshot (the agent's saver flushes it
-to disk), not just the last DISK save. With one process both classes are
-one shard, written by replica 0; several processes raise until the
-multi-device slice (ROADMAP queue 1, item 4).
+to disk), not just the last DISK save. ``FlashCheckpointer`` is one
+shard that every process holds (pure data parallel), written by the
+lowest replica; ``ShardedCheckpointer`` is one shard a process, each
+block written by its first replica, and restores under another mesh.
+A process's rank and the world come from the package's environment or
+torchrun's (``RANK``, ``WORLD_SIZE``).
 """
 
 from typing import Any, Optional, Tuple
@@ -71,19 +74,25 @@ class FlashCheckpointer(Checkpointer):
         super().__init__(CheckpointEngine(
             checkpoint_dir, global_shard_id=0, global_shard_num=1,
             persist_shard=True, storage=storage, keep_latest=keep_latest,
+            replica_rank=env_utils.PROCESS_ID.get(),
             replica_count=env_utils.NUM_PROCESSES.get(),
         ))
 
 
 class ShardedCheckpointer(Checkpointer):
-    """One shard per process, for a sharded train state."""
+    """One shard per process, for a sharded train state: each process
+    stages its blocks and persists those it is the first replica of, so
+    the state is written once across the processes; a restore assembles
+    the template's blocks from any mesh's (``mesh_axes``, the saving
+    mesh's ``{axis: size}``, names both topologies when it cannot)."""
 
     def __init__(self, checkpoint_dir: str,
                  storage: Optional[CheckpointStorage] = None,
-                 keep_latest: int = 3):
+                 keep_latest: int = 3, mesh_axes=None):
         super().__init__(CheckpointEngine(
             checkpoint_dir,
             global_shard_id=env_utils.PROCESS_ID.get(),
             global_shard_num=env_utils.NUM_PROCESSES.get(),
             persist_shard=True, storage=storage, keep_latest=keep_latest,
+            mesh_axes=mesh_axes,
         ))

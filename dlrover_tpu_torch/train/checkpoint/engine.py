@@ -36,10 +36,21 @@ package's) serves the factory queue, the engine registers with it and
 leaves persisting and crash flushes to it; standalone it persists
 inline with the same two-phase commit, so the files are the same.
 
-One process, one shard: data-parallel replicas, sharded states, the
-master's step vote and writer election, the chaos sites, ``ckpt.io``
-events and the comms governor's staging deferral come with later slices
-(ROADMAP queue 1, items 4-7).
+**Several processes.** On a mesh each leaf is this rank's blocks
+(``models/convert.train_state_leaves``), each with its region of the
+JAX leaf in global coordinates (``TensorMeta.index`` and
+``global_shape``) and marked ``persist`` on the first replica only, so
+a sharded state is written once across the ranks: one shard file each
+(``ShardedCheckpointer``), or, for replicas of one shard
+(``FlashCheckpointer``), the lowest replica as the writer (without a
+master; the master's writer election and step vote come with the agent
+slice, ROADMAP queue 1, item 3). A restore copies the blocks whose
+region the template's block has, and assembles any other from the
+saved blocks that overlap it (``_region_fill``): a checkpoint restores
+under another topology. Blocks that do not cover the template raise
+``TopologyMismatchError``. The chaos sites, ``ckpt.io`` events and the
+comms governor's staging deferral come with the chaos and observability
+slice (ROADMAP queue 1, item 5).
 """
 
 import concurrent.futures
@@ -143,7 +154,7 @@ class _Plan:
     size, dtype, shape), where each member tensor lies, and, on the card,
     the engine-owned device buffer laid out the same way."""
 
-    def __init__(self, leaves: List[StateLeaf]):
+    def __init__(self, leaves: List[StateLeaf], persist_all: bool = False):
         self.key = _layout_key(leaves)
         self.metas: List[TensorMeta] = []
         self.spans: List[Tuple[int, int, torch.dtype, tuple]] = []
@@ -153,7 +164,9 @@ class _Plan:
             nbytes = _nbytes(leaf)
             self.metas.append(TensorMeta(
                 path=leaf.path, offset=offset, nbytes=nbytes,
-                dtype=DTYPE_NAMES[leaf.dtype], shape=tuple(leaf.shape)))
+                dtype=DTYPE_NAMES[leaf.dtype], shape=tuple(leaf.shape),
+                global_shape=leaf.global_shape, index=leaf.index,
+                persist=persist_all or leaf.persist))
             if leaf.members:
                 at = offset
                 for m in leaf.members:
@@ -199,8 +212,8 @@ class _Plan:
 
 
 def _layout_key(leaves: List[StateLeaf]) -> tuple:
-    return tuple((leaf.path, leaf.dtype, tuple(leaf.shape),
-                  tuple(m.numel() for m in leaf.members))
+    return tuple((leaf.path, leaf.dtype, tuple(leaf.shape), leaf.index,
+                  leaf.persist, tuple(m.numel() for m in leaf.members))
                  for leaf in leaves)
 
 
@@ -238,19 +251,19 @@ class CheckpointEngine:
         storage: Optional[CheckpointStorage] = None,
         keep_latest: int = 3,
         job: str = "",
+        replica_rank: int = 0,
         replica_count: int = 1,
+        mesh_axes: Optional[Dict[str, int]] = None,
     ):
-        if global_shard_num != 1 or global_shard_id != 0 or \
-                replica_count != 1:
-            raise NotImplementedError(
-                "a checkpoint over several processes (shards, replicas, the "
-                "master's step vote and writer election) comes with the "
-                "multi-device slice of the port (ROADMAP queue 1, item 4)"
-            )
         self.checkpoint_dir = checkpoint_dir
         self.global_shard_id = global_shard_id
         self.global_shard_num = global_shard_num
         self.persist_shard = persist_shard
+        # Replicas of one shard persist it once: the lowest replica writes
+        # (the master's writer election comes with the agent slice).
+        self.replica_rank = int(replica_rank)
+        self.replica_count = int(replica_count)
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
         self.storage = get_checkpoint_storage(storage)
         self.keep_latest = keep_latest
         self._job = job or env_utils.JOB_NAME.get()
@@ -355,7 +368,10 @@ class CheckpointEngine:
         key = _layout_key(leaves)
         if self._plan is None or self._plan.key != key:
             self._plan = None  # free the old device buffer first
-            self._plan = _Plan(leaves)
+            # One shard: it is persisted whole, by the replica that owns
+            # it (the JAX engine's rule for a replicated layout).
+            self._plan = _Plan(leaves,
+                               persist_all=self.global_shard_num == 1)
         return self._plan
 
     def _snapshot(self, state):
@@ -588,8 +604,11 @@ class CheckpointEngine:
                     tensors=plan.metas, objects={},
                     global_shard_id=self.global_shard_id,
                     global_shard_num=self.global_shard_num,
-                    persist=self.persist_shard,
+                    # The agent's saver persists every local shard whose
+                    # meta says so: a replica that does not write says no.
+                    persist=self._persist_owner(),
                     layout_version=self._layout_version,
+                    mesh_axes=self.mesh_axes,
                 ))
                 with self._gen_lock:
                     self._done_gen = max(self._done_gen, gen)
@@ -617,15 +636,26 @@ class CheckpointEngine:
             if self._local_rank == 0:
                 self._events.put(SaveEvent(step=step))
             return True
-        if not self.persist_shard:
+        if not self._persist_owner():
             return True
         return self._persist_inline(step)
 
+    def _persist_owner(self) -> bool:
+        """Whether this process writes its shard: ``persist_shard``, and,
+        among replicas of one shard, the lowest replica rank (the JAX
+        engine's rule without a master)."""
+        return self.persist_shard and (self.replica_count <= 1
+                                       or self.replica_rank == 0)
+
     def _persist_inline(self, step: int) -> bool:
+        """Write this shard; shard 0 then waits for every shard's done
+        file and commits the step."""
         meta = ckpt_meta.loads(self._meta_local[f"rank_{self._local_rank}"])
         self.last_persist_stats = ckpt_persist.persist_shard(
             self.storage, self.checkpoint_dir, meta, self._shm.buf
         )
+        if self.global_shard_id != 0:
+            return True
         ok = ckpt_persist.commit_step(
             self.storage, self.checkpoint_dir, step, self.global_shard_num,
         )
@@ -674,7 +704,7 @@ class CheckpointEngine:
                             meta.step, tracker)
             else:
                 try:
-                    segs = _segments(meta.tensors, plan)
+                    copies, built = _match({0: meta.tensors}, plan)
                     with self._write_mutex:
                         t_reg = time.perf_counter()
                         self._ensure_shm(plan, create=False)
@@ -684,13 +714,22 @@ class CheckpointEngine:
                             raise ValueError(
                                 f"snapshot of {meta.used_bytes} bytes in a "
                                 f"{self._shm.size}-byte segment")
-                        self._rebuild(plan, leaves, lambda buf: self._copy_in(
-                            self._shm_host, segs, buf))
+                        host = self._shm_host
+
+                        def fill(buf):
+                            self._copy_in(host, [c[1:] for c in copies], buf)
+                            _put_built(buf, built, lambda _, off, n: (
+                                host[off:off + n].numpy()))
+
+                        self._rebuild(plan, leaves, fill)
                     self._finish_restore_stats("memory", plan.used, t0)
                     self._restore_stats["step"] = meta.step
                     logger.info("restored step %s from memory (%s)",
                                 meta.step, self._restore_stats)
                     return meta.step, template
+                except _CoverGap:
+                    logger.info("the memory snapshot's blocks do not cover "
+                                "this topology's; restoring from storage")
                 except KeyError:
                     raise
                 except Exception:
@@ -739,9 +778,11 @@ class CheckpointEngine:
 
     def _restore_step(self, plan: _Plan, leaves: List[StateLeaf],
                       step: int) -> int:
-        """Rebuild the state from one persisted step, every stripe (or
-        legacy block) verified first. Raises ``StepCorruptionError`` when
-        the step is broken."""
+        """Rebuild the state from one persisted step, every shard's
+        stripes (or legacy blocks) verified first. Raises
+        ``StepCorruptionError`` when the step is broken, and
+        ``TopologyMismatchError`` when its blocks do not cover the
+        template's."""
         metas = ckpt_persist.load_step_metas(
             self.storage, self.checkpoint_dir, step
         )
@@ -753,33 +794,56 @@ class CheckpointEngine:
         if missing:
             raise ckpt_persist.StepCorruptionError(
                 step, f"missing shard metas {missing} of {expected}")
-        if expected != 1:
-            raise NotImplementedError(
-                f"step {step} has {expected} shards; restoring a sharded "
-                "checkpoint comes with the multi-device slice (ROADMAP "
-                "queue 1, item 4)")
-        meta = metas[0]
-        segs = _segments(meta.tensors, plan)
-        reader = ckpt_persist.open_routed_reader(
-            self.storage, self.checkpoint_dir, step, 0, meta
-        )
-        if reader is None:
-            raise ckpt_persist.StepCorruptionError(step, "shard 0 bin missing")
         try:
-            t_v0 = time.perf_counter()
-            ckpt_persist.verify_stripes(reader, meta, step, 0)
-            _verify_blocks(reader, meta, step)
-            self._restore_stats["verify_s"] += time.perf_counter() - t_v0
-            self._rebuild(plan, leaves,
-                          lambda buf: self._read_in(reader, segs, buf, step))
+            copies, built = _match({g: m.tensors for g, m in metas.items()},
+                                   plan)
+        except _CoverGap as e:
+            saved_axes = next((m.mesh_axes for m in metas.values()
+                               if getattr(m, "mesh_axes", None)), None)
+            raise ckpt_persist.TopologyMismatchError(
+                step, saved_axes, self.mesh_axes, str(e)) from e
+        readers: Dict[int, Any] = {}
+        try:
+            for gid in sorted(metas):
+                meta = metas[gid]
+                if not meta.tensors:
+                    continue
+                reader = ckpt_persist.open_routed_reader(
+                    self.storage, self.checkpoint_dir, step, gid, meta
+                )
+                if reader is None:
+                    raise ckpt_persist.StepCorruptionError(
+                        step, f"shard {gid} bin missing")
+                readers[gid] = reader
+                t_v0 = time.perf_counter()
+                ckpt_persist.verify_stripes(reader, meta, step, gid)
+                _verify_blocks(reader, meta, step, gid)
+                self._restore_stats["verify_s"] += time.perf_counter() - t_v0
+
+            def read(gid, off, n):
+                raw = readers[gid].read(off, n)
+                if len(raw) != n:
+                    raise ckpt_persist.StepCorruptionError(
+                        step, f"missing/truncated block at offset {off} "
+                        f"({n} bytes) in shard {gid}")
+                return np.frombuffer(raw, dtype=np.uint8)
+
+            def fill(buf):
+                self._read_in(readers, copies, buf, step)
+                _put_built(buf, built, read)
+
+            self._rebuild(plan, leaves, fill)
         finally:
-            reader.close()
-        return sum(n for _, _, n in segs)
+            for reader in readers.values():
+                reader.close()
+        return sum(t.nbytes for t in plan.metas)
 
     def _copy_in(self, host: torch.Tensor, segs, buf: torch.Tensor):
         """Segment bytes into ``buf``: one copy when the snapshot's layout
         is this one (from the registered mapping, on the card), else one
         per leaf."""
+        if not segs:
+            return
         if all(src == dst for src, dst, _ in segs):
             end = max(dst + n for _, dst, n in segs)
             buf[:end].copy_(host[:end], non_blocking=True)
@@ -787,26 +851,29 @@ class CheckpointEngine:
         for src, dst, n in segs:
             buf[dst:dst + n].copy_(host[src:src + n], non_blocking=True)
 
-    def _read_in(self, reader, segs, buf: torch.Tensor, step: int):
-        """File bytes into ``buf``: straight into a CPU buffer, or through
-        two pinned buffers in turns into the device buffer."""
+    def _read_in(self, readers, segs, buf: torch.Tensor, step: int):
+        """File bytes into ``buf`` (``segs``: shard, file offset, layout
+        offset, bytes each): straight into a CPU buffer, or through two
+        pinned buffers in turns into the device buffer."""
+        if not segs:
+            return
 
         def read(piece):
-            dst_view, src, n = piece
-            if reader.read_into(src, dst_view) != n:
+            dst_view, gid, src, n = piece
+            if readers[gid].read_into(src, dst_view) != n:
                 raise ckpt_persist.StepCorruptionError(
                     step, f"missing/truncated block at offset {src} "
-                    f"({n} bytes) in shard 0")
+                    f"({n} bytes) in shard {gid}")
 
         if buf.device.type == "cpu":
             arr = buf.numpy()
-            fastcopy.parallel_map(read, [(arr[dst:dst + n], src, n)
-                                         for src, dst, n in segs])
+            fastcopy.parallel_map(read, [(arr[dst:dst + n], gid, src, n)
+                                         for gid, src, dst, n in segs])
             return
         bounce = [torch.empty(_BOUNCE, dtype=torch.uint8, pin_memory=True)
                   for _ in range(2)]
         done: List[Optional[torch.cuda.Event]] = [None, None]
-        used = max(dst + n for _, dst, n in segs)
+        used = max(dst + n for _, _, dst, n in segs)
         for k, w0 in enumerate(range(0, used, _BOUNCE)):
             w1 = min(w0 + _BOUNCE, used)
             turn = k % 2
@@ -814,10 +881,10 @@ class CheckpointEngine:
                 done[turn].synchronize()
             arr = bounce[turn].numpy()
             pieces = []
-            for src, dst, n in segs:
+            for gid, src, dst, n in segs:
                 lo, hi = max(dst, w0), min(dst + n, w1)
                 if lo < hi:
-                    pieces.append((arr[lo - w0:hi - w0], src + lo - dst,
+                    pieces.append((arr[lo - w0:hi - w0], gid, src + lo - dst,
                                    hi - lo))
             fastcopy.parallel_map(read, pieces)
             buf[w0:w1].copy_(bounce[turn][:w1 - w0], non_blocking=True)
@@ -925,34 +992,118 @@ def _scalars(leaves: List[StateLeaf]) -> Dict[int, int]:
             if not leaf.members}
 
 
-def _segments(saved: List[TensorMeta], plan: _Plan
-              ) -> List[Tuple[int, int, int]]:
-    """``(saved offset, layout offset, bytes)`` of each leaf of ``plan``
-    in a saved snapshot's or step's metas. A leaf missing, or saved with
-    another shape or dtype, raises ``KeyError``: the model changed."""
-    by_path = {t.path: t for t in saved}
+class _CoverGap(KeyError):
+    """The saved blocks of a leaf do not cover a block of the template."""
+
+
+_UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+_ITEMSIZE = {name: torch.empty((), dtype=dt).element_size()
+             for dt, name in DTYPE_NAMES.items()}
+
+
+def _global_shape(t: TensorMeta) -> Tuple[int, ...]:
+    return tuple(int(d) for d in (t.global_shape if t.global_shape is not None
+                                  else t.shape))
+
+
+def _region(t: TensorMeta) -> Tuple[Tuple[int, int], ...]:
+    """A block's region of its leaf (the whole leaf when it has no
+    index)."""
+    if t.index is None:
+        return tuple((0, d) for d in _global_shape(t))
+    return tuple((int(a), int(b)) for a, b in t.index)
+
+
+def _overlap(a, b):
     out = []
+    for (s0, e0), (s1, e1) in zip(a, b):
+        s, e = max(s0, s1), min(e0, e1)
+        if s >= e:
+            return None
+        out.append((s, e))
+    return tuple(out)
+
+
+def _size(region) -> int:
+    return int(np.prod([e - s for s, e in region])) if region else 1
+
+
+def _match(saved: Dict[int, List[TensorMeta]], plan: _Plan):
+    """How each block of ``plan`` comes from saved blocks (by source: one
+    segment, or each shard of a step): ``copies`` ``(source, saved
+    offset, layout offset, bytes)`` for a block saved with the same
+    region, and ``built`` ``(layout offset, wanted meta, [(source, saved
+    meta)])`` for one assembled from the saved blocks that overlap it. A
+    leaf missing, or saved with another global shape or dtype, raises
+    ``KeyError`` (the model changed); blocks that do not cover a wanted
+    block raise ``_CoverGap``."""
+    catalog: Dict[str, List[Tuple[int, TensorMeta]]] = {}
+    for src in sorted(saved):
+        for t in saved[src]:
+            catalog.setdefault(t.path, []).append((src, t))
+    copies, built = [], []
     for want in plan.metas:
-        t = by_path.get(want.path)
-        if t is None:
+        have = catalog.get(want.path)
+        if not have:
             raise KeyError(f"checkpoint is missing leaf {want.path}; model "
                            "definition changed since the snapshot")
-        if getattr(t, "index", None) is not None:
-            raise NotImplementedError(
-                f"leaf {t.path} was saved as sharded blocks; restoring them "
-                "comes with the multi-device slice (ROADMAP queue 1, item 4)")
-        shape = tuple(int(d) for d in (t.global_shape or t.shape))
-        if shape != want.shape or t.dtype != want.dtype or \
-                t.nbytes != want.nbytes:
-            raise KeyError(
-                f"checkpoint leaf {t.path} is {t.dtype}{list(shape)} but the "
-                f"template wants {want.dtype}{list(want.shape)}; model "
-                "definition changed since the snapshot")
-        out.append((t.offset, want.offset, want.nbytes))
-    return out
+        shape = _global_shape(want)
+        for _, t in have:
+            if _global_shape(t) != shape or t.dtype != want.dtype:
+                raise KeyError(
+                    f"checkpoint leaf {t.path} is {t.dtype}"
+                    f"{list(_global_shape(t))} but the template wants "
+                    f"{want.dtype}{list(shape)}; model definition changed "
+                    "since the snapshot")
+        region = _region(want)
+        exact = next(((src, t) for src, t in have if _region(t) == region),
+                     None)
+        if exact is not None:
+            copies.append((exact[0], exact[1].offset, want.offset,
+                           want.nbytes))
+            continue
+        uniq = {}
+        for src, t in have:
+            uniq.setdefault(_region(t), (src, t))
+        covered = sum(_size(o) for o in (_overlap(region, r) for r in uniq)
+                      if o is not None)
+        if covered < _size(region):
+            raise _CoverGap(
+                f"checkpoint blocks cover {covered}/{_size(region)} elements "
+                f"of region {region} of {want.path}")
+        built.append((want.offset, want, list(uniq.values())))
+    return copies, built
 
 
-def _verify_blocks(reader, meta: ShardMeta, step: int):
+def _region_fill(want: TensorMeta, have, read) -> np.ndarray:
+    """The bytes of block ``want`` assembled from the saved blocks ``have``
+    (``(source, meta)`` each) that overlap it; ``read(source, offset,
+    nbytes)`` gives a saved block's bytes as uint8."""
+    u = _UINT[_ITEMSIZE[want.dtype]]
+    region = _region(want)
+    out = np.empty(tuple(e - s for s, e in region), dtype=u)
+    for src, t in have:
+        t_region = _region(t)
+        inter = _overlap(region, t_region)
+        if inter is None:
+            continue
+        block = read(src, t.offset, t.nbytes).view(u).reshape(
+            tuple(e - s for s, e in t_region))
+        out[tuple(slice(s - r, e - r) for (s, e), (r, _) in
+                  zip(inter, region))] = block[
+            tuple(slice(s - b, e - b) for (s, e), (b, _) in
+                  zip(inter, t_region))]
+    return out.reshape(-1).view(np.uint8)
+
+
+def _put_built(buf: torch.Tensor, built, read):
+    """Each assembled block into its place in ``buf``."""
+    for dst, want, have in built:
+        arr = _region_fill(want, have, read)
+        buf[dst:dst + want.nbytes].copy_(torch.from_numpy(arr))
+
+
+def _verify_blocks(reader, meta: ShardMeta, step: int, gid: int = 0):
     """The legacy format's per-block checksums (striped metas carry none)."""
     algo = getattr(meta, "crc_algo", "")
 
@@ -963,10 +1114,10 @@ def _verify_blocks(reader, meta: ShardMeta, step: int):
         data = np.empty(t.nbytes, dtype=np.uint8)
         if reader.read_into(t.offset, data) != t.nbytes:
             raise ckpt_persist.StepCorruptionError(
-                step, f"missing/truncated block {t.path!r} in shard 0")
+                step, f"missing/truncated block {t.path!r} in shard {gid}")
         if not checksum.verify_block(data, crc, algo):
             raise ckpt_persist.StepCorruptionError(
-                step, f"checksum mismatch in shard 0 block {t.path!r} "
+                step, f"checksum mismatch in shard {gid} block {t.path!r} "
                 f"(offset {t.offset}, {t.nbytes} bytes, algo {algo})")
 
     fastcopy.parallel_map(one, meta.tensors)

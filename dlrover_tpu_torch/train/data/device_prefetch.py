@@ -17,6 +17,10 @@ the device, so the copy of batch N+1 overlaps step N:
   even after exhaustion.
 
 A batch is a tensor or numpy array, or a list, tuple or dict of them.
+``take`` (a function of the host batch, such as
+``AccelerateResult.local_batch``: this rank's rows of a global batch on
+a mesh) runs on each batch before its copy, so only those bytes cross
+to the device.
 """
 
 import collections
@@ -29,12 +33,15 @@ from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
 
 
-def _map(fn: Callable, batch):
+def map_batch(fn: Callable, batch):
+    """``fn`` over every tensor or array of a batch, keeping its
+    structure."""
     if isinstance(batch, dict):
-        return {k: _map(fn, v) for k, v in batch.items()}
+        return {k: map_batch(fn, v) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
-        return type(batch)(_map(fn, v) for v in batch)
+        return type(batch)(map_batch(fn, v) for v in batch)
     return fn(batch)
+
 
 
 def _leaves(batch):
@@ -56,7 +63,7 @@ def _as_tensor(x) -> torch.Tensor:
 
 def to_device(batch, device: torch.device):
     """Copy a host batch to ``device`` (blocking; the unpipelined path)."""
-    return _map(lambda x: _as_tensor(x).to(device), batch)
+    return map_batch(lambda x: _as_tensor(x).to(device), batch)
 
 
 class DevicePrefetchIterator:
@@ -64,11 +71,12 @@ class DevicePrefetchIterator:
     ``device`` (the card unless another is named)."""
 
     def __init__(self, batches: Iterable, device: DeviceLike = None,
-                 depth: int = 2):
+                 depth: int = 2, take: Optional[Callable] = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._it: Iterator = iter(batches)
         self.depth = depth
+        self._take = take
         self._set_device(device)
         self._buf: "collections.deque" = collections.deque()
         self._exhausted = False
@@ -83,6 +91,8 @@ class DevicePrefetchIterator:
 
     # ------------- internals -------------
     def _put(self, host_batch):
+        if self._take is not None:
+            host_batch = self._take(host_batch)
         if self._stream is None:
             return to_device(host_batch, self._device), None
 
@@ -93,7 +103,7 @@ class DevicePrefetchIterator:
             return t.to(self._device, non_blocking=True)
 
         with torch.cuda.stream(self._stream):
-            out = _map(copy, host_batch)
+            out = map_batch(copy, host_batch)
             ready = torch.cuda.Event()
             ready.record(self._stream)
         return out, ready

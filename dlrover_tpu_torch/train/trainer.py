@@ -22,11 +22,19 @@ newest snapshot, memory first, unless given ``start_step``.
 ``offload_optimizer=True`` keeps the optimizer's big state leaves in
 host memory between steps; the others raise there, naming their slice.
 
+On a mesh (``spec`` of several degrees over as many processes, each
+under torchrun) every process passes the global batch, as in the JAX
+trainer; the loop copies only this rank's rows to the device
+(``AccelerateResult.local_batch``, before the prefetcher's copy), the
+reported loss and ``eval_loss`` are means over all ranks and
+``tokens_per_s`` counts the global batch. A checkpoint over several
+processes is a ``ShardedCheckpointer`` (one shard a process).
+
 Pieces that need modules of later slices raise ``NotImplementedError``
 (ROADMAP queue 1): a rescale engine, master reporting (a job with a
-master), chaos sites (a fault plan in the environment), the profiler's
-trace capture and a checkpoint over several processes. The comms
-governor needs the master, so it never arises here.
+master), chaos sites (a fault plan in the environment) and the
+profiler's trace capture. The comms governor needs the master, so it
+never arises here.
 """
 
 import itertools
@@ -34,7 +42,9 @@ import time
 from typing import Any, Callable, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from dlrover_tpu_torch.accel.mesh import axis_sizes
 from dlrover_tpu_torch.common import env_utils
 from dlrover_tpu_torch.common.device import DeviceLike
 from dlrover_tpu_torch.common.log import logger
@@ -154,9 +164,13 @@ class Trainer:
         self._persist_every = persist_every
         self._ckpt = None
         if checkpoint_dir:
-            cls = (ShardedCheckpointer if env_utils.NUM_PROCESSES.get() > 1
-                   else FlashCheckpointer)
-            self._ckpt = cls(checkpoint_dir)
+            mesh = self._result.mesh
+            if env_utils.NUM_PROCESSES.get() > 1:
+                self._ckpt = ShardedCheckpointer(
+                    checkpoint_dir,
+                    mesh_axes=axis_sizes(mesh) if mesh is not None else None)
+            else:
+                self._ckpt = FlashCheckpointer(checkpoint_dir)
 
     @property
     def checkpointer(self):
@@ -207,12 +221,17 @@ class Trainer:
             itertools.islice(batches, max_batches) if max_batches
             else batches
         )
-        total, n = 0.0, 0
+        total, n = torch.zeros((), device=self.device), 0
         params = self.state["params"]
         with torch.no_grad():
-            for batch in DevicePrefetchIterator(src, self.device, depth=2):
+            for batch in DevicePrefetchIterator(
+                    src, self.device, depth=2,
+                    take=self._result.local_batch):
                 total = total + self._loss(self.module, params, batch)
                 n += 1
+            if self._result.mesh is not None:
+                dist.all_reduce(total)
+                total = total / dist.get_world_size()
         return {"eval_loss": float(total) / max(n, 1), "eval_batches": n}
 
     def fit(self, batches: Iterable, steps: int,
@@ -242,7 +261,8 @@ class Trainer:
             it = (
                 batches if isinstance(batches, DevicePrefetchIterator)
                 else DevicePrefetchIterator(
-                    batches, self.device, depth=prefetch_depth
+                    batches, self.device, depth=prefetch_depth,
+                    take=self._result.local_batch,
                 )
             )
         else:
@@ -252,6 +272,10 @@ class Trainer:
         last_eval: dict = {}
         evaluated_at = -1
         done = start
+        # This rank's batch is one of `shards` slices of the global one.
+        sizes = (axis_sizes(self._result.mesh)
+                 if self._result.mesh is not None else {})
+        shards = sizes.get("data", 1) * sizes.get("fsdp", 1)
         self.should_stop = False  # a previous fit's stop must not leak
         self._fire("on_train_begin", start)
         t_mark = time.perf_counter()
@@ -265,7 +289,8 @@ class Trainer:
             t_step0 = time.perf_counter()
             input_s = t_step0 - t_in0
             if not pipeline:
-                batch = to_device(batch, self.device)
+                batch = to_device(self._result.local_batch(batch),
+                                  self.device)
             self.state, metrics = self.train_step(self.state, batch)
             dispatch_s = time.perf_counter() - t_step0
             done = step + 1
@@ -306,7 +331,7 @@ class Trainer:
             if self._phases is not None:
                 self._phases.split(input_s, dispatch_s, t_f1 - t_f0,
                                    t_f2 - t_f1)
-            tokens = batch_token_count(batch)
+            tokens = batch_token_count(batch) * shards
             if tokens:
                 step_metrics["tokens_per_s"] = (
                     tokens / step_metrics["step_time_s"]

@@ -193,12 +193,12 @@ def test_update_and_apply_branch():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_dir="/nonexistent"), dict(profiler=object()),
+    dict(precision="int8"), dict(profiler=object()),
 ])
-def test_later_slices_raise(kwargs, monkeypatch):
-    # One process checkpoints (test_torch_checkpoint.py); a checkpoint
-    # over several processes comes with the multi-device slice.
-    monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
+def test_later_slices_raise(kwargs):
+    # A checkpoint over several processes is a ShardedCheckpointer now
+    # (tests/test_torch_parallel.py); int8 matmuls and the profiler's
+    # trace capture still come with later slices.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_trainer(**kwargs)
 
@@ -218,10 +218,16 @@ def test_rescale_engine_raises():
 
 
 def test_multi_device_specs_raise():
+    # A spec of several devices needs a world of as many processes (the
+    # mesh branches: tests/test_torch_parallel.py); a degree of a later
+    # slice raises naming it.
     model = GPT(GPTConfig(**BASE, dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="world of 2"):
         auto_accelerate(model, adamw(1e-3), batches(1)[0], port_loss,
                         spec=ParallelSpec(data=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        auto_accelerate(model, adamw(1e-3), batches(1)[0], port_loss,
+                        spec=ParallelSpec(seq=2), device="cpu")
 
 
 class TestDevicePrefetch:
