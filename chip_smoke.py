@@ -71,7 +71,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    many, and a sharded snapshot of the fsdp run persisted and restored
    into a fresh one-device trainer bit for bit, leaf by leaf; step ms,
    peak GiB and busy share of each beside the one-device path's
-   (``[mesh]`` lines);
+   (``[mesh]`` lines). Then the LLaMA preset with 8 swiglu experts (top
+   2, capacity factor 1.25; 6.36B parameters, 1.90B active) at full
+   width through ``Trainer.fit`` with ``moe_loss_fn`` and
+   ``adam8bit(2e-4)``, batch 4 x 2048, remat "dots": 2 warm-up steps, a
+   window of 4 (each head_dim-128 kernel 22 times a step, the forward
+   44, the fused 8-bit Adam once a step over every leaf, the
+   [22, 8, 2048, 5504] stacks too; the loss finite and falling), 3
+   traced steps (busy share; the MoE's device ms by routing,
+   dispatch/combine and expert products; MFU over the active
+   parameters); the same model and seed on a mesh with an expert axis
+   of one (losses bit for bit, as many launches, a sharded snapshot
+   persisted and restored into a fresh one-device trainer bit for bit);
+   and ``ring_attention_shard`` and ``ulysses_attention_shard`` (flash
+   kernels inside, each launched once) on the NCCL group of one at
+   B 4, S 2048, 16 heads, D 128, forward and backward, each held to fp32
+   attention by tile and timed beside the flash kernels alone
+   (``[moe ...]`` and ``[seq ...]`` lines);
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -103,6 +119,7 @@ and convolutions run without TF32 wherever a comparison is made.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
@@ -134,7 +151,7 @@ from dlrover_tpu_torch.common import checksum, ckpt_persist, env_utils
 from dlrover_tpu_torch.common.comm import clear_job_sockets
 from dlrover_tpu_torch.common.shared_memory import SharedMemory
 from dlrover_tpu_torch.models.convert import leaf_bytes, train_state_leaves
-from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
+from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn, moe_loss_fn
 from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
@@ -223,6 +240,16 @@ AGD_WSAM_STEPS, AGD_WSAM_BATCH, AGD_WSAM_LR, UPDATE_TOL = 5, 8, 3e-4, 1e-6
 # rounds' shape.
 LLAMA_RUNS = ((4, 2048, 5), (1, 8192, 3))
 LLAMA_LR = 2e-4
+# The LLaMA preset with Mixtral's routing (Mistral AI, "Mixtral of
+# Experts", arXiv 2401.04088: 8 swiglu experts, top 2) under the JAX
+# package's capacity factor 1.25, batch 4 x 2048, adam8bit(2e-4), remat
+# "dots", the flash kernels; no depth cut. A window of MOE_STEPS.
+MOE = dataclasses.replace(LlamaConfig.preset(2048), num_experts=8,
+                          moe_top_k=2, moe_capacity_factor=1.25)
+MOE_BATCH, MOE_STEPS = 4, 4
+# The sequence-parallel bodies at the preset's attention shape (B, S, H,
+# D), and the launches each is timed over.
+SEQ_SHAPE, SEQ_ITERS = (4, 2048, 16, 128), 5
 # fp32 operations per value of each 8-bit Adam kernel (its bound by
 # operations, under the bound by bytes by about 8x).
 ADAM8_OPS = {"adam8": 21, "adam8_fused": 23}
@@ -476,6 +503,10 @@ def token_loss(module, params, batch):
     return loss_fn(module(batch), batch)
 
 
+def moe_token_loss(module, params, batch):
+    return moe_loss_fn(module(batch), batch)
+
+
 def model_check(seed, model_cls=GPT, cfg=None):
     """A model's kernel path against its einsum path, same weights, on
     2 layers at the config's widths (GPT-2's by default) and a 2 x 256
@@ -506,14 +537,16 @@ def model_check(seed, model_cls=GPT, cfg=None):
 
 
 def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
-          seq=None, **accel):
+          seq=None, loss=token_loss, **accel):
     """``cfg`` from random weights (the seed) on one fixed batch of
     ``batch_size`` x ``seq`` through ``Trainer.fit``: 2 warm-up steps,
     then a window of ``steps`` in which every flash kernel of the model's
     head_dim runs once a layer a step (the forward twice under remat),
     the fused 8-bit Adam kernel its launches a step (none with AdamW),
     the unfused one never, and the loss is finite and falls; ``seq``
-    defaults to SEQ. ``accel`` goes to the Trainer (``offload_optimizer``). Returns the
+    defaults to SEQ; ``loss`` is the Trainer's (``moe_token_loss`` for a
+    model with experts). ``accel`` goes to the Trainer
+    (``offload_optimizer``). Returns the
     window's launches, the trainer, the batch and the window's stats
     (with its losses, and the copies of "offload" and of an offloaded
     optimizer: bytes and device ms each way a step)."""
@@ -523,7 +556,7 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
     batch = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch_size, seq), dtype=np.int64)
     rec = Record()
-    trainer = Trainer(model, optimizer, token_loss, batch,
+    trainer = Trainer(model, optimizer, loss, batch,
                       spec="auto", callbacks=[rec, LoggingCallback(every=5)],
                       **accel)
     trainer.fit(iter([batch] * WARMUP), steps=WARMUP)  # outside the window
@@ -649,7 +682,8 @@ def range_contents(prof, name):
     return len(ranges), ops, kernels
 
 
-def profile_window(label, trainer, batch, window_step_ms, steps=3):
+def profile_window(label, trainer, batch, window_step_ms, steps=3,
+                   extra=None):
     """Device time by kernel over ``steps`` more steps of the warm trainer
     (torch.profiler, CUDA activity): the share of the traced wall time the
     card spent in kernels, the kernels' time over the step of the window
@@ -657,7 +691,8 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
     small ops), and the kernels grouped by what they do. With the 8-bit
     Adam optimizer, its ``update_and_apply`` runs inside a profiler range:
     the ops of that range and their kernels must hold no gather or
-    scatter, and the profile one fused Adam launch a step."""
+    scatter, and the profile one fused Adam launch a step. ``extra(prof,
+    steps)`` adds its own figures to the result."""
     from torch.profiler import ProfilerActivity, profile
 
     opt = trainer.state["opt"]
@@ -738,6 +773,8 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3):
             for e in top
         ],
     }
+    if extra is not None:
+        out.update(extra(prof, steps))
     log(f"[profile {label}] " + json.dumps(out))
     return out
 
@@ -1800,6 +1837,35 @@ def mesh_window(label, res, batch, cfg, base):
     return stats, loop
 
 
+@contextlib.contextmanager
+def world_of_one(tag):
+    """An NCCL process group of one rank to be (``create_mesh`` joins it
+    from MASTER_ADDR/PORT, RANK and WORLD_SIZE, set here), a job name and
+    a checkpoint directory under build/ of its own: ``(device, root)``.
+    Afterwards the group is destroyed and the variables, the job's
+    shared-memory segments and the directory removed."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    launch = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                  WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(launch)
+    root = os.path.join("build", f"{tag}-ckpt-{os.getpid()}")
+    job = f"{tag}-{os.getpid()}-{uuid.uuid4().hex[:6]}"
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    try:
+        yield torch.device("cuda", 0), root
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in launch:
+            os.environ.pop(name, None)
+        unlink_segments(job)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def mesh_phases(seed, windows):
     """Each axis's branch of ``accelerate_on_mesh`` on an NCCL world of
     one rank, on a mesh that has the axis (size 1): GPT-2 xl (remat
@@ -1811,18 +1877,13 @@ def mesh_phases(seed, windows):
     a fresh one-device trainer bit for bit, leaf by leaf. Records each
     window's step ms, peak GiB and busy share beside the one-device
     path's."""
+    with world_of_one("mesh") as (dev, root):
+        _mesh_phases(seed, windows, dev, root)
+
+
+def _mesh_phases(seed, windows, dev, root):
     import torch.distributed as dist
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    launch = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
-                  WORLD_SIZE="1", LOCAL_RANK="0")
-    os.environ.update(launch)
-    dev = torch.device("cuda", 0)
-    root = os.path.join("build", f"mesh-ckpt-{os.getpid()}")
-    job = f"mesh-{os.getpid()}-{uuid.uuid4().hex[:6]}"
-    os.environ["DLROVER_TPU_JOB_NAME"] = job
     summary = {}
 
     def model(cfg, model_cls, s):
@@ -1850,70 +1911,267 @@ def mesh_phases(seed, windows):
                                                 "busy_share", "kernel_ms")}
         return stats, res
 
-    try:
-        batch = np.random.default_rng(seed).integers(
-            0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
-        one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, None)
-        got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "fsdp")
-        check(got["losses"] == one["losses"],
-              f"fsdp losses {got['losses']} differ from one device's "
-              f"{one['losses']}")
-        bad = [n for n, p in res.state["params"].items()
-               if not torch.equal(sharding.local(p),
-                                  one_res.state["params"][n])]
-        check(not bad, f"fsdp parameters differ from one device's: {bad}")
-        # The fsdp run's sharded snapshot, persisted, into a fresh
-        # one-device trainer of another seed.
+    batch = np.random.default_rng(seed).integers(
+        0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
+    one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, None)
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "fsdp")
+    check(got["losses"] == one["losses"],
+          f"fsdp losses {got['losses']} differ from one device's "
+          f"{one['losses']}")
+    bad = [n for n, p in res.state["params"].items()
+           if not torch.equal(sharding.local(p),
+                              one_res.state["params"][n])]
+    check(not bad, f"fsdp parameters differ from one device's: {bad}")
+    # The fsdp run's sharded snapshot, persisted, into a fresh
+    # one-device trainer of another seed.
+    step = res.state["step"]
+    ck = ShardedCheckpointer(root, mesh_axes={"fsdp": 1})
+    check(ck.save_checkpoint(step, res.state, StorageType.DISK),
+          "fsdp: the sharded save failed")
+    ck.close()
+    del res
+    torch.cuda.empty_cache()
+    fresh = auto_accelerate(model(XL, GPT, seed + 1), adam8bit(XL_LR),
+                            batch, token_loss, spec=ParallelSpec(),
+                            device=dev)
+    ck = FlashCheckpointer(root)
+    restored = ck.load_checkpoint(fresh.state)[0]
+    ck.close()
+    check(restored == step, f"restored step {restored}, want {step}")
+    bad = differing(state_bytes(fresh), state_bytes(one_res))
+    check(not bad, f"the fsdp snapshot restored with leaves {bad} "
+          "differing")
+    log(f"[mesh gpt2-xl] fsdp snapshot of step {step}: every leaf "
+        "restored bit for bit on one device")
+    del fresh
+    torch.cuda.empty_cache()
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "data")
+    check(got["losses"] == one["losses"],
+          f"data losses {got['losses']} differ from one device's "
+          f"{one['losses']}")
+    del one_res, res
+    torch.cuda.empty_cache()
+    b, seq = LLAMA_RUNS[0][:2]
+    cfg = LlamaConfig.preset(seq)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, seq), dtype=np.int64)
+    one, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
+                      None)
+    del res
+    torch.cuda.empty_cache()
+    got, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
+                      "tensor")
+    check(got["losses"] == one["losses"],
+          f"tensor losses {got['losses']} differ from one device's "
+          f"{one['losses']}")
+    del res
+    torch.cuda.empty_cache()
+    log("[mesh] " + json.dumps(summary))
+
+
+# ------------------------------------------------------- experts, sequence
+
+MOE_PARTS = ("routing", "dispatch", "experts", "combine")
+
+
+def moe_split(prof, steps):
+    """Device ms a step of each part of the MoE layers (``ops/moe.py``'s
+    profiler ranges "moe/<part>"): the kernels of the ops run inside the
+    range (the forward, and remat's recompute) and of the backward nodes
+    those ops made (matched by autograd's sequence number), without a
+    recompute nested in a backward node (it has its own ranges)."""
+    cpu = torch.autograd.DeviceType.CPU
+    part_of, us = {}, dict.fromkeys(MOE_PARTS, 0.0)
+
+    def kernels(e):
+        return sum(k.duration for k in e.kernels) + sum(
+            kernels(c) for c in e.cpu_children)
+
+    def mark(e, part):
+        if e.sequence_nr >= 0:
+            part_of[e.sequence_nr] = part
+        for c in e.cpu_children:
+            mark(c, part)
+
+    def backward_kernels(e):
+        return sum(k.duration for k in e.kernels) + sum(
+            backward_kernels(c) for c in e.cpu_children
+            if c.sequence_nr < 0 and not c.name.startswith("moe/"))
+
+    events = [e for e in prof.events() if e.device_type == cpu]
+    for e in events:
+        if e.name.startswith("moe/"):
+            us[e.name[4:]] += kernels(e)
+            mark(e, e.name[4:])
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function") and \
+                e.sequence_nr in part_of:
+            node = e.cpu_children[0] if e.cpu_children else e
+            us[part_of[e.sequence_nr]] += sum(
+                k.duration for k in e.kernels) + backward_kernels(node)
+    ms = {p: t / steps / 1e3 for p, t in us.items()}
+    return {"moe_ms_per_step": {
+        "routing": ms["routing"],
+        "dispatch_combine": ms["dispatch"] + ms["combine"],
+        "expert_products": ms["experts"]}}
+
+
+def check_moe_leaves(opt, cfg):
+    """The 8-bit Adam's state covers every expert stack whole: a leaf
+    ``layers/moe/<w>`` of [L, E, d, f] values for each matrix."""
+    want = cfg.num_layers * cfg.num_experts * cfg.d_model * cfg.ff_dim
+    mats = ("w_up", "w_gate", "w_down")
+    have = {w: opt.state.m[f"layers/moe/{w}"].q.numel() for w in mats}
+    check(all(n >= want for n in have.values()),
+          f"8-bit Adam moments of the expert stacks {have}, want {want}")
+    return have
+
+
+def moe_train(seed, windows):
+    """(a) The LLaMA-MoE at full width through ``Trainer.fit``: 2 warm-up
+    steps, a window of MOE_STEPS (each head_dim-128 flash kernel 22
+    times a step, the forward 44; the fused 8-bit Adam once a step over
+    every leaf, the expert stacks too; the loss finite and falling), 3
+    traced steps (busy share, the MoE's device time by part)."""
+    label = f"llama-moe B{MOE_BATCH} S{MOE.max_seq_len}"
+    launches, trainer, batch, stats = train(
+        label, MOE, adam8bit(LLAMA_LR), MOE_BATCH, MOE_STEPS, seed,
+        model_cls=Llama, seq=MOE.max_seq_len, loss=moe_token_loss)
+    windows[label] = launches
+    stats["moe_leaves"] = check_moe_leaves(trainer.state["opt"], MOE)
+    stats["active_params"] = MOE.param_count(active=True)
+    prof = profile_window(label, trainer, batch, stats["step_ms"],
+                          extra=moe_split)
+    split = prof["moe_ms_per_step"]
+    summary = {k: stats[k] for k in ("step_ms", "tokens_per_s", "mfu",
+                                     "peak_mem_gib", "params",
+                                     "active_params", "flops_per_token")}
+    summary.update(busy_share=prof["kernel_busy_share"],
+                   kernel_ms=prof["kernel_ms_per_step"], moe_ms=split,
+                   moe_share=sum(split.values())
+                   / prof["kernel_ms_per_step"])
+    log(f"[moe {label}] " + json.dumps(summary))
+    del trainer
+    torch.cuda.empty_cache()
+    return stats["losses"], launches, batch
+
+
+def moe_on_expert_axis(seed, windows, want_losses, want_launches, batch):
+    """(b) The same model, seed and batch on a mesh with an expert axis of
+    size 1 (the NCCL world of one): its window's losses equal (a)'s bit
+    for bit with as many launches; its sharded snapshot, persisted,
+    restores into a fresh one-device trainer bit for bit."""
+    import torch.distributed as dist
+
+    label = "llama-moe expert"
+    with world_of_one("moe") as (dev, root):
+        mesh = create_mesh([("expert", 1)], dev)
+        check(dist.get_backend() == "nccl", "the mesh is not on NCCL")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        res = accelerate_on_mesh(
+            Llama(MOE, device="cuda", generator=gen), adam8bit(LLAMA_LR),
+            batch, moe_token_loss, mesh, device=dev)
+        stats = mesh_window(label, res, batch, MOE, 0)[0]
+        windows[label] = stats["launches"]
+        check(stats["losses"] == want_losses,
+              f"expert-axis losses {stats['losses']} differ from one "
+              f"device's {want_losses}")
+        check(stats["launches"] == want_launches,
+              f"expert-axis launches {stats['launches']}, one device "
+              f"{want_launches}")
         step = res.state["step"]
-        ck = ShardedCheckpointer(root, mesh_axes={"fsdp": 1})
+        ck = ShardedCheckpointer(root, mesh_axes={"expert": 1})
         check(ck.save_checkpoint(step, res.state, StorageType.DISK),
-              "fsdp: the sharded save failed")
+              "expert: the sharded save failed")
         ck.close()
+        # The fresh trainer restores the disk copy: the segment's 28 GB of
+        # host memory go now. The state to hold it to stays on the card
+        # (the host's 96 GiB would not take two copies beside the file's).
+        unlink_segments(os.environ["DLROVER_TPU_JOB_NAME"])
+        want = state_bytes(res)
         del res
         torch.cuda.empty_cache()
-        fresh = auto_accelerate(model(XL, GPT, seed + 1), adam8bit(XL_LR),
-                                batch, token_loss, spec=ParallelSpec(),
-                                device=dev)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        fresh = auto_accelerate(
+            Llama(MOE, device="cuda", generator=gen), adam8bit(LLAMA_LR),
+            batch, moe_token_loss, spec=ParallelSpec(), device=dev)
         ck = FlashCheckpointer(root)
         restored = ck.load_checkpoint(fresh.state)[0]
         ck.close()
         check(restored == step, f"restored step {restored}, want {step}")
-        bad = differing(state_bytes(fresh), state_bytes(one_res))
-        check(not bad, f"the fsdp snapshot restored with leaves {bad} "
+        leaves = train_state_leaves(fresh.state)
+        bad = sorted(set(want) ^ {leaf.path for leaf in leaves}) + [
+            leaf.path for leaf in leaves if leaf.path in want
+            and not torch.equal(leaf_bytes(leaf).to("cuda"),
+                                want[leaf.path])]
+        check(not bad, f"the expert snapshot restored with leaves {bad} "
               "differing")
-        log(f"[mesh gpt2-xl] fsdp snapshot of step {step}: every leaf "
-            "restored bit for bit on one device")
-        del fresh
+        log(f"[moe {label}] snapshot of step {step} ({len(want)} leaves, "
+            f"{sum(t.numel() for t in want.values()) / 1e9:.2f} GB): every "
+            "leaf restored bit for bit on one device; window "
+            + json.dumps({k: stats[k] for k in ("step_ms", "peak_mem_gib",
+                                                "busy_share", "kernel_ms")}))
+        del fresh, leaves, want
         torch.cuda.empty_cache()
-        got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "data")
-        check(got["losses"] == one["losses"],
-              f"data losses {got['losses']} differ from one device's "
-              f"{one['losses']}")
-        del one_res, res
+        seq_bodies(seed, windows, create_mesh([("seq", 1)], dev))
+
+
+def seq_bodies(seed, windows, mesh):
+    """(c) ``ring_attention_shard`` and ``ulysses_attention_shard(inner=
+    "pallas")`` on the NCCL group of one at the preset's attention shape
+    (bf16, causal), forward and backward, each held to the plain
+    attention (fp32) under ``attn.tile_rel_err`` / ``TILE_REL_TOL``;
+    Ulysses launches each head_dim-128 flash kernel once; each timed
+    beside the flash kernels' forward and backward alone."""
+    from dlrover_tpu_torch.ops.ring_attention import ring_attention_shard
+    from dlrover_tpu_torch.ops.ulysses import ulysses_attention_shard
+
+    group = mesh.get_group("seq")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = qkv_do(gen, *SEQ_SHAPE[:2], *SEQ_SHAPE[2:])
+    leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    ref = attn.reference_attention(*leaves, causal=True)
+    ref.backward(do.float())
+    want = [ref.detach()] + [x.grad for x in leaves]
+    del ref, leaves
+    bodies = {
+        "ring": lambda a, b, c: ring_attention_shard(a, b, c, True, group),
+        "ulysses": lambda a, b, c: ulysses_attention_shard(
+            a, b, c, True, group, inner="pallas"),
+        "flash": lambda a, b, c: attn.flash_attention(a, b, c, True),
+    }
+    out = {}
+    for name, body in bodies.items():
+        ins = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+        def step():
+            o = body(*ins)
+            o.backward(do)
+            return o
+
+        reset_counts()
+        o = step()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        errs = {n: attn.tile_rel_err(g, w) for n, g, w in zip(
+            ("o", "dq", "dk", "dv"), [o] + [x.grad for x in ins], want)}
+        check(all(math.isfinite(e) and e <= attn.TILE_REL_TOL
+                  for e in errs.values()),
+              f"{name}: tile errors {errs} over {attn.TILE_REL_TOL}")
+        if name == "ulysses":
+            windows["seq ulysses"] = launches
+            for kern in FLASH128:
+                check(launches[kern] == 1,
+                      f"ulysses: {kern} launched {launches[kern]} times")
+        del o
+        out[name] = {"tile_rel_err": errs, "launches": {
+            k_: c for k_, c in launches.items() if c},
+            "fwd_bwd_ms": time_ms(step, SEQ_ITERS, 1)}
+        del ins
         torch.cuda.empty_cache()
-        b, seq = LLAMA_RUNS[0][:2]
-        cfg = LlamaConfig.preset(seq)
-        batch = np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (b, seq), dtype=np.int64)
-        one, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
-                          None)
-        del res
-        torch.cuda.empty_cache()
-        got, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
-                          "tensor")
-        check(got["losses"] == one["losses"],
-              f"tensor losses {got['losses']} differ from one device's "
-              f"{one['losses']}")
-        del res
-        torch.cuda.empty_cache()
-        log("[mesh] " + json.dumps(summary))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for name in launch:
-            os.environ.pop(name, None)
-        unlink_segments(job)
-        shutil.rmtree(root, ignore_errors=True)
+    log(f"[seq B{SEQ_SHAPE[0]} S{SEQ_SHAPE[1]} H{SEQ_SHAPE[2]} "
+        f"D{SEQ_SHAPE[3]}] " + json.dumps(out)
+        + f" (limit: tile_rel_err <= {attn.TILE_REL_TOL})")
 
 
 def checkpoint_phases(seed, windows):
@@ -2094,6 +2352,11 @@ def main():
     phase("gpt2-124m agd and wsam")
     mesh_phases(args.seed, windows)
     phase("mesh branches on an NCCL world of one (fsdp, data, tensor)")
+    moe_losses, moe_launches, moe_batch = moe_train(args.seed, windows)
+    phase("llama-moe (8 experts, top 2) at full width")
+    moe_on_expert_axis(args.seed, windows, moe_losses, moe_launches,
+                       moe_batch)
+    phase("llama-moe on an expert axis of one; ring and ulysses bodies")
     checkpoint_phases(args.seed, windows)
     phase("checkpoint")
     log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")

@@ -6,11 +6,12 @@ and jits one SPMD step. PyTorch runs eagerly, so the "step" is a plain
 function over live modules: forward, backward, optimizer update.
 
 A one-device spec (``ParallelSpec()``, or ``"auto"`` in a one-process
-job) trains the module as it is. A spec of several ``data``, ``fsdp``
-and ``tensor`` degrees over a world of as many processes (one device
-each: a card under NCCL, the CPU under gloo) places the module on a
-``DeviceMesh`` of those axes (``accelerate_on_mesh``, also callable on
-a mesh whose axes have size 1):
+job) trains the module as it is. A spec of several ``data``, ``fsdp``,
+``tensor``, ``seq`` and ``expert`` degrees over a world of as many
+processes (one device each: a card under NCCL, the CPU under gloo)
+places the module on a ``DeviceMesh`` of those axes
+(``accelerate_on_mesh``, also callable on a mesh whose axes have size
+1):
 
 - ``tensor``: each ``Dense`` whose logical axes the rules map to the
   tensor axis becomes column- or row-parallel (``tensor_parallel``):
@@ -19,6 +20,15 @@ a mesh whose axes have size 1):
   vocab-parallel;
 - ``fsdp``: FSDP2's ``fully_shard`` on each block, then on the root
   (every parameter sharded along dim 0, FSDP2's default);
+- ``expert``: each MoE layer's stacks (and its router, along its expert
+  columns) DTensors of this rank's experts (``ops/moe.py``); tokens are
+  replicated over the axis, as JAX's ``batch`` rule names only data
+  and fsdp;
+- ``seq``: the model keeps its shard of every row's sequence, GPT's
+  position rows are sharded over the axis, attention is ring or
+  Ulysses over its group (``models/sequence_parallel.py``), and the
+  gradients of the parameters the axis replicates are summed over it
+  after the backward;
 - ``data``: the gradients all-reduced over the data axis and divided by
   its size after the backward, once a step (the step's own reduction,
   not DDP's wrapper: the parameter names stay the model's, and the
@@ -26,6 +36,12 @@ a mesh whose axes have size 1):
 - every process passes the global batch; ``AccelerateResult.local_batch``
   takes this rank's rows (its ``(data, fsdp)`` coordinate) before they
   reach the device, and the step's loss is the mean over all ranks.
+
+An MoE layer on any mesh routes as JAX routes the global batch (capacity
+from the global token count, buffer positions offset by the earlier
+ranks' tokens). Not yet: ``seq`` or ``expert`` (or an MoE model) with
+``fsdp`` or ``tensor``, ``seq`` with ``expert``, and a ``seq`` degree
+above 1 without ring or Ulysses attention raise ``NotImplementedError``.
 
 An optimizer with ``update_and_apply`` (``adam8bit``,
 ``bf16_master_weights``) keeps its state whole and replicated, as the
@@ -48,6 +64,7 @@ from dlrover_tpu_torch.accel import sharding
 from dlrover_tpu_torch.accel.mesh import axis_sizes, create_mesh
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.ops.moe import Axis, MoEMLP
 from dlrover_tpu_torch.optim.base import bind
 from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 
@@ -56,7 +73,10 @@ from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 _MULTI_DEVICE = ("devices", "profile", "profile_steps", "allow_tensor",
                  "registry", "search_top_k")
 # The mesh axes this slice places a module on.
-MESH_AXES = ("data", "fsdp", "tensor")
+MESH_AXES = ("data", "fsdp", "tensor", "seq", "expert")
+_ITEM6 = ("a later part of ROADMAP queue 1, item 6 (sequence and expert "
+          "parallelism's rest: a leaf sharded over two mesh axes, as item "
+          "2's fsdp x tensor)")
 _SEARCH = ("the strategy-search slice of the port (ROADMAP queue 1, "
            "item 2: search, registry, profile, tp_planner)")
 
@@ -163,7 +183,9 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
 
     On a ``mesh`` the batch is this rank's rows: FSDP2 reduces the
     gradients over ``fsdp`` in the last microbatch's backward only
-    (``set_requires_gradient_sync``), the step then averages them over
+    (``set_requires_gradient_sync``), the step sums those of the
+    parameters a ``seq`` axis replicates over it (each seq rank
+    differentiates its share of the loss), then averages them over
     ``data``, and the loss it reports is the mean over every rank.
     """
     params = dict(module.named_parameters())
@@ -172,6 +194,13 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
     names = () if mesh is None else mesh.mesh_dim_names
     data_group = mesh.get_group("data") if "data" in names else None
     data_size = axis_sizes(mesh).get("data", 1) if mesh is not None else 1
+    seq_group, seq_replicated = None, []
+    if "seq" in names:
+        seq_group = mesh.get_group("seq")
+        axis = names.index("seq")
+        seq_replicated = [p for p in params.values()
+                          if sharding.layout_of(p) is None
+                          or sharding.layout_of(p).shard[axis] is None]
 
     def grads_of(batch, sync: bool = True):
         for m in fsdp:
@@ -182,27 +211,28 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
 
     flat: Dict[Any, torch.Tensor] = {}
 
-    def average_over_data():
-        """One all-reduce a dtype: the gradients are copied into a flat
-        buffer kept from step to step, summed over the data axis,
-        divided by its size and copied back (a collective a tensor costs
-        the host more than the copies cost the card)."""
+    def reduce_grads(which, group, divide: Optional[int]):
+        """One all-reduce a dtype: the gradients of ``which`` are copied
+        into a flat buffer kept from step to step, summed over ``group``,
+        divided by ``divide`` (when given) and copied back (a collective
+        a tensor costs the host more than the copies cost the card)."""
         groups: Dict[Any, list] = {}
-        for p in params.values():
+        for p in which:
             if p.grad is not None:
                 g = sharding.local(p.grad)
                 groups.setdefault((g.dtype, g.device), []).append(g)
         for key, grads in groups.items():
             sizes = [g.numel() for g in grads]
-            buf = flat.get(key)
+            buf = flat.get((id(group),) + key)
             if buf is None or buf.numel() != sum(sizes):
-                buf = flat[key] = torch.empty(sum(sizes), dtype=key[0],
-                                              device=key[1])
+                buf = flat[(id(group),) + key] = torch.empty(
+                    sum(sizes), dtype=key[0], device=key[1])
             views = [v.view(g.shape)
                      for v, g in zip(buf.split(sizes), grads)]
             torch._foreach_copy_(views, grads)
-            dist.all_reduce(buf, group=data_group)
-            buf.div_(float(data_size))
+            dist.all_reduce(buf, group=group)
+            if divide is not None:
+                buf.div_(float(divide))
             torch._foreach_copy_(grads, views)
 
     def step(state, batch):
@@ -225,9 +255,11 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
                         p.grad.div_(grad_accum)
         else:
             lv = grads_of(batch)
-        if data_group is not None:
-            with torch.no_grad():
-                average_over_data()
+        with torch.no_grad():
+            if seq_group is not None:
+                reduce_grads(seq_replicated, seq_group, None)
+            if data_group is not None:
+                reduce_grads(params.values(), data_group, data_size)
         if mesh is not None:
             lv = lv.clone()
             dist.all_reduce(lv)
@@ -277,15 +309,28 @@ def _check_spec(spec: Any) -> ParallelSpec:
         raise NotImplementedError(
             f"collectives={spec.collectives} comes with the collectives "
             "slice of the port (ROADMAP queue 1, item 2)")
-    for name in ("seq", "expert", "pipe"):
-        if getattr(spec, name) > 1:
-            raise NotImplementedError(
-                f"a {name} degree comes with the sequence/expert/pipeline-"
-                "parallel slice of the port (ROADMAP queue 1, item 6)")
+    if spec.pipe > 1:
+        raise NotImplementedError(
+            "a pipe degree comes with the pipeline slice of the port "
+            "(ROADMAP queue 1, item 6: accel/pipeline.py)")
+    _check_axes(dict(spec.axes()))
     if spec.total > 1 and spec.total != _world_size():
         raise ValueError(f"{spec} needs a world of {spec.total} processes, "
                          f"have {_world_size()}")
     return spec
+
+
+def _check_axes(sizes: Dict[str, int]):
+    """The compositions of mesh axes this slice places (``sizes``: the
+    axes present, of any size)."""
+    if ("seq" in sizes or "expert" in sizes) and (
+            "fsdp" in sizes or "tensor" in sizes):
+        raise NotImplementedError(
+            "a seq or expert axis together with fsdp or tensor comes with "
+            + _ITEM6)
+    if "seq" in sizes and "expert" in sizes:
+        raise NotImplementedError(
+            "seq and expert axes together come with " + _ITEM6)
 
 
 def auto_accelerate(
@@ -430,6 +475,76 @@ def tensor_parallel(module: nn.Module, mesh, rules) -> Dict[str, Any]:
     return layouts
 
 
+def _shard_leaves(module: nn.Module, mesh, axis: str) -> Dict[str, Any]:
+    """Every parameter whose logical axes name ``axis`` (JAX's rules map
+    ``seq`` and ``expert`` to the mesh axes of those names) becomes a
+    DTensor of this rank's chunk along that dim (``Shard``, as
+    ``torch.chunk`` splits); returns their layouts by name."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    size = axis_sizes(mesh)[axis]
+    sub = mesh[axis]
+    layouts: Dict[str, Any] = {}
+    for name, axes in module.logical_axes().items():
+        if axis not in axes:
+            continue
+        dim = axes.index(axis)
+        full = module.get_parameter(name)
+        if full.shape[dim] % size:
+            raise ValueError(f"{name}'s dim {dim} of {full.shape[dim]} does "
+                             f"not divide by the {axis} degree {size}")
+        lay = sharding.Layout.of(mesh, {axis: dim})
+        loc = sharding.local_from_full(full.detach(), lay)
+        dt = DTensor.from_local(loc, sub, [Shard(dim)], run_check=False,
+                                shape=full.shape, stride=full.stride())
+        parent, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(parent), leaf,
+                nn.Parameter(dt, requires_grad=full.requires_grad))
+        layouts[name] = lay
+    return layouts
+
+
+def expert_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
+    """Shard every MoE layer's expert stacks over ``mesh``'s expert axis
+    (dim 0, this rank's ``E/K`` experts; the router along its expert
+    columns), in place; returns their layouts by name. An expert count
+    the degree does not divide raises ``ValueError``, as does a degree
+    above 1 with no expert parameter (JAX's ``_check_spec_axes_used``:
+    those devices would be wasted)."""
+    size = axis_sizes(mesh)["expert"]
+    experts = getattr(module.cfg, "num_experts", 0)
+    if size > 1 and not experts:
+        raise ValueError(
+            f"an expert degree of {size}, but no parameter of "
+            f"{type(module).__name__} carries the 'expert' logical axis; "
+            "configure num_experts or drop the degree")
+    if experts % size:
+        raise ValueError(f"num_experts {experts} does not divide by the "
+                         f"expert degree {size}")
+    return _shard_leaves(module, mesh, "expert")
+
+
+def sequence_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
+    """Place ``module`` on ``mesh``'s seq axis, in place: it keeps its
+    shard of each row's sequence, attends over the axis's group (ring or
+    Ulysses; a degree above 1 with any other attention raises
+    ``NotImplementedError``: JAX's GSPMD would gather the sequence),
+    and GPT's position rows are sharded over it. Returns the sharded
+    parameters' layouts by name."""
+    size = axis_sizes(mesh)["seq"]
+    attn = module.cfg.attn_impl
+    if size > 1 and attn not in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"a seq degree of {size} with attn_impl={attn!r} (JAX's GSPMD "
+            "gathers the sequence for it) comes with " + _ITEM6
+            + "; use attn_impl='ring' or 'ulysses'")
+    layouts = _shard_leaves(module, mesh, "seq")
+    module.seq_mesh = mesh["seq"]
+    for block in _stack(module):
+        block.seq_group = mesh.get_group("seq")
+    return layouts
+
+
 def fully_shard_model(module: nn.Module, mesh) -> Dict[str, Any]:
     """FSDP2 over ``mesh``'s fsdp axis: ``fully_shard`` on each block,
     then on the root. Every parameter is sharded along dim 0; returns
@@ -535,16 +650,21 @@ def accelerate_on_mesh(
     offload_optimizer: bool = False,
 ) -> AccelerateResult:
     """``auto_accelerate``'s multi-device branch on ``mesh`` (a
-    ``DeviceMesh`` whose axes are among ``data``, ``fsdp`` and
-    ``tensor``, of any sizes, 1 included; ``mesh.create_mesh``). Every
-    process passes the same module, initialized alike, and the same
-    global ``sample_batch``."""
+    ``DeviceMesh`` whose axes are among ``data``, ``fsdp``, ``tensor``,
+    ``seq`` and ``expert``, of any sizes, 1 included;
+    ``mesh.create_mesh``). Every process passes the same module,
+    initialized alike, and the same global ``sample_batch``."""
     sizes = axis_sizes(mesh)
     other = [a for a in sizes if a not in MESH_AXES]
     if other:
         raise NotImplementedError(
-            f"mesh axes {other} come with the sequence/expert/pipeline-"
-            "parallel slice of the port (ROADMAP queue 1, item 6)")
+            f"mesh axes {other} come with the pipeline slice of the port "
+            "(ROADMAP queue 1, item 6: accel/pipeline.py)")
+    _check_axes(sizes)
+    moe = [m for m in module.modules() if isinstance(m, MoEMLP)]
+    if moe and ("fsdp" in sizes or "tensor" in sizes):
+        raise NotImplementedError(
+            "an MoE model on an fsdp or tensor axis comes with " + _ITEM6)
     if "fsdp" in sizes and "tensor" in sizes:
         raise NotImplementedError(
             "fsdp and tensor degrees together (FSDP2 over tensor-parallel "
@@ -564,6 +684,9 @@ def accelerate_on_mesh(
     if (rows // shards) % grad_accum:
         raise ValueError(f"a rank's batch of {rows // shards} rows is not "
                          f"divisible by grad_accum {grad_accum}")
+    if sample_batch.shape[1] % sizes.get("seq", 1):
+        raise ValueError(f"a sequence of {sample_batch.shape[1]} tokens "
+                         f"does not split over {sizes['seq']} seq ranks")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     shard = coord.get("data", 0) * sizes.get("fsdp", 1) + coord.get("fsdp", 0)
     width = rows // shards
@@ -574,6 +697,13 @@ def accelerate_on_mesh(
         layouts.update(tensor_parallel(module, mesh, rules))
     if "fsdp" in sizes:
         layouts.update(fully_shard_model(module, mesh))
+    if "expert" in sizes:
+        layouts.update(expert_parallel(module, mesh))
+    if "seq" in sizes:
+        layouts.update(sequence_parallel(module, mesh))
+    for m in moe:
+        m.expert, m.data, m.seq = (Axis.of(mesh, a) if a in sizes else None
+                                   for a in ("expert", "data", "seq"))
     replicated = sharding.Layout.replicated(mesh)
     for name, p in module.named_parameters():
         layouts.setdefault(name, replicated)

@@ -10,7 +10,11 @@ has its naming table (``Naming``):
 - LLaMA: ``embed/embedding``, ``final_norm/scale``, ``lm_head/kernel``
   and, per layer, ``attn_norm`` and ``mlp_norm`` (``scale``) and the
   bias-free ``{q,k,v,o,gate,up,down}_proj`` kernels, under ``layers``
-  (scanned) or ``layer_<i>``.
+  (scanned) or ``layer_<i>``;
+- with experts (both families), a layer's ``moe/{router, w_up, b_up,
+  w_gate, w_down, b_down}`` in place of its MLP, under the same names
+  in the port (``blocks.<i>.moe.w_up``), stacked ``[L, E, ...]`` under
+  scanned layers.
 
 The port's ``state_dict`` has one ``blocks.<i>`` / ``layers.<i>`` per
 layer, and the table is chosen from the names (``naming_of``). Dense
@@ -84,6 +88,9 @@ class Naming(NamedTuple):
 
 
 _GPT_DENSE = ("qkv", "proj", "up", "down")
+# An MoE layer's leaves: the same name on both sides.
+_MOE = {("moe", leaf): leaf for leaf in ("router", "w_up", "b_up", "w_gate",
+                                         "w_down", "b_down")}
 _GPT_NORMS = ("ln1", "ln2")
 GPT_NAMING = Naming(
     stack="blocks", unscanned="block_",
@@ -93,6 +100,7 @@ GPT_NAMING = Naming(
         **{(m, "weight"): "scale" for m in _GPT_NORMS},
         **{(m, "bias"): "bias" for m in _GPT_NORMS + _GPT_DENSE},
         **{(m, "kernel"): "kernel" for m in _GPT_DENSE},
+        **_MOE,
     },
 )
 _LLAMA_PROJ = tuple(f"{p}_proj" for p in ("q", "k", "v", "o", "gate", "up",
@@ -105,6 +113,7 @@ LLAMA_NAMING = Naming(
     layer={
         **{(m, "weight"): "scale" for m in ("attn_norm", "mlp_norm")},
         **{(m, "kernel"): "kernel" for m in _LLAMA_PROJ},
+        **_MOE,
     },
 )
 

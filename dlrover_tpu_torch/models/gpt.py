@@ -18,12 +18,23 @@ Same config, same parameters and the same numerics as the JAX model:
   embedding, normal(0.01) for the position embedding.
 
 ``attn_impl="pallas"`` runs the hand-written flash-attention kernels
-(``ops/attention.py``), ``"xla"`` the plain einsum softmax. ``remat``
+(``ops/attention.py``), ``"xla"`` the plain einsum softmax, ``"ring"``
+and ``"ulysses"`` the sequence-parallel attention over the model's
+``seq`` group (``ops/ring_attention.py``, ``ops/ulysses.py``; plain
+attention without one, as in JAX). ``remat``
 checkpoints each block under ``remat_policy`` (``models/remat.py``:
 "nothing", "dots", "dots_lite", "offload"; every matrix product goes
 through ``remat.product`` and the block names ``attn_out`` and
-``ffn_act`` where JAX does). Dense blocks only: MoE, pipeline stages,
-int8 MLP and ring / Ulysses attention raise ``NotImplementedError``.
+``ffn_act`` where JAX does).
+
+``num_experts > 0`` makes every block's FFN an ``ops.moe.MoEMLP`` of gelu
+experts (parameters ``blocks.<i>.moe.{router, w_up, b_up, w_down,
+b_down}``), and the model returns ``(logits, aux)``, the load-balance
+loss averaged over the layers; train it with ``moe_loss_fn``. On a
+``seq`` mesh axis (``accel.accelerate``) the model keeps its shard of
+each row's sequence, its position rows are sharded over the axis, and
+its logits are a sequence-sharded DTensor (``models/sequence_parallel``).
+Pipeline stages and the int8 MLP raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -35,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import sequence_parallel as sp
 from dlrover_tpu_torch.models import tensor_parallel as tp
 from dlrover_tpu_torch.models.remat import (
     Remat,
@@ -42,6 +54,8 @@ from dlrover_tpu_torch.models.remat import (
     checkpoint_name,
     product,
 )
+# The module, not its names: ops.moe imports this package in turn.
+from dlrover_tpu_torch.ops import moe as moe_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,24 +134,18 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig):
-    later = {
-        "num_experts > 0 (MoE)": cfg.num_experts > 0,
-        "pipeline_stages > 1": cfg.pipeline_stages > 1,
-        f"attn_impl={cfg.attn_impl!r}": cfg.attn_impl in ("ring", "ulysses"),
-    }
-    for what, hit in later.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what} comes with the sequence/expert/pipeline-parallel "
-                "slice of the port (ROADMAP queue 1)"
-            )
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError(
+            "pipeline_stages > 1 comes with the pipeline slice of the port "
+            "(ROADMAP queue 1, item 6: accel/pipeline.py, GPipe and "
+            "circular)")
     check_policy(cfg)
     if cfg.mlp_precision != "bf16":
         raise NotImplementedError(
             f"mlp_precision={cfg.mlp_precision!r} comes with the int8 "
             "matmul slice of the port (ROADMAP queue 1)"
         )
-    if cfg.attn_impl not in ("xla", "pallas"):
+    if cfg.attn_impl not in ("xla", "pallas", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -159,8 +167,10 @@ class Dense(nn.Module):
         self.dtype = cfg.dtype
         self.axes = tuple(axes)
         self.tp = None
+        # Zeros until reset_parameters: a layer built alone holds no
+        # uninitialized (possibly non-finite) memory.
         self.kernel = nn.Parameter(
-            torch.empty(d_in, d_out, dtype=cfg.param_dtype, device=device)
+            torch.zeros(d_in, d_out, dtype=cfg.param_dtype, device=device)
         )
         self.bias = nn.Parameter(
             torch.zeros(d_out, dtype=cfg.param_dtype, device=device)
@@ -218,8 +228,17 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
 
 
-def _attention(q, k, v, cfg: GPTConfig):
-    """Causal attention. q, k, v: [B, S, H, D]."""
+def _attention(q, k, v, cfg: GPTConfig, seq_group=None):
+    """Causal attention. q, k, v: [B, S, H, D] (this rank's sequence shard
+    under ring / Ulysses attention over ``seq_group``)."""
+    if cfg.attn_impl == "ring":
+        from dlrover_tpu_torch.ops.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, causal=True, group=seq_group)
+    if cfg.attn_impl == "ulysses":
+        from dlrover_tpu_torch.ops.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=True, group=seq_group)
     if cfg.attn_impl == "pallas":
         from dlrover_tpu_torch.ops.attention import flash_attention
 
@@ -245,7 +264,9 @@ class Block(nn.Module):
     """Pre-LN transformer block. Under tensor parallelism (``tp_group``
     set by ``accel.accelerate``) it computes on this rank's ``heads``
     of q, of k and of v (the local columns of ``qkv``, three regions)
-    and its ``mlp`` columns."""
+    and its ``mlp`` columns; on a ``seq`` axis its attention crosses the
+    ``seq_group``. With experts its FFN is ``moe`` and it returns
+    ``(x, aux)``."""
 
     def __init__(self, cfg: GPTConfig, device):
         super().__init__()
@@ -253,12 +274,17 @@ class Block(nn.Module):
         self.cfg = cfg
         self.heads = cfg.num_heads
         self.tp_group = None
+        self.seq_group = None
         self.ln1 = LayerNorm(d, cfg, device)
         self.qkv = Dense(d, 3 * d, cfg, device, axes=("embed", "heads"))
         self.proj = Dense(d, d, cfg, device, axes=("heads", "embed"))
         self.ln2 = LayerNorm(d, cfg, device)
-        self.up = Dense(d, cfg.ff_dim, cfg, device, axes=("embed", "mlp"))
-        self.down = Dense(cfg.ff_dim, d, cfg, device, axes=("mlp", "embed"))
+        if cfg.num_experts > 0:
+            self.moe = moe_ops.MoEMLP(cfg, device, mlp_type="gelu")
+        else:
+            self.up = Dense(d, cfg.ff_dim, cfg, device, axes=("embed", "mlp"))
+            self.down = Dense(cfg.ff_dim, d, cfg, device,
+                              axes=("mlp", "embed"))
 
     def forward(self, x):
         cfg = self.cfg
@@ -268,10 +294,13 @@ class Block(nn.Module):
         q, k, v = self.qkv(y).split(h * hd, dim=-1)
         attn = _attention(
             q.reshape(b, s, h, hd), k.reshape(b, s, h, hd),
-            v.reshape(b, s, h, hd), cfg,
+            v.reshape(b, s, h, hd), cfg, self.seq_group,
         ).reshape(b, s, h * hd)
         attn = checkpoint_name(attn, "attn_out")
         x = x + self.proj(attn)
+        if cfg.num_experts > 0:
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
         y = tp.enter(self.ln2(x), self.tp_group)
         y = F.gelu(self.up(y), approximate="tanh")
         y = checkpoint_name(y, "ffn_act")
@@ -279,7 +308,8 @@ class Block(nn.Module):
 
 
 class GPT(nn.Module):
-    """Decoder-only LM. ``forward(tokens[B,S]) -> logits[B,S,V]``.
+    """Decoder-only LM. ``forward(tokens[B,S]) -> logits[B,S,V]``, or
+    ``(logits, aux)`` with experts.
 
     Built on ``device`` (the card unless the caller names another) and
     initialized from ``generator`` (a seeded ``torch.Generator`` on that
@@ -304,6 +334,8 @@ class GPT(nn.Module):
         )
         self.ln_f = LayerNorm(cfg.d_model, cfg, device)
         self.remat = Remat(cfg)
+        # The seq axis's 1-D mesh on a seq mesh (set by accel.accelerate).
+        self.seq_mesh = None
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
@@ -313,7 +345,7 @@ class GPT(nn.Module):
             self.wte.weight.normal_(0.0, 0.02, generator=generator)
             self.wpe.normal_(0.0, 0.01, generator=generator)
         for m in self.modules():
-            if isinstance(m, (Dense, LayerNorm)):
+            if isinstance(m, (Dense, LayerNorm, moe_ops.MoEMLP)):
                 m.reset_parameters(generator)
 
     def logical_axes(self):
@@ -324,21 +356,31 @@ class GPT(nn.Module):
 
     def forward(self, tokens):
         cfg = self.cfg
+        tokens, lo = sp.shard_tokens(tokens, self.seq_mesh)
         s = tokens.shape[1]
-        x = self.wte(tokens).to(cfg.dtype) + self.wpe[:s].to(cfg.dtype)
-        x = self.ln_f(self.remat.run(self.blocks, x))
+        wpe = sp.gather_rows(self.wpe, self.seq_mesh)
+        x = self.wte(tokens).to(cfg.dtype) + wpe[lo:lo + s].to(cfg.dtype)
+        x, auxes = self.remat.run(self.blocks, x)
+        x = self.ln_f(x)
         # Tied output head: logits via the embedding table, in dtype.
-        return x @ self.wte.weight.to(cfg.dtype).t()
+        logits = sp.shard_logits(x @ self.wte.weight.to(cfg.dtype).t(),
+                                 self.seq_mesh)
+        if cfg.num_experts > 0:
+            return logits, torch.stack(auxes).mean()
+        return logits
 
 
 def _logical_axes(model: nn.Module, top, norms=(LayerNorm,)) -> dict:
     """``{parameter name: logical axes}``: ``top`` for the parameters
     outside the layers, a ``Dense``'s kernel axes (its bias: the last),
-    and ``("embed",)`` for a norm's."""
+    ``("embed",)`` for a norm's and an MoE layer's ``AXES``."""
     out = {}
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
-        if isinstance(module, Dense):
+        if isinstance(module, moe_ops.MoEMLP):
+            for leaf, _ in module.named_parameters(recurse=False):
+                out[prefix + leaf] = module.AXES[leaf]
+        elif isinstance(module, Dense):
             out[prefix + "kernel"] = module.axes
             if module.bias is not None:
                 out[prefix + "bias"] = module.axes[-1:]
@@ -353,10 +395,14 @@ def loss_fn(logits, tokens):
     """Next-token cross entropy; logits[B,S,V], tokens[B,S]: logsumexp
     minus the target logit, in fp32. Logits that are a DTensor sharded
     along the vocab (a vocab-parallel head) take the logsumexp and the
-    target logit across the shards (``models/tensor_parallel.py``)."""
-    from torch.distributed.tensor import DTensor
+    target logit across the shards (``models/tensor_parallel.py``);
+    sharded along the sequence, each rank its positions' share
+    (``models/sequence_parallel.py``)."""
+    from torch.distributed.tensor import DTensor, Shard
 
     targets = tokens[:, 1:]
+    if isinstance(logits, DTensor) and logits.placements[0] == Shard(1):
+        return sp.loss(logits, tokens)
     if isinstance(logits, DTensor):
         mesh = logits.device_mesh
         x = logits.to_local()[:, :-1].float()
@@ -369,3 +415,10 @@ def loss_fn(logits, tokens):
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(lse - tgt)
+
+
+def moe_loss_fn(out, tokens, aux_weight: float = 1e-2):
+    """Loss of a model with experts: ``out`` is its ``(logits, aux)``;
+    ``loss_fn`` plus the load-balance loss at Switch's weight."""
+    logits, aux = out
+    return loss_fn(logits, tokens) + aux_weight * aux

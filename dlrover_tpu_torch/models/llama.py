@@ -19,20 +19,28 @@ config, parameters and numerics:
   or ``layer_<i>`` unscanned; ``models/convert.py`` carries them).
 
 ``attn_impl="pallas"`` runs the hand-written flash kernels (head_dim 128
-in the presets), ``"xla"`` the einsum softmax; ``remat`` checkpoints each
-layer under ``remat_policy`` (``models/remat.py``). MoE, pipeline stages,
-int8 MLP and ring / Ulysses attention raise ``NotImplementedError``, as
-in the port's GPT.
+in the presets), ``"xla"`` the einsum softmax, ``"ring"`` / ``"ulysses"``
+the sequence-parallel attention (GQA's K/V repeated to the query heads
+first, as in JAX); ``remat`` checkpoints each layer under
+``remat_policy`` (``models/remat.py``). ``num_experts > 0`` makes every
+layer's MLP an ``ops.moe.MoEMLP`` of swiglu experts (``layers.<i>.moe``:
+``router``, ``w_up``, ``b_up``, ``w_gate``, ``w_down``, ``b_down``) and
+the model returns ``(logits, aux)``, as the port's GPT does. On a
+``seq`` mesh axis RoPE takes each shard's global positions. Pipeline
+stages and the int8 MLP raise ``NotImplementedError``, as in the port's
+GPT.
 """
 
 import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models import sequence_parallel as sp
 from dlrover_tpu_torch.models import tensor_parallel as tp
 from dlrover_tpu_torch.models.gpt import (  # shared attention + loss
     Dense,
@@ -40,11 +48,14 @@ from dlrover_tpu_torch.models.gpt import (  # shared attention + loss
     _check_supported,
     _logical_axes,
     loss_fn,
+    moe_loss_fn,
 )
 from dlrover_tpu_torch.models.remat import Remat, checkpoint_name
+# The module, not its names: ops.moe imports this package in turn.
+from dlrover_tpu_torch.ops import moe as moe_ops
 
 __all__ = ["LlamaConfig", "Llama", "LlamaBlock", "RMSNorm", "rope",
-           "loss_fn"]
+           "loss_fn", "moe_loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +115,18 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.d_model // self.num_heads
 
-    def param_count(self) -> int:
+    def param_count(self, active: bool = False) -> int:
+        """Total params; with experts, ``active=True`` counts only the
+        top-k experts a token visits (as the JAX GPT counts them, with
+        three matrices and both biases a swiglu expert)."""
         d, f, v, l = self.d_model, self.ff_dim, self.vocab_size, self.num_layers
         kv = self.kv_heads * self.head_dim
-        per_layer = d * d + 2 * d * kv + d * d + 3 * d * f + 2 * d
+        if self.num_experts > 0:
+            n_ffn = self.moe_top_k if active else self.num_experts
+            mlp = n_ffn * (3 * d * f + f + d) + d * self.num_experts
+        else:
+            mlp = 3 * d * f
+        per_layer = d * d + 2 * d * kv + d * d + mlp + 2 * d
         return 2 * v * d + l * per_layer + d
 
     def vocab_param_count(self) -> int:
@@ -115,9 +134,9 @@ class LlamaConfig:
         return 2 * self.vocab_size * self.d_model
 
     def flops_per_token(self) -> float:
-        """Approx training FLOPs/token (6 * params + attention)."""
+        """Approx training FLOPs/token (6 * active params + attention)."""
         attn = 12 * self.num_layers * self.d_model * self.max_seq_len
-        return 6 * self.param_count() + attn
+        return 6 * self.param_count(active=True) + attn
 
     @staticmethod
     def tiny():
@@ -184,7 +203,9 @@ class LlamaBlock(nn.Module):
     """Pre-norm decoder layer: GQA attention with RoPE, SwiGLU MLP. Under
     tensor parallelism (``tp_group`` set by ``accel.accelerate``) it
     computes on this rank's ``heads`` and ``kv_heads`` (both counts
-    split) and its ``mlp`` columns."""
+    split) and its ``mlp`` columns; on a ``seq`` axis its positions are
+    its shard's and its attention crosses the ``seq_group``. With
+    experts its MLP is ``moe`` and it returns ``(x, aux)``."""
 
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
@@ -193,6 +214,7 @@ class LlamaBlock(nn.Module):
         self.cfg = cfg
         self.heads, self.kv_heads = cfg.num_heads, cfg.kv_heads
         self.tp_group = None
+        self.seq_group = None
         self.attn_norm = RMSNorm(d, cfg, device)
         heads, mlp = ("embed", "heads"), ("embed", "mlp")
         self.q_proj = Dense(d, cfg.num_heads * hd, cfg, device,
@@ -202,6 +224,9 @@ class LlamaBlock(nn.Module):
         self.o_proj = Dense(d, d, cfg, device, use_bias=False,
                             axes=("heads", "embed"))
         self.mlp_norm = RMSNorm(d, cfg, device)
+        if cfg.num_experts > 0:
+            self.moe = moe_ops.MoEMLP(cfg, device, mlp_type="swiglu")
+            return
         self.gate_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False,
                                axes=mlp)
         self.up_proj = Dense(d, cfg.ff_dim, cfg, device, use_bias=False,
@@ -217,15 +242,21 @@ class LlamaBlock(nn.Module):
         q = self.q_proj(y).reshape(b, s, h, hd)
         k = self.k_proj(y).reshape(b, s, kvh, hd)
         v = self.v_proj(y).reshape(b, s, kvh, hd)
-        positions = torch.arange(s, device=x.device)
+        # A seq rank's tokens start at rank * s (an even split).
+        lo = 0 if self.seq_group is None else \
+            dist.get_rank(self.seq_group) * s
+        positions = torch.arange(lo, lo + s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if kvh != h:
             k = torch.repeat_interleave(k, h // kvh, dim=2)
             v = torch.repeat_interleave(v, h // kvh, dim=2)
-        attn = _attention(q, k, v, cfg).reshape(b, s, h * hd)
+        attn = _attention(q, k, v, cfg, self.seq_group).reshape(b, s, h * hd)
         attn = checkpoint_name(attn, "attn_out")
         x = x + self.o_proj(attn)
+        if cfg.num_experts > 0:
+            y, aux = self.moe(self.mlp_norm(x))
+            return x + y, aux
         y = tp.enter(self.mlp_norm(x), self.tp_group)
         y = F.silu(self.gate_proj(y)) * self.up_proj(y)
         y = checkpoint_name(y, "ffn_act")
@@ -233,7 +264,8 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """Decoder-only LM. ``forward(tokens[B,S]) -> logits[B,S,V]``.
+    """Decoder-only LM. ``forward(tokens[B,S]) -> logits[B,S,V]``, or
+    ``(logits, aux)`` with experts.
 
     Built on ``device`` (the card unless the caller names another) and
     initialized from ``generator`` (a seeded ``torch.Generator`` on that
@@ -261,6 +293,8 @@ class Llama(nn.Module):
         # (set by accel.accelerate): the logits are then a DTensor
         # sharded along the vocab.
         self.vocab_mesh = None
+        # The seq axis's 1-D mesh on a seq mesh (set by accel.accelerate).
+        self.seq_mesh = None
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
@@ -269,7 +303,7 @@ class Llama(nn.Module):
         with torch.no_grad():
             self.embed.weight.normal_(0.0, 0.02, generator=generator)
         for m in self.modules():
-            if isinstance(m, (Dense, RMSNorm)):
+            if isinstance(m, (Dense, RMSNorm, moe_ops.MoEMLP)):
                 m.reset_parameters(generator)
 
     def logical_axes(self):
@@ -280,13 +314,18 @@ class Llama(nn.Module):
 
     def forward(self, tokens):
         cfg = self.cfg
+        tokens, _ = sp.shard_tokens(tokens, self.seq_mesh)
         x = self.embed(tokens).to(cfg.dtype)
-        x = self.remat.run(self.layers, x)
+        x, auxes = self.remat.run(self.layers, x)
         x = self.final_norm(x)
         if self.vocab_mesh is None:
-            return self.lm_head(x)
-        from torch.distributed.tensor import DTensor, Shard
+            logits = sp.shard_logits(self.lm_head(x), self.seq_mesh)
+        else:
+            from torch.distributed.tensor import DTensor, Shard
 
-        logits = self.lm_head(tp.enter(x, self.vocab_mesh.get_group()))
-        return DTensor.from_local(logits, self.vocab_mesh, [Shard(2)],
-                                  run_check=False)
+            logits = self.lm_head(tp.enter(x, self.vocab_mesh.get_group()))
+            logits = DTensor.from_local(logits, self.vocab_mesh, [Shard(2)],
+                                        run_check=False)
+        if cfg.num_experts > 0:
+            return logits, torch.stack(auxes).mean()
+        return logits

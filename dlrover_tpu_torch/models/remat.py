@@ -10,14 +10,17 @@ rest of the block from its input.
 - ``"nothing"``: keeps only the block input (least memory);
 - ``"dots"``: keeps the output of every matrix product and recomputes
   the elementwise work, as ``jax.checkpoint_policies.checkpoint_dots``
-  does: each ``Dense`` product (``mm``) and, on the einsum attention
-  path, the two batched attention products (``bmm``);
+  does: each ``Dense`` product (``mm``), on the einsum attention
+  path the two batched attention products (``bmm``), and in an MoE
+  layer the router's logits, the experts' batched products and the
+  dispatch and combine gathers (``kept``);
 - ``"dots_lite"``: keeps only the tensors a block names ``attn_out`` and
   ``ffn_act`` with ``checkpoint_name``, as
   ``save_only_these_names("attn_out", "ffn_act")`` does;
 - ``"offload"``: keeps what ``offload_dot_with_no_batch_dims("device",
-  "pinned_host")`` keeps, every ``Dense`` product, in host memory
-  (``HostPool``); the batched attention products are recomputed.
+  "pinned_host")`` keeps, every ``Dense`` product and the MoE's
+  dispatch and combine, in host memory (``HostPool``); the batched
+  products (attention's, the experts') are recomputed.
 
 **The mechanism.** No dispatch mode and no selective-checkpoint context:
 each checkpointed call of a block owns a ``_Keep``. In the forward, the
@@ -130,6 +133,38 @@ def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # runs no probe (the recompute's inputs need the forward's grads).
     _saved_operands(a.dim() == 3, a.requires_grad, b.requires_grad)
     return keep.put(_mm(a, b))
+
+
+class _KeptReplay(torch.autograd.Function):
+    """A kept gathered product (``kept``) in the recompute: hands back the
+    forward's output and saves what that function's node saved (its
+    ``saved(*args)``), so its backward finds them. ``args`` are the
+    function's own tensor inputs, so the output needs a gradient where
+    the forward's did."""
+
+    @staticmethod
+    def forward(ctx, keep, saved, *args):
+        out = keep.take()
+        ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("a remat recompute's graph is not differentiated")
+
+
+def kept(fn, *args) -> torch.Tensor:
+    """``fn.apply(*args)`` for an ``autograd.Function`` that computes a
+    contraction by index (the MoE's dispatch and combine, JAX's
+    ``nec,nd->ecd`` and ``nec,ecd->nd``: products without batch dims),
+    kept as a ``Dense`` product is (under "dots" and "offload"); ``fn``
+    names what its forward saves with a static ``saved(*args)``."""
+    keep = _KEEP.get()
+    if keep is None or not keep.keeps(False):
+        return fn.apply(*args)
+    if keep.replaying:
+        return _KeptReplay.apply(keep, fn.saved(*args), *args)
+    return keep.put(fn.apply(*args))
 
 
 def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -332,24 +367,31 @@ class Remat:
                      else None)
 
     def run(self, blocks, x):
-        """``x`` through ``blocks`` in order. Without remat, or when
-        autograd does not record the call (there is nothing to keep),
-        each block runs as it is."""
+        """``x`` through ``blocks`` in order: ``(x, auxes)``, where
+        ``auxes`` are the auxiliary losses of the blocks that return
+        ``(x, aux)`` (MoE blocks). Without remat, or when autograd does
+        not record the call (there is nothing to keep), each block runs
+        as it is."""
         cfg = self.cfg
-        if not cfg.remat or not torch.is_grad_enabled():
-            for block in blocks:
-                x = block(x)
-            return x
-        policy, prev = cfg.remat_policy, None
+        remat = cfg.remat and torch.is_grad_enabled()
+        policy, prev, auxes = cfg.remat_policy, None, []
         # No block draws random numbers, so no RNG state is kept for the
         # recompute.
         for i, block in enumerate(blocks):
-            if policy == "nothing":
-                x = checkpoint(block, x, use_reentrant=False,
-                               preserve_rng_state=False)
-                continue
-            keep = _Keep(policy, i, self.pool, prev)
-            x = checkpoint(_kept_call, block, keep, x, use_reentrant=False,
-                           preserve_rng_state=False)
-            prev = keep
-        return x
+            if not remat:
+                out = block(x)
+            elif policy == "nothing":
+                out = checkpoint(block, x, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                keep = _Keep(policy, i, self.pool, prev)
+                out = checkpoint(_kept_call, block, keep, x,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+                prev = keep
+            if isinstance(out, tuple):
+                x, aux = out
+                auxes.append(aux)
+            else:
+                x = out
+        return x, auxes

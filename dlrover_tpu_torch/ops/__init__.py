@@ -1,8 +1,9 @@
 """Kernels of the port: hand-written Hopper CUDA beside plain PyTorch.
 
 Counterpart of ``dlrover_tpu/ops``. Ported so far: flash attention
-(forward, dQ, dK/dV). Ring and Ulysses attention, MoE and int8 matmuls
-come in later slices.
+(forward, dQ, dK/dV), ring and Ulysses attention (``ring_attention``,
+``ulysses``) and the mixture of experts (``moe``). The int8 matmuls come
+in a later slice.
 """
 
 from dlrover_tpu_torch.ops.attention import (  # noqa: F401

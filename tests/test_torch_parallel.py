@@ -261,9 +261,9 @@ def worker(path):
     seen = []
     attention = gpt._attention
 
-    def spy(q, k, v, cfg):
+    def spy(q, k, v, cfg, *seq_group):
         seen.append(q.shape[2])
-        return attention(q, k, v, cfg)
+        return attention(q, k, v, cfg, *seq_group)
 
     gpt._attention = llama._attention = spy
     rank = int(os.environ["RANK"])
@@ -288,11 +288,13 @@ def _free_port() -> int:
 
 
 class World:
-    """``n`` worker processes on ``inputs`` (a pickle path; ``--jax``: one
-    process of JAX references); ``join`` waits up to the deadline, kills
+    """``n`` worker processes of ``script`` (this file by default) on
+    ``inputs`` (a pickle path; ``--jax``: one process of JAX references);
+    ``join`` waits up to the deadline, kills
     every process on expiry or failure, and raises with their logs."""
 
-    def __init__(self, n: int, inputs: str, job: str, jax_refs=False):
+    def __init__(self, n: int, inputs: str, job: str, jax_refs=False,
+                 script: str = __file__):
         self.n, self.inputs, self.job = n, inputs, job
         port = _free_port()
         self.procs, self.logs = [], []
@@ -309,7 +311,7 @@ class World:
             log = open(f"{inputs}.log{r}", "w+")
             self.logs.append(log)
             self.procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__)]
+                [sys.executable, os.path.abspath(script)]
                 + (["--jax"] if jax_refs else []) + [inputs],
                 env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
         self.t0 = time.monotonic()

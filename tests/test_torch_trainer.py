@@ -227,7 +227,7 @@ def test_multi_device_specs_raise():
                         spec=ParallelSpec(data=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         auto_accelerate(model, adamw(1e-3), batches(1)[0], port_loss,
-                        spec=ParallelSpec(seq=2), device="cpu")
+                        spec=ParallelSpec(seq=2, tensor=2), device="cpu")
 
 
 class TestDevicePrefetch:
