@@ -23,7 +23,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    kernel's bound from its bytes and FLOPs; then the head_dim-128 forms
    (LLaMA's): each held to its plain version at the LLaMA preset's
    shapes (B 4, S 2048 and B 1, S 8192, 16 heads, causal), non-causal,
-   ragged and at S 192, and timed at both preset shapes the same way;
+   ragged (causal and not), at S 192 and at shapes that strain the
+   forward's walk over its items (one block of one tile; 120 items; 40
+   (b, h) in L2 groups), and timed at both preset shapes the same way;
 4. check the GPT's and the LLaMA's kernel paths against their einsum
    paths on a small input (2 layers at full width), then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
    the seed, one fixed batch, AdamW) through ``Trainer.fit``: 2 warm-up
@@ -2213,7 +2215,9 @@ class Phases:
 def d128_kernels(gen, errs):
     """The head_dim-128 kernels against their plain versions at the LLaMA
     preset's attention shapes (B 4, S 2048 and B 1, S 8192; 16 heads,
-    causal), non-causal, at a ragged S and at S 192; then each timed at
+    causal), non-causal, at a ragged S (causal and not), at S 192, at
+    B 1 H 1 S 128, at B 3 H 5 S 1000 and at B 1 H 40 S 2048 (causal and
+    not); then each timed at
     both shapes, alone and through its wrapper, beside its plain version,
     SDPA's forward and ATen's flash backward. Adds the errors to
     ``errs``; returns the times and bounds at B 4, S 2048."""
@@ -2228,6 +2232,19 @@ def d128_kernels(gen, errs):
     compare(*qkv_do(gen, 2, 1024, 4, 128), False, "d128 non-causal B2 S1024")
     compare(*qkv_do(gen, 2, 1000, 4, 128), True, "d128 causal ragged B2 S1000")
     compare(*qkv_do(gen, 2, 192, 4, 128), True, "d128 causal B2 S192")
+    # Shapes that strain the forward's walk: a grid of one block with one
+    # item of one tile; 120 items (fewer than the SMs) with ragged and
+    # masked tiles; a ragged S without the mask.
+    compare(*qkv_do(gen, 1, 128, 1, 128), True, "d128 causal B1 H1 S128")
+    compare(*qkv_do(gen, 3, 1000, 5, 128), True,
+            "d128 causal ragged B3 H5 S1000")
+    compare(*qkv_do(gen, 2, 1000, 4, 128), False,
+            "d128 non-causal ragged B2 S1000")
+    # 40 (b, h) whose K and V do not fit in half the L2 cache: the
+    # forward walks them in groups, the last one short.
+    compare(*qkv_do(gen, 1, 2048, 40, 128), True, "d128 causal B1 H40 S2048")
+    compare(*qkv_do(gen, 1, 2048, 40, 128), False,
+            "d128 non-causal B1 H40 S2048")
     timing = {}
     for label, (b, s) in shapes.items():
         x = qkv_do(gen, b, s, heads, 128)

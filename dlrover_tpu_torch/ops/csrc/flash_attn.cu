@@ -32,18 +32,18 @@
 // into rings of shared-memory stages guarded by full and empty mbarriers,
 // and two consumer warpgroups, each owning 64 rows, issue wgmma with the
 // accumulators in registers; setmaxnreg moves the producer's registers to
-// the consumers (24 and 240 a thread), though ptxas compiles every path
-// within the 168 a thread that the launch of 384 threads allocates (a
-// 512-thread block of three consumer warpgroups gets 128 and spills).
+// the consumers (24 and 240 a thread; ptxas -v reports the 168 a thread
+// that the launch of 384 threads allocates, and a 512-thread block of
+// three consumer warpgroups, 128 a thread, spills).
 // Scores never leave registers: the softmax works on each thread's pieces
 // of two rows (the max and sum reduce over the 4 lanes of a quad), P or
 // dS is packed to bf16 in registers and is the A operand of the next
 // wgmma, and only the tiles that cross the diagonal or the ragged end
 // test the mask.
-//   fwd_kernel: 128 query rows of one (b, h) an item; Q in two buffers, K
-//     and V in 128-row tiles through 4 stages (165 KB of shared memory);
-//     S = Q K^T by m64n128k16, exp2 on prescaled scores, O += P V by
-//     m64n64k16 with V MN-major. Inside a warpgroup, S_t = Q K_t^T and
+//   fwd_kernel at D = 64: 128 query rows of one (b, h) an item; Q in two
+//     buffers, K and V in 128-row tiles through 4 stages (165 KB of shared
+//     memory); S = Q K^T by m64n128k16, exp2 on prescaled scores, O += P V
+//     by m64n64k16 with V MN-major. Inside a warpgroup, S_t = Q K_t^T and
 //     O += P_{t-1} V_{t-1} are issued together and the softmax of S_t runs
 //     while the second product does, across items too (an item's last
 //     P V goes with the next item's first S). What bounds it on the H100
@@ -84,8 +84,32 @@
 // keeps 2 K/V stages (192 KB), dQ 3 (225 KB), dK/dV 2 (195 KB). The
 // accumulators double: the forward's O and dQ's hold 64 fp32 a thread,
 // dK/dV's dK and dV 64 each beside S^T and dP^T (32 each), within the
-// 240 registers setmaxnreg gives a consumer. The forward at D = 128 does
-// not overlap a warpgroup's products with its softmax (see its loop).
+// 240 registers setmaxnreg gives a consumer.
+//   The forward at D = 128 runs the D = 64 loop and adds two things to
+// it (Fwd<128>; each measured on the H100 with ops/flash_probe.py, which
+// also keeps the forms that were dropped; PERF.md, section 6): with 2
+// stages, a K tile goes back to the producer as soon as its S is in
+// (K_RELEASE: freed with its V after the P V, it left the producer no
+// lookahead); the items go in groups of (b, h) whose K and V fit in half
+// the L2 cache (L2_GROUPS: at 4 x 2048 the 64 (b, h) hold 64 MB of K and
+// V, which the plain order read again from HBM for every query tile).
+// Its S, O and P (64 + 64 + 32 fp32 a thread) fit only in the 240
+// registers setmaxnreg gives: a trap inlined into the consumers' code
+// (mbar_wait's watchdog) held them to the launch's 168, and the loop
+// spilled and serialised its wgmmas, so the forward traps out of line
+// (hopper::deadlock). Measured and dropped, at 4 x 2048 / 1 x 8192 (16
+// heads, causal) on an H100 80GB HBM3 at 700 W, where this form takes
+// about 0.132 / 0.42 ms: FlashAttention-3's ping-pong, the two
+// warpgroups issuing their products in strict turns (fwd128_turns, about
+// 0.132 / 0.44 ms through mbarriers; through named barriers, which wait
+// without a limit, 1-2% faster at 4 x 2048 only), as each softmax
+// already runs under its own warpgroup's P V; the softmax after both
+// products (fwd128_together) and P V waited for before S
+// (fwd128_pv_first), each about 0.139 / 0.46-0.47. What bounds it (the
+// probe's phase clocks): a warpgroup's softmax (about 1,400-1,600 clocks
+// a tile) against its and the other warpgroup's products (about 1,000
+// each), the issue behind those products, the K/V waits, and each item's
+// first tile and epilogue.
 //
 // Inputs are bf16 [B, S, H, D], D 64 or 128, read through their strides
 // (head_dim stride 1, the others multiples of 8 elements, each at least
@@ -98,6 +122,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <vector>
 
 #include "hopper.cuh"
 
@@ -234,12 +261,43 @@ constexpr int kFwdPanel = FBN * ROW_BYTES;  // a panel of Q, K or V
 template <int D>
 struct Fwd {
   static constexpr int STAGES = D == 64 ? 4 : 2;  // K/V ring
+  // What the head_dim-128 loop adds to the head_dim-64 one (fwd_kernel):
+  // K_RELEASE, a K tile goes back to the producer once S = Q K^T is in,
+  // not with its V tile; L2_GROUPS, the items of a group of (b, h) whose K
+  // and V fit in half the L2 cache come before the next group's.
+  static constexpr bool K_RELEASE = D == 128;
+  static constexpr bool L2_GROUPS = D == 128;
   static constexpr int TILE = tile_bytes<D>(FBN);
+  static constexpr int BARRIERS =
+      2 * FWD_QBUF + (K_RELEASE ? 4 : 3) * STAGES;
   static constexpr size_t SMEM = 1024 + (FWD_QBUF + 2 * STAGES) * TILE +
-                                 (2 * FWD_QBUF + 3 * STAGES) *
-                                     sizeof(uint64_t);
+                                 BARRIERS * sizeof(uint64_t);
   static_assert(SMEM <= kMaxSmem, "forward shared memory");
 };
+
+// A forward work item: its query tile (of FBM rows) and (b, h).
+struct FwdItem {
+  int q_tile, bh;
+};
+
+// Item ``item`` of the forward's walk in groups of ``group`` (b, h)
+// (Fwd<D>::L2_GROUPS; the last group may hold fewer): the blocks at work
+// at once then read the K/V tiles of a few (b, h), which stay in the L2
+// cache from one query tile to the next, where all of them would not.
+// Inside a group the query tiles go heaviest first in the last group and
+// every second one before it, and lightest first in the others, so that
+// the tiles' weights rise and fall smoothly across groups (snake_item
+// pairs a block's heavy item with a light one in the next round) and end
+// light. The kernel walks it, and the host's choice of ``group``
+// (l2_group) models that walk.
+__host__ __device__ __forceinline__ FwdItem grouped_item(int item, int BH,
+                                                         int n_q, int group) {
+  const int g = item / (n_q * group), g0 = g * group;
+  const int size = BH - g0 < group ? BH - g0 : group;
+  const int n_groups = (BH + group - 1) / group;
+  const int r = item % (n_q * group), i = r / size;
+  return {(n_groups - 1 - g) % 2 ? i : n_q - 1 - i, g0 + r % size};
+}
 
 // One online-softmax step over a tile of raw scores ``s`` (64 rows x 128
 // columns of a warpgroup; this thread holds pieces of rows row0 and row0 +
@@ -376,8 +434,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
            float* __restrict__ lse, int BH, int H, int Sq, int Sk, Layout lo,
-           float scale_log2, int causal) {
-  constexpr int FWD_STAGES = Fwd<D>::STAGES, kFwdTile = Fwd<D>::TILE;
+           float scale_log2, int causal, int group) {
+  using F = Fwd<D>;
+  // At D = 128 a wait that never ends traps out of line, which leaves the
+  // consumers setmaxnreg's registers (hopper::deadlock).
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    hopper::mbar_wait<D == 128>(bar, parity);
+  };
+  constexpr int FWD_STAGES = F::STAGES, kFwdTile = F::TILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align_1024(smem_raw);
   unsigned char* sK = sQ + FWD_QBUF * kFwdTile;
@@ -386,12 +450,21 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* q_empty = q_full + FWD_QBUF;
   uint64_t* k_full = q_empty + FWD_QBUF;
   uint64_t* v_full = k_full + FWD_STAGES;
-  uint64_t* empty = v_full + FWD_STAGES;
+  uint64_t* empty = v_full + FWD_STAGES;  // a stage's V (and K) is read
+  // A stage's K is read: barriers of its own with K_RELEASE.
+  uint64_t* k_empty = F::K_RELEASE ? empty + FWD_STAGES : empty;
 
   const int n_q = (Sq + FBM - 1) / FBM, n_items = n_q * BH;
   // Item i: query tile n_q - 1 - i / BH of (b, h) = i % BH, and its kv
-  // tiles, so the heaviest causal tiles come first.
-  auto q_start = [&](int item) { return (n_q - 1 - item / BH) * FBM; };
+  // tiles, so the heaviest causal tiles come first; with L2_GROUPS the
+  // items go group by group (grouped_item).
+  auto item_at = [&](int item) -> FwdItem {
+    if constexpr (F::L2_GROUPS) {
+      return grouped_item(item, BH, n_q, group);
+    } else {
+      return {n_q - 1 - item / BH, item % BH};
+    }
+  };
   auto n_kv_of = [&](int q0) {
     const int n = (Sk + FBN - 1) / FBN;
     return causal ? min(n, (q0 + FBM - 1) / FBN + 1) : n;
@@ -406,6 +479,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::mbar_init(k_full + s, 1);
       hopper::mbar_init(v_full + s, 1);
       hopper::mbar_init(empty + s, 2 * WG / 32);
+      if (F::K_RELEASE) hopper::mbar_init(k_empty + s, 2 * WG / 32);
     }
     hopper::mbar_fence_init();
   }
@@ -420,22 +494,25 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::tma_prefetch_map(&tm_v);
       int tile = 0;  // position in the K/V ring, across items
       for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-        const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
+        const FwdItem it = item_at(item);
+        const int q0 = it.q_tile * FBM, b = it.bh / H, h = it.bh % H;
         const int qb = j % FWD_QBUF;
         if (j >= FWD_QBUF) {
-          hopper::mbar_wait(q_empty + qb, (j / FWD_QBUF - 1) & 1);
+          wait(q_empty + qb, (j / FWD_QBUF - 1) & 1);
         }
         hopper::mbar_arrive_tx(q_full + qb, kFwdTile);
         load_tile<D>(sQ + qb * kFwdTile, &tm_q, q_full + qb, FBM, h, q0, b);
         const int n_kv = n_kv_of(q0);
         for (int t = 0; t < n_kv; ++t, ++tile) {
           const int st = tile % FWD_STAGES;
-          if (tile >= FWD_STAGES) {
-            hopper::mbar_wait(empty + st, (tile / FWD_STAGES - 1) & 1);
-          }
+          const uint32_t parity = (tile / FWD_STAGES - 1) & 1;
+          if (tile >= FWD_STAGES) wait(k_empty + st, parity);
           hopper::mbar_arrive_tx(k_full + st, kFwdTile);
           load_tile<D>(sK + st * kFwdTile, &tm_k, k_full + st, FBN, h,
                        t * FBN, b);
+          if (F::K_RELEASE && tile >= FWD_STAGES) {
+            wait(empty + st, parity);
+          }
           hopper::mbar_arrive_tx(v_full + st, kFwdTile);
           load_tile<D>(sV + st * kFwdTile, &tm_v, v_full + st, FBN, h,
                        t * FBN, b);
@@ -484,65 +561,15 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(q_empty + p_qb);
     };
-    if constexpr (D == 128) {
-      // One product at a time inside a warpgroup: S = Q K^T, its softmax,
-      // then O += P V; the other warpgroup's products keep the tensor
-      // cores busy meanwhile. Overlapping S_t with P_{t-1} V_{t-1}, as at
-      // D = 64, keeps O, S and P (64 + 64 + 32 fp32 a thread) live at
-      // once: ptxas spilled 312 bytes and serialised every wgmma.
-      int ring = 0;  // position in the K/V ring, across items
-      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-        const int q0 = q_start(item), n_kv = n_kv_of(q0);
-        const int qbuf = j % FWD_QBUF, row_lo = q0 + wg * 64;
-        const int row0 = row_lo + warp * 16 + lane / 4;
-        const uint32_t q_addr =
-            hopper::smem_addr(sQ + qbuf * kFwdTile + wg * 64 * ROW_BYTES);
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          m_run[i] = NEG_INF;
-          l_part[i] = 0.0f;
-        }
-        hopper::mbar_wait(q_full + qbuf, (j / FWD_QBUF) & 1);
-        for (int t = 0; t < n_kv; ++t, ++ring) {
-          const int st = ring % FWD_STAGES, k0 = t * FBN;
-          const uint32_t parity = (ring / FWD_STAGES) & 1;
-          hopper::mbar_wait(k_full + st, parity);
-          hopper::wgmma_fence();
-          issue_qk<D>(s, q_addr, k_base + st * kFwdTile);
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(s);
-          online_softmax(s, m_run, l_part, corr, scale_log2,
-                         k0 + FBN > Sk || (causal && k0 + FBN - 1 > row_lo),
-                         k0, row0, col_off, Sk, causal);
-#pragma unroll
-          for (int idx = 0; idx < D / 2; ++idx) {
-            o_acc[idx] *= corr[(idx / 2) % 2];
-          }
-          pack_p(s, pa);
-          hopper::mbar_wait(v_full + st, parity);
-          hopper::wgmma_fence();
-          issue_pv<D>(o_acc, pa, v_base + st * kFwdTile);
-          hopper::wgmma_wait<0>();
-          hopper::fence_regs(o_acc);
-          if (lane == 0) hopper::mbar_arrive(empty + st);
-        }
-        p_q0 = q0;
-        p_bh = item % BH;
-        p_qb = qbuf;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          p_m[i] = m_run[i];
-          p_l[i] = l_part[i];
-        }
-        finish();
-      }
-      return;
-    }
+    // S = Q K^T of the K tile in stage st is in: with K_RELEASE that tile
+    // goes back to the producer.
+    auto release_k = [&](int st) {
+      if (F::K_RELEASE && lane == 0) hopper::mbar_arrive(k_empty + st);
+    };
     int tile = 0;
     for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-      const int q0 = q_start(item), bh = item % BH;
+      const FwdItem it = item_at(item);
+      const int q0 = it.q_tile * FBM;
       const int n_kv = n_kv_of(q0), qb = j % FWD_QBUF;
       const int row_lo = q0 + wg * 64;
       const int row0 = row_lo + warp * 16 + lane / 4;
@@ -552,21 +579,22 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       auto masked = [&](int k0) {
         return k0 + FBN > Sk || (causal && k0 + FBN - 1 > row_lo);
       };
-      hopper::mbar_wait(q_full + qb, (j / FWD_QBUF) & 1);
-      hopper::mbar_wait(k_full + tile % FWD_STAGES, (tile / FWD_STAGES) & 1);
+      wait(q_full + qb, (j / FWD_QBUF) & 1);
+      wait(k_full + tile % FWD_STAGES, (tile / FWD_STAGES) & 1);
       // Before the first item there is no P V to finish: the product is
       // issued all the same, P = 0 on whatever stage 0 holds, and its sum
       // is dropped. A branch around a wgmma would make ptxas serialise
       // every wgmma of the kernel (its warning C7520).
       const int pst = p_last >= 0 ? p_last % FWD_STAGES : 0;
       if (p_last >= 0) {
-        hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
+        wait(v_full + pst, (p_last / FWD_STAGES) & 1);
       }
       hopper::wgmma_fence();
       issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * kFwdTile);
       issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);
       hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on
       hopper::fence_regs(s);
+      release_k(tile % FWD_STAGES);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         p_m[i] = m_run[i];
@@ -589,13 +617,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = 1; t < n_kv; ++t) {
         const int cur = tile + t;
         const int st = cur % FWD_STAGES, prev = (cur - 1) % FWD_STAGES;
-        hopper::mbar_wait(k_full + st, (cur / FWD_STAGES) & 1);
-        hopper::mbar_wait(v_full + prev, ((cur - 1) / FWD_STAGES) & 1);
+        wait(k_full + st, (cur / FWD_STAGES) & 1);
+        wait(v_full + prev, ((cur - 1) / FWD_STAGES) & 1);
         hopper::wgmma_fence();
         issue_qk<D>(s, q_addr, k_base + st * kFwdTile);
         issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);
         hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} runs on
         hopper::fence_regs(s);
+        release_k(st);
         online_softmax(s, m_run, l_part, corr, scale_log2, masked(t * FBN),
                        t * FBN, row0, col_off, Sk, causal);
         // The softmax is done before the wait, not moved below it.
@@ -610,7 +639,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         pack_p(s, pa);
       }
       p_q0 = q0;
-      p_bh = bh;
+      p_bh = it.bh;
       p_qb = qb;
       p_last = tile + n_kv - 1;
       tile += n_kv;
@@ -618,7 +647,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Every block has an item (the grid is at most the item count): the
     // last one's P V and epilogue.
     const int pst = p_last % FWD_STAGES;
-    hopper::mbar_wait(v_full + pst, (p_last / FWD_STAGES) & 1);
+    wait(v_full + pst, (p_last / FWD_STAGES) & 1);
     hopper::wgmma_fence();
     issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);
     hopper::wgmma_wait<0>();
@@ -1175,6 +1204,51 @@ int resident_blocks(int items) {
   return items < sms ? items : sms;
 }
 
+// The forward's (b, h) a group (Fwd<D>::L2_GROUPS), at most as many as
+// have their K and V (bf16 [Sk, D] each) within half the card's L2 cache.
+// Blocks take items by snake_item, fixed in advance, so the group's size
+// sets how evenly the work falls on them: each size up to that bound is
+// tried on a model of the walk (grouped_item; an item costs its kv tiles
+// plus two for its first tile and epilogue, as the phase clocks of
+// ops/flash_probe.py show), and the largest within 1% of the most even
+// is taken. Kept for the last shape asked, per host thread.
+int l2_group(int BH, int Sq, int Sk, int D, int causal, int blocks) {
+  int dev = 0, l2 = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) !=
+          cudaSuccess) {
+    l2 = 0;
+  }
+  const long long fit = (long long)l2 / 2 / (4LL * Sk * D);
+  const int cap = fit < 1 ? 1 : fit < BH ? (int)fit : BH;
+  if (cap == BH || !causal) return cap;
+  // The bound folds in D and the cache's size.
+  thread_local long long key[5] = {-1};
+  thread_local int last = 0;
+  const long long want[5] = {BH, Sq, Sk, cap, blocks};
+  if (std::equal(want, want + 5, key)) return last;
+  const int n_q = (Sq + FBM - 1) / FBM, n_items = n_q * BH;
+  const int n_k = (Sk + FBN - 1) / FBN;
+  std::vector<long long> load(blocks);
+  std::vector<long long> worst(cap + 1);
+  for (int g = 1; g <= cap; ++g) {
+    std::fill(load.begin(), load.end(), 0);
+    for (int item = 0; item < n_items; ++item) {
+      const int qt = grouped_item(item, BH, n_q, g).q_tile;
+      const int j = item / blocks, r = item % blocks;
+      load[j % 2 ? blocks - 1 - r : r] +=
+          std::min(n_k, (qt * FBM + FBM - 1) / FBN + 1) + 2;
+    }
+    worst[g] = *std::max_element(load.begin(), load.end());
+  }
+  const long long best = *std::min_element(worst.begin() + 1, worst.end());
+  int g = cap;
+  while (worst[g] * 100 > best * 101) --g;
+  std::copy(want, want + 5, key);
+  last = g;
+  return g;
+}
+
 // strides: [b, s, h] element strides of q, k, v, o (12 values).
 template <int D>
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1191,10 +1265,13 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sq + FBM - 1) / FBM * B * H;
-  fwd_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Fwd<D>::SMEM,
+  const int blocks = resident_blocks(items);
+  const int group =
+      Fwd<D>::L2_GROUPS ? l2_group(B * H, Sq, Sk, D, causal, blocks) : 0;
+  fwd_kernel<D><<<blocks, HOPPER_THREADS, Fwd<D>::SMEM,
                   (cudaStream_t)stream>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, B * H, H, Sq, Sk,
-      layout_at(strides, 3), scale * LOG2E, causal);
+      layout_at(strides, 3), scale * LOG2E, causal, group);
   return (int)cudaGetLastError();
 }
 

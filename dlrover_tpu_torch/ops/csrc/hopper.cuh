@@ -54,9 +54,17 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// Ends the launch with an error, from a function of its own: a trap
+// inlined into a warpgroup's code holds that code to the registers of
+// the launch (168 a thread for 384 threads), not the 240 setmaxnreg gives.
+__device__ __noinline__ void deadlock() { __trap(); }
+
 // Waits until the barrier's phase of parity ``parity`` has completed. A
 // wait that outlasts 2^35 clocks (about 20 s) traps, so that a deadlock
-// ends the launch with an error instead of holding the card.
+// ends the launch with an error instead of holding the card; with
+// OUT_OF_LINE through deadlock(), so that a consumer may use setmaxnreg's
+// registers.
+template <bool OUT_OF_LINE = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   const long long start = clock64();
@@ -68,7 +76,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (done) return;
-    if (clock64() - start > (1ll << 35)) __trap();
+    if (clock64() - start > (1ll << 35)) {
+      if constexpr (OUT_OF_LINE) {
+        deadlock();
+      } else {
+        __trap();
+      }
+    }
   }
 }
 

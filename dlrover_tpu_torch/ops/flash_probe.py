@@ -4,12 +4,31 @@ Builds variants of ``csrc/flash_attn.cu``, each a list of text
 replacements of the committed source, into libraries of their own, and
 for each times the forward, dQ and dK/dV launches alone (100 launches
 after 5) at GPT-2 124M's and GPT-2 xl's attention shapes (B*H 16*12 and
-4*25, S 1024, D 64, bf16, causal) and the LLaMA preset's (B*H 4*16,
-S 2048, D 128), beside their tile errors against the plain versions (``dq_serial``: dQ's products and its dS one after the
-other, not overlapped). The variant ``clocks`` adds ``clock64()`` marks to the
+4*25, S 1024, D 64, bf16, causal) and the LLaMA preset's two (B*H 4*16,
+S 2048 and 1*16, S 8192, D 128), beside their tile errors against the
+plain versions. What the head_dim-128 forward adds to the head_dim-64
+loop is two switches of ``Fwd<D>`` (K_RELEASE, L2_GROUPS); the
+``fwd128_*`` variants flip them at head_dim 128 (``fwd_l2_groups`` turns
+the L2 groups on at head_dim 64), put back forms that were measured and
+dropped (``fwd128_turns``: FlashAttention-3's ping-pong, the two
+warpgroups issuing their products in strict turns through two
+mbarriers, and ``turns`` the same at both head_dims;
+``fwd128_bar_turns``: the turns through named barriers, which wait
+without a time limit; ``fwd128_together``: the softmax after both
+products, not under the warpgroup's own P V; ``fwd128_pv_first``: P V
+issued and waited for before S; ``fwd128_few_chains``) or take the D-128
+consumers' registers away (``fwd128_inline_trap``); ``fwd128_serial``
+puts back the serial
+head_dim-128 loop and item order the forward had before its ping-pong
+(one product at a time inside a warpgroup, no turns), so the old and new
+forms are timed in one call; ``fwd128_serial_l2`` is that loop in the
+grouped order.
+``dq_serial``: dQ's products and its dS one after the other, not
+overlapped. The variant ``clocks`` adds ``clock64()`` marks to the
 forward's consumer warpgroups and prints where a warpgroup's clocks go,
-per kv tile of the main loop and per item (the marks cost registers and
-time of their own, so its ms are not the committed kernel's).
+per kv tile of the main loop and per item, at both head_dims (the marks
+cost registers and time of their own, so its ms are not the committed
+kernel's).
 
     python -m dlrover_tpu_torch.ops.flash_probe [variant ...]
 
@@ -29,7 +48,8 @@ from dlrover_tpu_torch.ops import build
 
 # label: (batch, heads, seq, head_dim)
 SHAPES = {"gpt2-124m": (16, 12, 1024, 64), "gpt2-xl": (4, 25, 1024, 64),
-          "llama-2048": (4, 16, 2048, 128)}
+          "llama-2048": (4, 16, 2048, 128),
+          "llama-8192": (1, 16, 8192, 128)}
 SOURCES = build.CSRC  # the committed sources every variant starts from
 
 _RR = ("  const int i = j * g + (j % 2 ? g - 1 - (int)blockIdx.x : "
@@ -42,40 +62,260 @@ def _stages(committed, d128, ring, n):
             f"STAGES = D == 64 ? {n} : {d128};  // {ring} ring")
 
 
-def _mark(k):
-    return f"mark({k});\n"
+def _switch(name, committed, value):
+    """One of the forward's schedule switches in ``Fwd<D>`` set to
+    ``value`` at both head_dims."""
+    decl = f"  static constexpr bool {name} = "
+    return ("flash_attn.cu", f"{decl}{committed};", f"{decl}{value};")
 
 
-def _turns(indent, issue):
-    """The lines ``issue`` between waiting for this warpgroup's turn and
-    passing it to the other."""
-    return (issue, f"{indent}my_turn();\n{issue}{indent}pass_turn();\n")
+# PR 9's head_dim-128 forward loop: one product at a time inside a
+# warpgroup (S = Q K^T, its softmax, then O += P V); it frees a stage's K
+# and V together, after its P V.
+_FWD128_SERIAL = (
+    "    if constexpr (D == 128) {\n"
+    "      int ring = 0;  // position in the K/V ring, across items\n"
+    "      for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; "
+    "++j) {\n"
+    "        const FwdItem it = item_at(item);\n"
+    "        const int q0 = it.q_tile * FBM, n_kv = n_kv_of(q0);\n"
+    "        const int qbuf = j % FWD_QBUF, row_lo = q0 + wg * 64;\n"
+    "        const int row0 = row_lo + warp * 16 + lane / 4;\n"
+    "        const uint32_t q_addr =\n"
+    "            hopper::smem_addr(sQ + qbuf * kFwdTile + wg * 64 * "
+    "ROW_BYTES);\n"
+    "#pragma unroll\n"
+    "        for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.0f;\n"
+    "#pragma unroll\n"
+    "        for (int i = 0; i < 2; ++i) {\n"
+    "          m_run[i] = NEG_INF;\n"
+    "          l_part[i] = 0.0f;\n"
+    "        }\n"
+    "        hopper::mbar_wait(q_full + qbuf, (j / FWD_QBUF) & 1);\n"
+    "        for (int t = 0; t < n_kv; ++t, ++ring) {\n"
+    "          const int st = ring % FWD_STAGES, k0 = t * FBN;\n"
+    "          const uint32_t parity = (ring / FWD_STAGES) & 1;\n"
+    "          hopper::mbar_wait(k_full + st, parity);\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(s);\n"
+    "          online_softmax(s, m_run, l_part, corr, scale_log2,\n"
+    "                         k0 + FBN > Sk || (causal && k0 + FBN - 1 > "
+    "row_lo),\n"
+    "                         k0, row0, col_off, Sk, causal);\n"
+    "#pragma unroll\n"
+    "          for (int idx = 0; idx < D / 2; ++idx) {\n"
+    "            o_acc[idx] *= corr[(idx / 2) % 2];\n"
+    "          }\n"
+    "          pack_p(s, pa);\n"
+    "          hopper::mbar_wait(v_full + st, parity);\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_pv<D>(o_acc, pa, v_base + st * kFwdTile);\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(o_acc);\n"
+    "          if (lane == 0) {\n"
+    "            hopper::mbar_arrive(empty + st);\n"
+    "            if (F::K_RELEASE) hopper::mbar_arrive(k_empty + st);\n"
+    "          }\n"
+    "        }\n"
+    "        p_q0 = q0;\n"
+    "        p_bh = it.bh;\n"
+    "        p_qb = qbuf;\n"
+    "#pragma unroll\n"
+    "        for (int i = 0; i < 2; ++i) {\n"
+    "          p_m[i] = m_run[i];\n"
+    "          p_l[i] = l_part[i];\n"
+    "        }\n"
+    "        finish();\n"
+    "      }\n"
+    "      return;\n"
+    "    }\n")
+# The consumers' loop over their items.
+_LOOP_START = ("      if (F::K_RELEASE && lane == 0) "
+               "hopper::mbar_arrive(k_empty + st);\n    };\n"
+               "    int tile = 0;\n")
+# The end of the forward's consumer code.
+_LAST_FINISH = "    finish();\n  }\n}\n"
+
+# Fewer independent chains in the online softmax: maxima as four a row
+# (not eight), sums as two (not four); fewer registers live under it.
+_FEW_CHAINS = [("flash_attn.cu", old, new) for old, new in (
+    ("  float mx[2][8];\n", "  float mx[2][4];\n"),
+    ("    for (int c = 0; c < 8; ++c) mx[i][c] = m_run[i];\n",
+     "    for (int c = 0; c < 4; ++c) mx[i][c] = m_run[i];\n"),
+    ("    float& m = mx[(idx / 2) % 2][2 * ((idx / 4) % 4) + idx % 2];\n",
+     "    float& m = mx[(idx / 2) % 2][2 * ((idx / 4) % 2) + idx % 2];\n"),
+    ("    float m_new = fmaxf(fmaxf(fmaxf(mx[i][0], mx[i][1]),\n"
+     "                              fmaxf(mx[i][2], mx[i][3])),\n"
+     "                        fmaxf(fmaxf(mx[i][4], mx[i][5]),\n"
+     "                              fmaxf(mx[i][6], mx[i][7])));\n",
+     "    float m_new = fmaxf(fmaxf(mx[i][0], mx[i][1]),\n"
+     "                        fmaxf(mx[i][2], mx[i][3]));\n"),
+    ("  float sum[2][4] = {};\n", "  float sum[2][2] = {};\n"),
+    ("    sum[i][2 * ((idx / 4) % 2) + idx % 2] += p;\n",
+     "    sum[i][idx % 2] += p;\n"),
+    ("                ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]))"
+     ";\n",
+     "                (sum[i][0] + sum[i][1]);\n"),
+)]
 
 
-# The two consumer warpgroups of the forward take turns to issue their
-# products, through named barriers 3 and 4 (FlashAttention-3's
-# ping-pong): warpgroup 0 first, and it takes warpgroup 1's last pass.
-_TURNS = [
-    ("    const uint32_t v_base = hopper::smem_addr(sV);\n",
-     "    const uint32_t v_base = hopper::smem_addr(sV);\n"
-     "    auto my_turn = [&] { hopper::named_sync(3 + wg, 2 * WG); };\n"
-     "    auto pass_turn = [&] {\n"
-     "      asm volatile(\"bar.arrive %0, %1;\" :: \"r\"(4 - wg), "
-     "\"r\"(2 * WG) : \"memory\");\n    };\n"
-     "    if (wg == 1) pass_turn();\n"),
-    _turns("      ", "      hopper::wgmma_fence();\n"
-           "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
-           "kFwdTile);\n"
-           "      issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);\n"),
-    _turns("        ", "        hopper::wgmma_fence();\n"
-           "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
-           "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n"),
-    _turns("    ", "    hopper::wgmma_fence();\n"
-           "    issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);\n"),
-    ("    finish();\n  }\n}\n",
-     "    finish();\n    if (wg == 0) my_turn();\n  }\n}\n"),
+# Phase clocks of the forward's consumer warpgroups: 32-bit sums a thread
+# (a block's launch is well under 2^32 clocks), read per warpgroup.
+_CLOCKS = [
+    ("namespace {\n\nconstexpr float NEG_INF",
+     "__device__ unsigned long long g_clocks[32];\n"
+     "namespace {\n\nconstexpr float NEG_INF"),
+    ("    uint32_t pa[FBN / 16][4] = {};\n",
+     "    uint32_t pa[FBN / 16][4] = {};\n"
+     "    uint32_t P[16] = {};\n"
+     "    long long tc = clock64();\n"
+     "    auto mark = [&](int k) {\n"
+     "      const long long n = clock64();\n"
+     "      P[k] += (uint32_t)(n - tc);\n"
+     "      tc = n;\n"
+     "    };\n"),
+    # per item
+    ("      wait(q_full + qb, (j / FWD_QBUF) & 1);\n",
+     "      mark(0);\n      wait(q_full + qb, (j / FWD_QBUF) & 1);\n"),
+    ("      hopper::wgmma_fence();\n      issue_qk<D>(s, q_addr, k_base + (",
+     "      mark(1);\n"
+     "      hopper::wgmma_fence();\n      issue_qk<D>(s, q_addr, k_base + ("),
+    ("      release_k(tile % FWD_STAGES);\n",
+     "      release_k(tile % FWD_STAGES);\n      mark(2);\n"),
+    ("                     col_off, Sk, causal);\n"
+     "      hopper::fence_regs(s);\n      hopper::wgmma_wait<0>();\n"
+     "      hopper::fence_regs(o_acc);\n",
+     "                     col_off, Sk, causal);\n      mark(3);\n"
+     "      hopper::fence_regs(s);\n      hopper::wgmma_wait<0>();\n"
+     "      hopper::fence_regs(o_acc);\n      mark(4);\n"),
+    ("        finish();\n      }\n#pragma unroll\n",
+     "        finish();\n      }\n      mark(5);\n#pragma unroll\n"),
+    ("      pack_p(s, pa);\n      for (int t = 1; t < n_kv; ++t) {",
+     "      pack_p(s, pa);\n      mark(6);\n"
+     "      for (int t = 1; t < n_kv; ++t) {"),
+    # per kv tile of the loop
+    ("        hopper::wgmma_fence();\n"
+     "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+     "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n",
+     "        mark(7);\n        hopper::wgmma_fence();\n"
+     "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+     "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n"
+     "        mark(8);\n"),
+    ("        release_k(st);\n", "        release_k(st);\n        mark(9);\n"),
+    ("        // The softmax is done before the wait, not moved below it.\n"
+     "        hopper::fence_regs(s);\n        hopper::wgmma_wait<0>();\n"
+     "        hopper::fence_regs(o_acc);\n",
+     "        mark(10);\n"
+     "        hopper::fence_regs(s);\n        hopper::wgmma_wait<0>();\n"
+     "        hopper::fence_regs(o_acc);\n        mark(11);\n"),
+    ("        pack_p(s, pa);\n      }\n      p_q0 = q0;",
+     "        pack_p(s, pa);\n        mark(12);\n        P[15] += 1;\n"
+     "      }\n      P[14] += 1;\n      p_q0 = q0;"),
+    (_LAST_FINISH,
+     "    finish();\n"
+     "    if (threadIdx.x % WG == 0) {\n"
+     "      for (int k = 0; k < 16; ++k) "
+     "atomicAdd(&g_clocks[16 * wg + k], (unsigned long long)P[k]);\n"
+     "    }\n  }\n}\n"),
+    ('}  // extern "C"\n',
+     "int flash_probe_clocks(unsigned long long* out) {\n"
+     "  cudaError_t err = cudaMemcpyFromSymbol(out, g_clocks, "
+     "sizeof(g_clocks));\n"
+     "  if (err != cudaSuccess) return (int)err;\n"
+     "  unsigned long long zero[32] = {};\n"
+     "  return (int)cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));\n"
+     "}\n\n"
+     '}  // extern "C"\n'),
 ]
 
+
+def _turns(cond, bar=False):
+    """FlashAttention-3's ping-pong where ``cond`` holds: a warpgroup
+    issues its products once the other has issued its own, and passes the
+    turn as soon as they are out; warpgroup 1 passes first, and both take
+    one turn a kv tile and one for the last P V. The turns go through two
+    mbarriers, whose wait traps after about 20 s, or with ``bar`` through
+    named barriers 3 and 4, which wait without a limit (warpgroup 0 then
+    takes warpgroup 1's last pass at the end)."""
+    if bar:
+        wait_turn = "hopper::named_sync(3 + wg, 2 * WG)"
+        pass_ = ('asm volatile("bar.arrive %0, %1;\\n" :: "r"(4 - wg), '
+                 '"r"(2 * WG) : "memory")')
+    else:
+        wait_turn = "wait(turn + wg, turns++ & 1)"
+        pass_ = "if (lane == 0) hopper::mbar_arrive(turn + 1 - wg)"
+    out = [] if bar else [
+        ("  static constexpr int BARRIERS =\n"
+         "      2 * FWD_QBUF + (K_RELEASE ? 4 : 3) * STAGES;\n",
+         "  static constexpr int BARRIERS =\n"
+         "      2 * FWD_QBUF + (K_RELEASE ? 4 : 3) * STAGES + 2;\n"),
+        ("  uint64_t* k_empty = F::K_RELEASE ? empty + FWD_STAGES : empty;\n",
+         "  uint64_t* k_empty = F::K_RELEASE ? empty + FWD_STAGES : empty;\n"
+         "  uint64_t* turn = k_empty + FWD_STAGES;\n"),
+        ("      if (F::K_RELEASE) hopper::mbar_init(k_empty + s, 2 * WG / 32);"
+         "\n    }\n",
+         "      if (F::K_RELEASE) hopper::mbar_init(k_empty + s, 2 * WG / 32);"
+         "\n    }\n"
+         "    for (int w = 0; w < 2; ++w) hopper::mbar_init(turn + w, WG / 32);"
+         "\n")]
+    out += [
+        (_LOOP_START, _LOOP_START.replace(
+            "    int tile = 0;\n",
+            f"    constexpr bool TURNS = {cond};\n"
+            "    [[maybe_unused]] int turns = 0;\n"
+            "    auto my_turn = [&] {\n"
+            f"      if (TURNS) {wait_turn};\n"
+            "    };\n"
+            "    auto pass_turn = [&] {\n"
+            f"      if (TURNS) {{ {pass_}; }}\n"
+            "    };\n"
+            "    if (wg == 1) pass_turn();\n"
+            "    int tile = 0;\n"))]
+    for ind, issue in (
+            ("      ", "issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
+                       "kFwdTile);\n      issue_pv<D>(o_acc, pa, v_base + pst "
+                       "* kFwdTile);\n"),
+            ("        ", "issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
+                         "        issue_pv<D>(o_acc, pa, v_base + prev * "
+                         "kFwdTile);\n"),
+            ("    ", "issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);\n")):
+        old = f"{ind}hopper::wgmma_fence();\n{ind}{issue}"
+        out.append((old, f"{ind}my_turn();\n{old}{ind}pass_turn();\n"))
+    if bar:
+        out.append((_LAST_FINISH,
+                    "    finish();\n    if (TURNS && wg == 0) my_turn();\n"
+                    "  }\n}\n"))
+    return [("flash_attn.cu", old, new) for old, new in out]
+
+
+# The softmax of S_t after both of the warpgroup's products are in, not
+# under its own P_{t-1} V_{t-1} (head_dim 128).
+_TOGETHER = [("flash_attn.cu", f"{ind}hopper::wgmma_wait<1>();  {note}\n",
+              f"{ind}hopper::wgmma_wait<D == 128 ? 0 : 1>();  {note}\n")
+             for ind, note in (
+                 ("      ", "// S_0 is in; the last P V runs on"),
+                 ("        ", "// S_t is in; P_{t-1} V_{t-1} runs on"))]
+
+
+def _pv_first(ind, qk, pv):
+    """P V issued and waited for before S = Q K^T (head_dim 128), so
+    that S, O and P are never all live."""
+    return ("flash_attn.cu", f"{ind}{qk}\n{ind}{pv}\n",
+            f"{ind}if constexpr (D == 128) {{\n{ind}  {pv}\n"
+            f"{ind}  hopper::wgmma_wait<0>();\n"
+            f"{ind}  hopper::fence_regs(o_acc);\n"
+            f"{ind}  hopper::wgmma_fence();\n{ind}  {qk}\n"
+            f"{ind}}} else {{\n{ind}  {qk}\n{ind}  {pv}\n{ind}}}\n")
+
+
+_PV_FIRST = _TOGETHER + [
+    _pv_first("      ",
+              "issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
+              "kFwdTile);", "issue_pv<D>(o_acc, pa, v_base + pst * kFwdTile);"),
+    _pv_first("        ", "issue_qk<D>(s, q_addr, k_base + st * kFwdTile);",
+              "issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);")]
 
 # dQ's loop over its kv tiles: S_t and dP_t issued with dQ += dS_{t-1}
 # K_{t-1} (the committed kernel), and one after the other.
@@ -128,95 +368,42 @@ _DQ_SERIAL = (
     "      }\n")
 
 
+
+_serial = ("flash_attn.cu", _LOOP_START,
+           _LOOP_START.replace("    int tile = 0;\n",
+                               _FWD128_SERIAL + "    int tile = 0;\n"))
+
 # Each variant: (file, old text, new text) replacements, in order.
 VARIANTS = {
     "committed": [],
     "round_robin": [("flash_attn.cu",) + _RR],
-    "turns": [("flash_attn.cu",) + r for r in _TURNS],
+    # the ping-pong at both head_dims
+    "turns": _turns("true"),
     "fwd_stages_2": [("flash_attn.cu",) + _stages(4, 2, "K/V", 2)],
     "fwd_stages_3": [("flash_attn.cu",) + _stages(4, 2, "K/V", 3)],
     "dkv_stages_2": [("flash_attn.cu",) + _stages(3, 2, "Q/dO", 2)],
     "dq_stages_2": [("flash_attn.cu",) + _stages(4, 3, "K/V", 2)],
     "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL)],
-    "clocks": [("flash_attn.cu", old, new) for old, new in (
-        ("namespace {\n\nconstexpr float NEG_INF",
-         "__device__ unsigned long long g_clocks[32];\n"
-         "namespace {\n\nconstexpr float NEG_INF"),
-        ("    uint32_t pa[FBN / 16][4] = {};\n",
-         "    uint32_t pa[FBN / 16][4] = {};\n"
-         "    unsigned long long P[16] = {};\n"
-         "    long long tc = clock64();\n"
-         "    auto mark = [&](int k) {\n"
-         "      const long long n = clock64();\n"
-         "      P[k] += n - tc;\n"
-         "      tc = n;\n"
-         "    };\n"),
-        ("      hopper::mbar_wait(q_full + qb, (j / FWD_QBUF) & 1);\n",
-         "      " + _mark(0)
-         + "      hopper::mbar_wait(q_full + qb, (j / FWD_QBUF) & 1);\n"),
-        ("      hopper::wgmma_fence();\n"
-         "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
-         "kFwdTile);",
-         "      " + _mark(1) + "      hopper::wgmma_fence();\n"
-         "      issue_qk<D>(s, q_addr, k_base + (tile % FWD_STAGES) * "
-         "kFwdTile);"),
-        ("      hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on\n"
-         "      hopper::fence_regs(s);\n",
-         "      hopper::wgmma_wait<1>();  // S_0 is in; the last P V runs on\n"
-         "      hopper::fence_regs(s);\n      " + _mark(2)),
-        ("                     col_off, Sk, causal);\n"
-         "      hopper::fence_regs(s);\n      hopper::wgmma_wait<0>();\n"
-         "      hopper::fence_regs(o_acc);\n",
-         "                     col_off, Sk, causal);\n"
-         "      hopper::fence_regs(s);\n      " + _mark(3)
-         + "      hopper::wgmma_wait<0>();\n"
-         "      hopper::fence_regs(o_acc);\n      " + _mark(4)),
-        ("        finish();\n      }\n#pragma unroll\n",
-         "        finish();\n      }\n      " + _mark(5) + "#pragma unroll\n"),
-        ("      pack_p(s, pa);\n      for (int t = 1; t < n_kv; ++t) {",
-         "      pack_p(s, pa);\n      " + _mark(6)
-         + "      for (int t = 1; t < n_kv; ++t) {"),
-        ("        hopper::wgmma_fence();\n"
-         "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
-         "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n",
-         "        " + _mark(7) + "        hopper::wgmma_fence();\n"
-         "        issue_qk<D>(s, q_addr, k_base + st * kFwdTile);\n"
-         "        issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);\n"
-         "        " + _mark(8)),
-        ("        hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} "
-         "runs on\n        hopper::fence_regs(s);\n",
-         "        hopper::wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} "
-         "runs on\n        hopper::fence_regs(s);\n        " + _mark(9)),
-        ("        // The softmax is done before the wait, not moved below "
-         "it.\n        hopper::fence_regs(s);\n"
-         "        hopper::wgmma_wait<0>();\n"
-         "        hopper::fence_regs(o_acc);\n",
-         "        // The softmax is done before the wait, not moved below "
-         "it.\n        hopper::fence_regs(s);\n        " + _mark(10)
-         + "        hopper::wgmma_wait<0>();\n"
-         "        hopper::fence_regs(o_acc);\n        " + _mark(11)),
-        ("        pack_p(s, pa);\n      }\n      p_q0 = q0;",
-         "        pack_p(s, pa);\n        " + _mark(12)
-         + "        P[15] += 1;\n      }\n      P[14] += 1;\n"
-         "      p_q0 = q0;"),
-        ("    finish();\n  }\n}\n",
-         "    finish();\n"
-         "    if (threadIdx.x % WG == 0) {\n"
-         "      for (int k = 0; k < 16; ++k) "
-         "atomicAdd(&g_clocks[16 * wg + k], P[k]);\n    }\n  }\n}\n"),
-        ('}  // extern "C"\n',
-         "int flash_probe_clocks(unsigned long long* out) {\n"
-         "  cudaError_t err = cudaMemcpyFromSymbol(out, g_clocks, "
-         "sizeof(g_clocks));\n"
-         "  if (err != cudaSuccess) return (int)err;\n"
-         "  unsigned long long zero[32] = {};\n"
-         "  return (int)cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));\n"
-         "}\n\n"
-         '}  // extern "C"\n'),
-    )],
+    # PR 9's serial head_dim-128 loop, in the item order without groups
+    "fwd128_serial": [_serial, _switch("L2_GROUPS", "D == 128", "false")],
+    "fwd128_serial_l2": [_serial],
+    "fwd128_snake": [_switch("L2_GROUPS", "D == 128", "false")],
+    # the forward's wait watchdog trapping inline, which holds the
+    # consumers to the launch's 168 registers: the loop spills
+    "fwd128_inline_trap": [("flash_attn.cu",
+                            "hopper::mbar_wait<D == 128>(bar, parity);",
+                            "hopper::mbar_wait(bar, parity);")],
+    "fwd_l2_groups": [_switch("L2_GROUPS", "D == 128", "true")],
+    "fwd128_turns": _turns("D == 128"),
+    "fwd128_bar_turns": _turns("D == 128", bar=True),
+    "fwd128_one_release": [_switch("K_RELEASE", "D == 128", "false")],
+    "fwd128_together": _TOGETHER,
+    "fwd128_pv_first": _PV_FIRST,
+    "fwd128_few_chains": _FEW_CHAINS,
+    "clocks": [("flash_attn.cu",) + r for r in _CLOCKS],
 }
-ITEM_PHASES = ["to the item", "Q/K/V waits", "issue, S wait", "softmax",
-               "last P V wait", "epilogue", "zero O, pack P"]
+ITEM_PHASES = ["to the item", "Q/K/V waits", "issue, S wait",
+               "softmax", "last P V wait", "epilogue", "zero O, pack P"]
 TILE_PHASES = ["K/V waits", "issue", "S wait", "softmax", "P V wait",
                "rescale, pack"]
 
@@ -266,21 +453,29 @@ def clocks(lib, fwd):
         items, tiles = c[14], c[15]
         out[f"warpgroup {wg}"] = {
             "items": items // 10, "loop tiles": tiles // 10,
-            "clocks an item": {n: round(c[i] / items) for i, n in
+            "clocks an item": {n: round(c[i] / max(items, 1)) for i, n in
                                enumerate(ITEM_PHASES)},
-            "clocks a loop tile": {n: round(c[7 + i] / tiles) for i, n in
-                                   enumerate(TILE_PHASES)},
+            "clocks a loop tile": {n: round(c[7 + i] / max(tiles, 1))
+                                   for i, n in enumerate(TILE_PHASES)},
         }
     return out
 
 
 def probe(name, inputs):
+    """The variant built anew (so ``ptxas -v`` speaks for it), timed and
+    held to the plain versions at every shape of ``inputs``."""
     build.CSRC = variant_source(name)
+    root, build.BUILD_DIR = build.BUILD_DIR, os.path.join(build.CSRC,
+                                                          "kernels")
     build._LIBS.clear()
-    _, _, ptxas = build.build("flash_attn")
-    lib = attn._lib()
+    try:
+        _, _, ptxas = build.build("flash_attn")
+        lib = attn._lib()
+    finally:
+        build.BUILD_DIR = root
     res = {"ptxas": [ln.strip() for ln in ptxas.splitlines()
-                     if "spill" in ln or "registers" in ln or "C75" in ln]}
+                     if "spill" in ln or "registers" in ln or "C75" in ln
+                     or "Compiling entry" in ln]}
     for label, (q, k, v, do) in inputs.items():
         o_ref, lse_ref = attn._fwd_plain(q, k, v, True)
         delta = attn.attention_delta(o_ref, do)
@@ -304,7 +499,9 @@ def probe(name, inputs):
         row["tile_rel_err"] = max(attn.tile_rel_err(a, r) for a, r in (
             (o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
         row["lse_err"] = (lse - lse_ref).abs().max().item()
-        if name == "clocks" and q.shape[-1] == 64:
+        del o_ref, dq_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+        if name == "clocks":
             row["clocks"] = clocks(lib, fwd)
         res[label] = row
     return res

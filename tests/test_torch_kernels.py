@@ -97,9 +97,13 @@ def _check_kernels(q, k, v, g, causal):
     (False, 96, 2, 2, False),
     (True, 200, 2, 2, False),
     (True, 192, 2, 2, False),  # one 128-row block half empty
-    (True, 1000, 3, 5, False),
+    (True, 1000, 3, 5, False),  # 120 items, fewer than the SMs
     (True, 2048, 4, 16, False),  # the LLaMA preset's attention
     (True, 200, 2, 2, True),
+    (True, 128, 1, 1, False),  # one block, one item of one tile
+    (False, 1000, 2, 4, False),
+    (True, 2048, 1, 40, False),  # the forward's (b, h) in L2 groups
+    (False, 2048, 1, 40, False),  # 25 and 15: a short last group
 ])
 def test_cuda_d128_kernels_match_plain(cuda_device, causal, s, b, h, fused):
     """The head_dim 128 kernels (two 64-column panels a tile)."""
@@ -166,6 +170,49 @@ def emulated_fwd(q, k, v, mask, fault=None):
     if fault == "lse_base2":
         lse = lse * LOG2E
     return o.transpose(1, 2).bfloat16(), lse
+
+
+FWD_TILE = 128  # the forward's kv tile and query rows of an item
+
+
+def emulated_fwd_online(q, k, v, mask, fault=None):
+    """The forward kernel's loop as it runs: 128-column kv tiles in order,
+    a running max m and row sum l, O rescaled by each tile's correction
+    exp(m_old - m_new) and P rounded to bf16 before P V; (O, logsumexp).
+    Faults of an overlapped or ping-ponged loop: "corr_one_tile_late"
+    rescales O by the previous tile's correction; "p_prev_with_v_cur"
+    multiplies P_t with V_{t+1} (the last P with its own V);
+    "rows_of_other_warpgroup" finishes the upper 64 rows of every 128-row
+    item with the lower 64 rows' m and l."""
+    s = _bhsd(q) @ _bhsd(k).transpose(-1, -2) / math.sqrt(q.shape[-1])
+    vt = _bhsd(v)
+    rows, cols = s.shape[-2:]
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + (vt.shape[-1],))
+    corr_prev = torch.zeros_like(m)  # the first tile's: exp(-1e30 - m)
+    n = (cols + FWD_TILE - 1) // FWD_TILE
+    for t in range(n):
+        cols_t = slice(t * FWD_TILE, (t + 1) * FWD_TILE)
+        seen = mask[:, cols_t]
+        st = s[..., cols_t].masked_fill(~seen, -1e30)
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new).masked_fill(~seen, 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        v_t = t + 1 if fault == "p_prev_with_v_cur" and t + 1 < n else t
+        pv = p.bfloat16().float() @ vt[..., v_t * FWD_TILE:(v_t + 1) *
+                                        FWD_TILE, :]
+        o = o * (corr_prev if fault == "corr_one_tile_late" else corr) + pv
+        m, corr_prev = m_new, corr
+    if fault == "rows_of_other_warpgroup":
+        half = torch.arange(rows) % FWD_TILE >= FWD_TILE // 2
+        other = torch.where(half, torch.arange(rows) - FWD_TILE // 2,
+                            torch.arange(rows))
+        m, l = m[..., other, :], l[..., other, :]
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return (o / l).transpose(1, 2).bfloat16(), lse
 
 
 def emulated_bwd(q, k, v, do, lse, delta, mask, fault=None):
@@ -314,6 +361,36 @@ def test_check_rejects_wrong_d128_kernel(check_case_d128, wrong, outputs):
     right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
     got = _emulated(check_case_d128, right, wrong)
     refs = check_case_d128[1]
+    worst = max(_err_over_limit(n, got[n], refs[n])
+                for n in _OUTPUTS[outputs])
+    assert worst > 2
+
+
+def test_check_passes_d128_online_rounding(check_case_d128):
+    """The forward's tile-by-tile loop (running max and sum, bf16 P a
+    tile) stays as far inside the limit as the one-pass emulation."""
+    (q, k, v, _, _, _), refs = check_case_d128
+    right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
+    o, lse = emulated_fwd_online(q, k, v, right)
+    assert _err_over_limit("o", o, refs["o"]) <= 0.5
+    assert _err_over_limit("lse", lse, refs["lse"]) <= 0.5
+
+
+# Faults that an overlapped or ping-ponged head_dim-128 forward loop can
+# make, each with the outputs it reaches.
+_SCHEDULE_FAULTS = [("corr_one_tile_late", "fwd"),
+                    ("p_prev_with_v_cur", "fwd"),
+                    ("rows_of_other_warpgroup", "fwd"),
+                    ("rows_of_other_warpgroup", "lse")]
+
+
+@pytest.mark.parametrize("wrong,outputs", _SCHEDULE_FAULTS,
+                         ids=[f"{w}-{o}" for w, o in _SCHEDULE_FAULTS])
+def test_check_rejects_wrong_d128_schedule(check_case_d128, wrong, outputs):
+    (q, k, v, _, _, _), refs = check_case_d128
+    right = torch.ones(S_CHECK, S_CHECK, dtype=torch.bool).tril()
+    o, lse = emulated_fwd_online(q, k, v, right, wrong)
+    got = {"o": o, "lse": lse}
     worst = max(_err_over_limit(n, got[n], refs[n])
                 for n in _OUTPUTS[outputs])
     assert worst > 2
