@@ -9,8 +9,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    kernel's registers and spills;
 2. hold each kernel against its plain PyTorch version on the card:
    flash attention at the GPT-2 124M shape (batch*heads 16*12, seq 1024,
-   head_dim 64, bf16, causal) and at GPT-2 xl's (4*25), each on
-   contiguous q/k/v and on the model's layout (views of one fused
+   head_dim 64, bf16, causal), at GPT-2 xl's (4*25) and at the pipelined
+   GPT-2 xl's (one row a microbatch: 1*25), each on contiguous q/k/v and on the model's layout (views of one fused
    [B, S, 3 H D] tensor), non-causal, at a ragged sequence and at S 192
    (a half-empty 128-row block); 8-bit Adam, unfused and fused, element by element,
    on a chunked [48, 1600, 4800] leaf, the [50257, 1600] embedding, a
@@ -22,7 +22,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    scaled_dot_product_attention and ATen's flash backward; compute each
    kernel's bound from its bytes and FLOPs; then the head_dim-128 forms
    (LLaMA's): each held to its plain version at the LLaMA preset's
-   shapes (B 4, S 2048 and B 1, S 8192, 16 heads, causal), non-causal,
+   shapes (B 4, S 2048 and B 1, S 8192, 16 heads, causal) and the
+   pipelined preset's (B 1, S 2048), non-causal,
    ragged (causal and not), at S 192 and at shapes that strain the
    forward's walk over its items (one block of one tile; 120 items; 40
    (b, h) in L2 groups), and timed at both preset shapes the same way;
@@ -89,7 +90,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    kernels inside, each launched once) on the NCCL group of one at
    B 4, S 2048, 16 heads, D 128, forward and backward, each held to fp32
    attention by tile and timed beside the flash kernels alone
-   (``[moe ...]`` and ``[seq ...]`` lines);
+   (``[moe ...]`` and ``[seq ...]`` lines). Then pipelines on one card
+   (``[pipe ...]`` lines): GPT-2 xl as above under GPipe (4 stages, 4
+   microbatches of one row) and the circular schedule (4 stages x 2
+   repeats: 8 chunks of 6 layers), and the LLaMA preset at 4 x 2048
+   under GPipe (2 stages, 4 microbatches): each first step's logits and
+   loss equal the unpipelined model of the same seed run microbatch by
+   microbatch, bit for bit; a window of 4 (each flash kernel 4 times a
+   layer a step, the ticks the JAX package's formula, the loss falling)
+   and a traced step, beside the unpipelined "dots" step of the same
+   call; then the GPipe run on an NCCL world of one with a ("pipe", 1)
+   mesh, its losses bit for bit the one-device run's;
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -175,7 +186,15 @@ from dlrover_tpu_torch.train.trainer import (
     Trainer,
     TrainerCallback,
 )
-from dlrover_tpu_torch.utils.profiler import device_peak_flops, mfu
+from dlrover_tpu_torch.utils.profiler import (
+    LAUNCH_CALLS,
+    device_kernels,
+    device_peak_flops,
+    device_records,
+    device_trace,
+    launches_without_record,
+    mfu,
+)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -249,6 +268,17 @@ LLAMA_LR = 2e-4
 MOE = dataclasses.replace(LlamaConfig.preset(2048), num_experts=8,
                           moe_top_k=2, moe_capacity_factor=1.25)
 MOE_BATCH, MOE_STEPS = 4, 4
+# Pipelined on one card: GPT-2 xl as bench.py trains it under GPipe (4
+# stages of 12 layers, 4 microbatches of one row) and the circular
+# schedule (4 stages, 2 repeats: 8 chunks of 6 layers), and the LLaMA
+# preset at 4 x 2048 under GPipe (2 stages of 11 layers, 4
+# microbatches); a window of PIPE_STEPS each.
+XL_GPIPE = dataclasses.replace(XL, pipeline_stages=4,
+                               pipeline_microbatches=4)
+XL_CIRCULAR = dataclasses.replace(XL_GPIPE, pipeline_repeats=2)
+LLAMA_PIPE = dataclasses.replace(LlamaConfig.preset(2048), pipeline_stages=2,
+                                 pipeline_microbatches=4)
+PIPE_STEPS = 4
 # The sequence-parallel bodies at the preset's attention shape (B, S, H,
 # D), and the launches each is timed over.
 SEQ_SHAPE, SEQ_ITERS = (4, 2048, 16, 128), 5
@@ -295,13 +325,18 @@ def build_kernels():
 
 def flash_want(cfg, steps):
     """Each flash kernel's launches in ``steps`` training steps of
-    ``cfg``: its head_dim's forms once a layer a step, the other width's
-    never; under remat the forward twice (the backward recomputes it:
-    no policy can save a kernel's output)."""
+    ``cfg``: its head_dim's forms once a layer a step (a pipelined
+    model's once a layer and microbatch), the other width's never;
+    under remat the forward twice (the backward recomputes it: no
+    policy can save a kernel's output)."""
     want = dict.fromkeys(attn.LAUNCHES, 0)
+    micro = 1
+    if cfg.pipeline_stages > 1:
+        micro = cfg.pipeline_microbatches or cfg.pipeline_stages
     for k in attn.KERNELS:
         per = 2 if cfg.remat and k == "flash_fwd" else 1
-        want[attn.kernel_name(k, cfg.head_dim)] = per * cfg.num_layers * steps
+        want[attn.kernel_name(k, cfg.head_dim)] = \
+            per * cfg.num_layers * micro * steps
     return want
 
 
@@ -618,7 +653,7 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
         "launches": launches, "copies": copies,
     }
     log(f"[train {label}] " + json.dumps(stats))
-    stats["losses"] = losses
+    stats["losses"], stats["init_loss"] = losses, first
     return launches, trainer, batch, stats
 
 
@@ -664,10 +699,10 @@ GATHER_SCATTER = ("CatArrayBatchedCopy", "CopyFunctor", "Memcpy DtoD",
 
 
 def range_contents(prof, name):
-    """How many times the host range ``name`` ran, and the ops it called
-    and the kernels those ops launched (the 8-bit Adam kernel itself is
-    launched from its ctypes library, outside any op, and is counted by
-    kernel name instead)."""
+    """How many times the host range ``name`` ran, the ops it called and
+    the kernels those ops launched, and the launch calls the range made
+    itself, outside any op (the 8-bit Adam kernel's, from its ctypes
+    library)."""
     ops, kernels = [], []
 
     def walk(event):
@@ -678,10 +713,12 @@ def range_contents(prof, name):
 
     ranges = [e for e in prof.events() if e.name == name
               and e.device_type == torch.autograd.DeviceType.CPU]
+    own = [c for e in ranges for c in e.cpu_children
+           if c.name in LAUNCH_CALLS]
     for event in ranges:
         for child in event.cpu_children:
             walk(child)
-    return len(ranges), ops, kernels
+    return len(ranges), ops, kernels, own
 
 
 def profile_window(label, trainer, batch, window_step_ms, steps=3,
@@ -694,9 +731,12 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3,
     Adam optimizer, its ``update_and_apply`` runs inside a profiler range:
     the ops of that range and their kernels must hold no gather or
     scatter, and the profile one fused Adam launch a step. ``extra(prof,
-    steps)`` adds its own figures to the result."""
-    from torch.profiler import ProfilerActivity, profile
-
+    steps)`` adds its own figures to the result. The profiler can keep
+    no device record of a trace's first launches (``device_trace``), so
+    the optimizer's launches are read on the host's side of the trace and
+    from the wrapper's count, and each device record kept of them must be
+    the fused Adam kernel's; the launches of the steps without a record
+    are counted and printed."""
     opt = trainer.state["opt"]
     fused = getattr(opt, "update_and_apply", None)
     if fused is not None:
@@ -705,30 +745,41 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3,
                 fused(grads, params)
 
         opt.update_and_apply = traced
+    before = read_counts()["adam8_fused"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         trainer.fit(iter([batch] * steps), steps=steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_kernels(prof)
+    events = prof.events()
+    calls, lost = launches_without_record(events)
+    log(f"[profile {label}] {len(lost)} of the steps' {calls} launches "
+        f"without a device record (places {lost[:10]})")
     if fused is not None:
         del opt.update_and_apply  # the bound method again
-        ranges, ops, opt_kernels = range_contents(prof, OPT_RANGE)
+        launched = read_counts()["adam8_fused"] - before
+        ranges, ops, opt_kernels, own = range_contents(prof, OPT_RANGE)
+        records = device_records(events)
+        kept = [records[c.id] for c in own if c.id in records]
         count = lambda names: {n: names.count(n)  # noqa: E731
                                for n in sorted(set(names))}
         adam = sum(e.count for e in kernels if "adam8_kernel" in e.key)
         log(f"[profile {label}] optimizer range: " + json.dumps(
             {"ranges": ranges, "ops": count(ops),
              "kernels": count([k[:90] for k in opt_kernels]),
-             "adam8_kernel_launches": adam}))
+             "own_launches": len(own), "own_records": len(kept),
+             "fused_adam_launched": launched,
+             "adam8_kernel_records": adam}))
         check(ranges == steps, f"{label}: {ranges} optimizer ranges traced")
-        check(adam == steps, f"{label}: {adam} fused Adam launches traced "
-              f"in {steps} steps")
+        check(len(own) == steps and launched == steps,
+              f"{label}: the optimizer made {len(own)} launches of its own "
+              f"in {ranges} ranges and launched the fused Adam kernel "
+              f"{launched} times, in {steps} steps")
+        check(all("adam8_kernel" in k for k in kept) and adam == len(kept),
+              f"{label}: the device records of the optimizer's own "
+              f"launches are {kept}; {adam} fused Adam records traced")
         bad = [k for k in ops if k in GATHER_SCATTER_OPS] + [
             k for k in opt_kernels if any(t in k for t in GATHER_SCATTER)]
         check(not bad, f"{label}: the optimizer ran {bad}")
@@ -761,6 +812,7 @@ def profile_window(label, trainer, batch, window_step_ms, steps=3,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
     out = {
         "steps": steps,
+        "launches_without_device_record": [len(lost), calls],
         "wall_ms_per_step": wall_us / steps / 1e3,
         "kernel_ms_per_step": total / steps / 1e3,
         "device_busy_share": total / wall_us,
@@ -1090,8 +1142,13 @@ def check_step_tables(opt, grads):
     from before the launch; returns the largest |err| of each kernel's
     output."""
     hp, names = opt.tx.hp, list(opt.params)
+    # Leaves whose members straddle blocks: stacked biases and norms, and
+    # a pipelined model's [P, L/P, ...] leaves (a stage's layers share its
+    # blocks).
     straddling = [leaf for leaf in opt._leaves.values()
-                  if len(leaf.names) > 1 and not lowbit._chunked(leaf.shape)]
+                  if len(leaf.names) > 1 and (
+                      not lowbit._chunked(leaf.shape)
+                      or len(leaf.names) > leaf.shape[0])]
     leaf = min(straddling, key=lambda leaf: math.prod(leaf.shape))
     dropped = leaf.names[len(leaf.names) // 2]
     errs = {}
@@ -1437,18 +1494,13 @@ def staging_profile(trainer, batch, start, steps=3):
     the foreach copy into the device buffer (``multi_tensor_apply``
     kernels of a ``Copy``) and the copies to the segment (``Memcpy
     DtoH``), with the kernels' time a step beside them."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         trainer.fit(iter([batch] * steps), steps=start + steps,
                     start_step=start)
         trainer.checkpointer.engine.wait_staged()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     foreach = [e for e in kernels
                if "multi_tensor_apply" in e.key and "Copy" in e.key]
     dtoh = [e for e in kernels if "Memcpy DtoH" in e.key]
@@ -1805,10 +1857,10 @@ class MeshLoop:
         return {"step": self.state["step"]}
 
 
-def mesh_window(label, res, batch, cfg, base):
+def mesh_window(label, res, batch, cfg, base, traced=3):
     """WARMUP steps, a timed window of MESH_STEPS (each flash kernel of
     the model's head_dim once a layer a step, the forward twice under
-    remat, the fused 8-bit Adam once a step), then 3 traced steps. The
+    remat, the fused 8-bit Adam once a step), then ``traced`` steps. The
     peak is the window's above ``base`` (the bytes allocated before the
     branch was built: the reference kept beside it)."""
     loop = MeshLoop(res, batch)
@@ -1832,7 +1884,7 @@ def mesh_window(label, res, batch, cfg, base):
     stats = {"step_ms": window_s / MESH_STEPS * 1e3,
              "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
              / 2**30, "losses": losses, "launches": launches}
-    prof = profile_window(label, loop, batch, stats["step_ms"])
+    prof = profile_window(label, loop, batch, stats["step_ms"], steps=traced)
     stats["busy_share"] = prof["kernel_busy_share"]
     stats["kernel_ms"] = prof["kernel_ms_per_step"]
     log(f"[mesh {label}] " + json.dumps(stats))
@@ -2176,6 +2228,160 @@ def seq_bodies(seed, windows, mesh):
         + f" (limit: tile_rel_err <= {attn.TILE_REL_TOL})")
 
 
+# ------------------------------------------------------- pipelines
+
+
+def unpipelined(cfg):
+    return dataclasses.replace(cfg, pipeline_stages=0, pipeline_repeats=1,
+                               pipeline_microbatches=0)
+
+
+def pipe_first_step(label, cfg, model_cls, batch, seed, want=None):
+    """The pipelined model's logits and loss on ``batch`` at the seed's
+    weights against the unpipelined model of the same seed (the same
+    weights, layer by logical layer) run microbatch by microbatch: the
+    same blocks on the same rows, so bit for bit. ``want``: those
+    logits, when an earlier call made them. Returns the loss and the
+    unpipelined logits."""
+    toks = torch.from_numpy(batch).cuda()
+    m = cfg.pipeline_microbatches
+    mb = toks.shape[0] // m
+
+    def build(c):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return model_cls(c, device="cuda", generator=gen)
+
+    with torch.no_grad():
+        if want is None:
+            dense = build(unpipelined(cfg))
+            want = torch.cat([dense(toks[i * mb:(i + 1) * mb])
+                              for i in range(m)])
+            del dense
+            torch.cuda.empty_cache()
+        pipe = build(cfg)
+        reset_counts()
+        got = pipe(toks)
+        fwd = read_counts()[attn.kernel_name("flash_fwd", cfg.head_dim)]
+        ticks = pipe.pipeline.ticks
+        del pipe
+    got_loss, want_loss = float(loss_fn(got, toks)), float(loss_fn(want, toks))
+    err = (got.float() - want.float()).abs().max().item()
+    same = torch.equal(got, want)
+    log(f"[pipe {label}] first step against the unpipelined model "
+        f"microbatch by microbatch: logits equal {same} (max |err| "
+        f"{err:.3e}), loss {got_loss!r} vs {want_loss!r}, {fwd} forward "
+        f"kernels, {ticks} ticks")
+    check(fwd == m * cfg.num_layers, f"{label}: {fwd} forward kernels")
+    check(same, f"{label}: logits differ from the unpipelined model's by "
+          f"{err}")
+    check(got_loss == want_loss, f"{label}: loss {got_loss} vs {want_loss}")
+    del got
+    torch.cuda.empty_cache()
+    return got_loss, want
+
+
+def pipeline_phases(seed, windows, unpiped, errs):
+    """GPT-2 xl under GPipe (4 x 4) and the circular schedule (4 x 2 x 4)
+    and the LLaMA preset under GPipe (2 x 4), each at full width
+    through ``Trainer.fit`` with ``adam8bit`` and remat "dots": the first
+    step's logits and loss equal the unpipelined model's run microbatch
+    by microbatch (and so GPipe's and circular's first losses are
+    equal), 2 warm-up steps, a window of PIPE_STEPS (each flash kernel
+    M times a layer a step, the fused 8-bit Adam once; the ticks JAX's
+    formula; the loss falling), a traced step; each beside the
+    unpipelined "dots" step of this call (``unpiped``: each family's
+    remat-rounds summary); after each window, each 8-bit Adam kernel's
+    one launch over the pipelined leaves (a stage's layers share its
+    blocks: a row of the kernel's table a stage) held to the plain
+    version leaf by leaf, from random gradients (its largest |err| into
+    ``errs``). Then the GPipe run again on an NCCL world of one with a
+    ("pipe", 1) mesh: its window's losses equal the one-device run's bit
+    for bit."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel.pipeline import circular_ticks
+
+    summary, first, losses = {}, {}, {}
+    runs = (("gpt2-xl gpipe P4 M4", XL_GPIPE, GPT, XL_BATCH, SEQ, XL_LR,
+             "gpt2-xl"),
+            ("gpt2-xl circular P4 C2 M4", XL_CIRCULAR, GPT, XL_BATCH, SEQ,
+             XL_LR, "gpt2-xl"),
+            ("llama gpipe P2 M4", LLAMA_PIPE, Llama, LLAMA_RUNS[0][0],
+             LLAMA_RUNS[0][1], LLAMA_LR, "llama"))
+    batches, dense = {}, {}
+    for label, cfg, cls, b, seq, lr, family in runs:
+        batch = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (b, seq), dtype=np.int64)
+        # GPipe's unpipelined reference serves the circular run too.
+        want, dense[family] = pipe_first_step(label, cfg, cls, batch, seed,
+                                              dense.pop(family, None))
+        launches, trainer, batch, stats = train(
+            label, cfg, adam8bit(lr), b, PIPE_STEPS, seed, model_cls=cls,
+            seq=seq)
+        windows[f"pipe {label}"] = launches
+        check(stats["init_loss"] == want, f"{label}: first training loss "
+              f"{stats['init_loss']} vs the unpipelined {want}")
+        first[label], losses[label], batches[label] = \
+            stats["init_loss"], stats["losses"], batch
+        ticks = trainer.module.pipeline.ticks
+        per = circular_ticks(cfg.pipeline_microbatches, cfg.pipeline_stages,
+                             cfg.pipeline_repeats)
+        check(ticks == (WARMUP + PIPE_STEPS) * per,
+              f"{label}: {ticks} ticks in {WARMUP + PIPE_STEPS} steps, "
+              f"want {per} a step")
+        prof = profile_window(label, trainer, batch, stats["step_ms"],
+                              steps=1)
+        opt = trainer.state["opt"]
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        grads = {n: (torch.randn(p.shape, generator=gen, device="cuda")
+                     * 1e-3).to(p.dtype) for n, p in opt.params.items()}
+        for name, err in check_step_tables(opt, grads).items():
+            errs[name] = max(errs[name], err)
+        del opt, grads
+        base = unpiped[family]
+        summary[label] = {
+            **{k: stats[k] for k in ("step_ms", "tokens_per_s", "mfu",
+                                     "peak_mem_gib")},
+            "busy_share": prof["kernel_busy_share"],
+            "kernel_ms": prof["kernel_ms_per_step"],
+            "ticks_per_step": per,
+            "unpipelined_dots": {k: base[k] for k in (
+                "median_step_ms", "tokens_per_s", "mfu", "peak_mem_gib",
+                "busy_share")},
+            "step_over_unpipelined": stats["step_ms"]
+            / base["median_step_ms"],
+        }
+        log(f"[pipe {label}] " + json.dumps(summary[label]))
+        del trainer
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+    gpipe, circ = (f"gpt2-xl {s}" for s in ("gpipe P4 M4",
+                                             "circular P4 C2 M4"))
+    check(first[gpipe] == first[circ], f"GPipe's first loss {first[gpipe]} "
+          f"vs circular's {first[circ]}")
+    label = "gpt2-xl gpipe P4 M4 on ('pipe', 1)"
+    with world_of_one("pipe") as (dev, _):
+        mesh = create_mesh([("pipe", 1)], dev)
+        check(dist.get_backend() == "nccl", "the mesh is not on NCCL")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        res = accelerate_on_mesh(
+            GPT(XL_GPIPE, device="cuda", generator=gen), adam8bit(XL_LR),
+            batches[gpipe], token_loss, mesh, device=dev)
+        check(res.mesh is mesh, f"{label}: not on the mesh")
+        stats = mesh_window(label, res, batches[gpipe], XL_GPIPE, 0,
+                            traced=1)[0]
+        windows[f"pipe {label}"] = stats["launches"]
+        check(stats["losses"] == losses[gpipe],
+              f"{label}: losses {stats['losses']} differ from one device's "
+              f"{losses[gpipe]}")
+        summary[label] = {k: stats[k] for k in ("step_ms", "peak_mem_gib",
+                                                "busy_share", "kernel_ms")}
+        del res
+        torch.cuda.empty_cache()
+    log("[pipe] " + json.dumps(summary))
+
+
 def checkpoint_phases(seed, windows):
     """Phases (a)-(c) with the agent's saver running in this process; adds
     each phase's kernel launches to ``windows``; cleans up after itself."""
@@ -2215,7 +2421,7 @@ class Phases:
 def d128_kernels(gen, errs):
     """The head_dim-128 kernels against their plain versions at the LLaMA
     preset's attention shapes (B 4, S 2048 and B 1, S 8192; 16 heads,
-    causal), non-causal, at a ragged S (causal and not), at S 192, at
+    causal) and the pipelined preset's (B 1, S 2048), non-causal, at a ragged S (causal and not), at S 192, at
     B 1 H 1 S 128, at B 3 H 5 S 1000 and at B 1 H 40 S 2048 (causal and
     not); then each timed at
     both shapes, alone and through its wrapper, beside its plain version,
@@ -2229,6 +2435,12 @@ def d128_kernels(gen, errs):
                                  ).items():
             errs[name] = max(errs[name], err)
         torch.cuda.empty_cache()
+    # The pipelined preset's shape: one row a microbatch, 16 (b, h) items.
+    b = LLAMA_RUNS[0][0] // LLAMA_PIPE.pipeline_microbatches
+    s = LLAMA_RUNS[0][1]
+    for name, err in compare(*qkv_do(gen, b, s, heads, 128), True,
+                             f"d128 causal pipe B{b} S{s} H{heads}").items():
+        errs[name] = max(errs[name], err)
     compare(*qkv_do(gen, 2, 1024, 4, 128), False, "d128 non-causal B2 S1024")
     compare(*qkv_do(gen, 2, 1000, 4, 128), True, "d128 causal ragged B2 S1000")
     compare(*qkv_do(gen, 2, 192, 4, 128), True, "d128 causal B2 S192")
@@ -2293,6 +2505,15 @@ def main():
             for name, err in compare(*x, True, f"causal B{b} H{h} S{SEQ} "
                                      f"{layout}").items():
                 errs[name] = max(errs[name], err)
+    # The pipelined GPT-2 xl's shape: one row a microbatch, 25 (b, h)
+    # items, fewer than the SMs; in both layouts, as the model passes it.
+    b, h = XL_BATCH // XL_GPIPE.pipeline_microbatches, XL.num_heads
+    x = qkv_do(gen, b, SEQ, h=h)
+    for layout, y in (("contiguous", x), ("fused qkv", fused_qkv(*x))):
+        for name, err in compare(*y, True, f"pipe causal B{b} H{h} S{SEQ} "
+                                 f"{layout}").items():
+            errs[name] = max(errs[name], err)
+    del x, y
     compare(*qkv_do(gen, 4, SEQ), False, f"non-causal B4 S{SEQ}")
     compare(*qkv_do(gen, 2, 1000), True, "causal ragged B2 S1000")
     compare(*qkv_do(gen, 2, 192), True, "causal B2 S192")
@@ -2330,8 +2551,9 @@ def main():
     del trainer
     torch.cuda.empty_cache()
     phase("gpt2-124m")
-    remat_rounds("gpt2-xl", XL, XL_POLICIES, XL_LR, XL_BATCH, SEQ,
-                 args.seed, windows)
+    unpiped = {"gpt2-xl": remat_rounds("gpt2-xl", XL, XL_POLICIES, XL_LR,
+                                       XL_BATCH, SEQ, args.seed,
+                                       windows)["dots"]}
     # The flagship as bench.py trains it (remat "dots"), then the
     # optax-style loop on the same trainer.
     windows["gpt2-xl"], trainer, batch, _ = train(
@@ -2352,9 +2574,9 @@ def main():
     optimizer_offload(args.seed, windows)
     phase("gpt2-xl optimizer offload")
     b, seq, _ = LLAMA_RUNS[0]
-    remat_rounds(f"llama B{b} S{seq}", LlamaConfig.preset(seq),
-                 LLAMA_POLICIES, LLAMA_LR, b, seq, args.seed, windows,
-                 model_cls=Llama)
+    unpiped["llama"] = remat_rounds(
+        f"llama B{b} S{seq}", LlamaConfig.preset(seq), LLAMA_POLICIES,
+        LLAMA_LR, b, seq, args.seed, windows, model_cls=Llama)["dots"]
     phase(f"llama B{b} S{seq} remat rounds (" + ", ".join(LLAMA_POLICIES)
           + ")")
     for b, seq, steps in LLAMA_RUNS[1:]:
@@ -2374,6 +2596,8 @@ def main():
     moe_on_expert_axis(args.seed, windows, moe_losses, moe_launches,
                        moe_batch)
     phase("llama-moe on an expert axis of one; ring and ulysses bodies")
+    pipeline_phases(args.seed, windows, unpiped, errs)
+    phase("pipelines: gpt2-xl gpipe and circular, llama gpipe, ('pipe', 1)")
     checkpoint_phases(args.seed, windows)
     phase("checkpoint")
     log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")

@@ -1,8 +1,9 @@
 """Acceleration layer of the port (counterpart of ``dlrover_tpu/accel``):
 ``auto_accelerate`` on one device, or on a ``DeviceMesh`` of ``data``
-(gradient averaging), ``fsdp`` (FSDP2), ``tensor`` (DTensor tensor
-parallelism), ``seq`` (ring / Ulysses attention) and ``expert`` (the MoE
-stacks sharded by expert) axes over several processes."""
+(gradient averaging), ``fsdp`` (FSDP2), ``pipe`` (pipeline stages on
+ranks, ``accel/pipeline.py``), ``tensor`` (DTensor tensor parallelism),
+``seq`` (ring / Ulysses attention) and ``expert`` (the MoE stacks
+sharded by expert) axes over several processes."""
 
 from dlrover_tpu_torch.accel.accelerate import (  # noqa: F401
     AccelerateResult,

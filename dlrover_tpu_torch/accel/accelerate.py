@@ -7,11 +7,23 @@ function over live modules: forward, backward, optimizer update.
 
 A one-device spec (``ParallelSpec()``, or ``"auto"`` in a one-process
 job) trains the module as it is. A spec of several ``data``, ``fsdp``,
-``tensor``, ``seq`` and ``expert`` degrees over a world of as many
-processes (one device each: a card under NCCL, the CPU under gloo)
+``pipe``, ``tensor``, ``seq`` and ``expert`` degrees over a world of as
+many processes (one device each: a card under NCCL, the CPU under gloo)
 places the module on a ``DeviceMesh`` of those axes
 (``accelerate_on_mesh``, also callable on a mesh whose axes have size
 1):
+
+- ``pipe``: a model with ``pipeline_stages`` (``accel/pipeline.py``)
+  keeps on each rank its block of ``P/R`` stages (bank rows, with all
+  their chunks); the first rank keeps the embedding, the last the final
+  norm and the head, both GPT's tied ``wte``, whose gradient is summed
+  over those two ranks (as Megatron does). The step runs the schedule
+  over the ranks, activations passing between neighbours by P2P, the
+  loss formed on the last rank and shared with every rank, and the
+  backward run tick by tick in reverse (``_Schedule.backward``). A
+  pipelined model's microbatch ``i`` is the global rows
+  ``[i*mb, (i+1)*mb)``, of which each ``data`` rank takes its slice
+  (``local_batch``), as JAX reshapes the batch before sharding it;
 
 - ``tensor``: each ``Dense`` whose logical axes the rules map to the
   tensor axis becomes column- or row-parallel (``tensor_parallel``):
@@ -40,8 +52,12 @@ places the module on a ``DeviceMesh`` of those axes
 An MoE layer on any mesh routes as JAX routes the global batch (capacity
 from the global token count, buffer positions offset by the earlier
 ranks' tokens). Not yet: ``seq`` or ``expert`` (or an MoE model) with
-``fsdp`` or ``tensor``, ``seq`` with ``expert``, and a ``seq`` degree
+``fsdp`` or ``tensor``, ``seq`` with ``expert``, ``pipe`` (or a
+pipelined model) with ``fsdp``, ``tensor``, ``seq`` or ``expert``, an
+``update_and_apply`` optimizer on pipe ranks, and a ``seq`` degree
 above 1 without ring or Ulysses attention raise ``NotImplementedError``.
+A ``pipe`` or ``expert`` degree on a model without stages or experts
+raises ``ValueError``, as JAX's ``_check_spec_axes_used`` does.
 
 An optimizer with ``update_and_apply`` (``adam8bit``,
 ``bf16_master_weights``) keeps its state whole and replicated, as the
@@ -52,6 +68,7 @@ DTensor shards themselves.
 """
 
 import dataclasses
+import itertools
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -72,11 +89,14 @@ from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 # strategy-search slice of the port.
 _MULTI_DEVICE = ("devices", "profile", "profile_steps", "allow_tensor",
                  "registry", "search_top_k")
-# The mesh axes this slice places a module on.
-MESH_AXES = ("data", "fsdp", "tensor", "seq", "expert")
+# The mesh axes this slice places a module on, in the JAX package's order.
+MESH_AXES = ("data", "fsdp", "pipe", "seq", "expert", "tensor")
 _ITEM6 = ("a later part of ROADMAP queue 1, item 6 (sequence and expert "
           "parallelism's rest: a leaf sharded over two mesh axes, as item "
           "2's fsdp x tensor)")
+_PIPE_REST = ("a later part of ROADMAP queue 1, item 6 (pipeline "
+              "parallelism's rest: pipe with fsdp, tensor, seq or expert, "
+              "and the vocab over pipe)")
 _SEARCH = ("the strategy-search slice of the port (ROADMAP queue 1, "
            "item 2: search, registry, profile, tp_planner)")
 
@@ -145,8 +165,12 @@ class AccelerateResult:
     module: nn.Module
     #: The ``DeviceMesh`` of a multi-device spec (None on one device).
     mesh: Any = None
-    #: This rank's rows ``(start, stop)`` of the global batch's ``rows``.
+    #: This rank's rows ``(start, stop)`` of each of ``parts`` equal
+    #: parts of the global batch's ``rows``: ``((start, stop), rows)``.
     batch_rows: Optional[tuple] = None
+    #: The parts: a pipelined model's microbatches (times ``grad_accum``),
+    #: of each of which a data rank takes its slice; 1 otherwise.
+    parts: int = 1
 
     def local_batch(self, batch):
         """This rank's rows of a global batch (a tensor or array, or a
@@ -157,14 +181,51 @@ class AccelerateResult:
         from dlrover_tpu_torch.train.data.device_prefetch import map_batch
 
         (lo, hi), rows = self.batch_rows
+        parts = self.parts
 
         def take(x):
             if x.shape[0] != rows:
                 raise ValueError(f"a global batch of {x.shape[0]} rows, "
                                  f"want {rows}")
-            return x[lo:hi]
+            if parts == 1:
+                return x[lo:hi]
+            rest = tuple(x.shape[1:])
+            return x.reshape((parts, rows // parts) + rest)[:, lo:hi] \
+                .reshape((-1,) + rest)
 
         return map_batch(take, batch)
+
+    def forward_loss(self, loss: Callable, batch) -> torch.Tensor:
+        """``loss(module, params, batch)`` of this rank's rows (on the
+        device) without a backward; zero on a pipe rank before the last,
+        after its share of the forward."""
+        return _forward_loss(self.module, loss, self.state["params"], batch)
+
+    @property
+    def loss_ranks(self) -> int:
+        """The ranks that form the loss: every one, or on a pipe mesh
+        those of the last stage (their mean is the global loss)."""
+        return _loss_ranks(self.mesh)
+
+
+def _loss_ranks(mesh) -> int:
+    if mesh is None:
+        return 1
+    return dist.get_world_size() // axis_sizes(mesh).get("pipe", 1)
+
+
+def _pipeline(module: nn.Module):
+    """The module's pipeline schedule when it runs over pipe ranks."""
+    pipe = getattr(module, "pipeline", None)
+    return pipe if pipe is not None and pipe.distributed else None
+
+
+def _forward_loss(module: nn.Module, loss: Callable, params, batch):
+    pipe = _pipeline(module)
+    if pipe is None or pipe.last:
+        return loss(module, params, batch)
+    module(batch)
+    return torch.zeros((), device=batch.device)
 
 
 def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
@@ -186,9 +247,17 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
     (``set_requires_gradient_sync``), the step sums those of the
     parameters a ``seq`` axis replicates over it (each seq rank
     differentiates its share of the loss), then averages them over
-    ``data``, and the loss it reports is the mean over every rank.
+    ``data``, and the loss it reports is the mean over every rank. Over
+    pipe ranks the loss is formed on the last (``loss`` runs there, the
+    module alone on the others), the schedule's backward runs on every
+    rank after the loss's, the tied head's gradient is summed over the
+    first and last ranks, and the reported loss is the mean over the
+    last stage's ranks.
     """
     params = dict(module.named_parameters())
+    pipe = _pipeline(module)
+    tied = [params[n] for n in getattr(module, "TIED", ())
+            if pipe is not None and n in params]
     fsdp = [m for m in module.modules() if hasattr(m,
                                                    "set_requires_gradient_sync")]
     names = () if mesh is None else mesh.mesh_dim_names
@@ -202,11 +271,16 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
                           if sharding.layout_of(p) is None
                           or sharding.layout_of(p).shard[axis] is None]
 
+    loss_ranks = _loss_ranks(mesh)
+
     def grads_of(batch, sync: bool = True):
         for m in fsdp:
             m.set_requires_gradient_sync(sync, recurse=False)
-        lv = loss(module, params, batch)
-        lv.backward()
+        lv = _forward_loss(module, loss, params, batch)
+        if pipe is None or pipe.last:
+            lv.backward()
+        if pipe is not None:
+            pipe.backward()
         return lv.detach()
 
     flat: Dict[Any, torch.Tensor] = {}
@@ -258,12 +332,14 @@ def make_train_step(module: nn.Module, loss: Callable, grad_accum: int = 1,
         with torch.no_grad():
             if seq_group is not None:
                 reduce_grads(seq_replicated, seq_group, None)
+            if tied and pipe.ranks.ends is not None:
+                reduce_grads(tied, pipe.ranks.ends, None)
             if data_group is not None:
                 reduce_grads(params.values(), data_group, data_size)
         if mesh is not None:
             lv = lv.clone()
             dist.all_reduce(lv)
-            lv = lv / dist.get_world_size()
+            lv = lv / loss_ranks
         opt = state["opt"]
         fused = getattr(opt, "update_and_apply", None)
         if fused is not None:
@@ -286,10 +362,10 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def _check_spec(spec: Any) -> ParallelSpec:
+def _check_spec(spec: Any, module: nn.Module) -> ParallelSpec:
     """The spec to build: ``"auto"`` in a one-process job is one device;
-    a spec's degrees must be ones this slice places, over a world of as
-    many processes."""
+    a spec's degrees must be ones this slice places, on axes ``module``
+    uses, over a world of as many processes."""
     if isinstance(spec, str):
         if spec != "auto":
             raise ValueError(f"spec must be a ParallelSpec or 'auto', got "
@@ -309,11 +385,8 @@ def _check_spec(spec: Any) -> ParallelSpec:
         raise NotImplementedError(
             f"collectives={spec.collectives} comes with the collectives "
             "slice of the port (ROADMAP queue 1, item 2)")
-    if spec.pipe > 1:
-        raise NotImplementedError(
-            "a pipe degree comes with the pipeline slice of the port "
-            "(ROADMAP queue 1, item 6: accel/pipeline.py)")
     _check_axes(dict(spec.axes()))
+    _check_spec_axes_used(spec, module)
     if spec.total > 1 and spec.total != _world_size():
         raise ValueError(f"{spec} needs a world of {spec.total} processes, "
                          f"have {_world_size()}")
@@ -331,6 +404,30 @@ def _check_axes(sizes: Dict[str, int]):
     if "seq" in sizes and "expert" in sizes:
         raise NotImplementedError(
             "seq and expert axes together come with " + _ITEM6)
+    if "pipe" in sizes and set(sizes) & {"fsdp", "tensor", "seq", "expert"}:
+        raise NotImplementedError(
+            "a pipe axis together with fsdp, tensor, seq or expert comes "
+            "with " + _PIPE_REST)
+
+
+def _check_spec_axes_used(spec: ParallelSpec, module: nn.Module):
+    """JAX's check: a ``pipe`` or ``expert`` degree above 1 with no
+    parameter carrying the matching logical axis (``stage``: a model
+    with ``pipeline_stages``; ``expert``: one with experts) would
+    silently waste those devices, and raises ``ValueError``."""
+    carries = {
+        "stage": getattr(module, "pipeline", None) is not None,
+        "expert": any(isinstance(m, MoEMLP) for m in module.modules()),
+    }
+    for degree, logical in ((spec.pipe, "stage"), (spec.expert, "expert")):
+        if degree > 1 and not carries[logical]:
+            raise ValueError(
+                f"ParallelSpec has {logical!r}-axis degree {degree} but no "
+                f"model parameter carries the {logical!r} logical axis — "
+                "those devices would be silently wasted. Configure the "
+                "model for it (e.g. GPTConfig.pipeline_stages / "
+                "num_experts) or drop the degree."
+            )
 
 
 def auto_accelerate(
@@ -373,7 +470,7 @@ def auto_accelerate(
         raise ValueError(f"precision must be 'bf16' or 'int8', got "
                          f"{precision!r}")
     dev = resolve_device(device)
-    spec = _check_spec(spec)
+    spec = _check_spec(spec, module)
     if spec.total > 1:
         mesh = create_mesh(spec.axes(), dev)
         return accelerate_on_mesh(
@@ -545,6 +642,57 @@ def sequence_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
     return layouts
 
 
+def pipeline_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
+    """Place a pipelined ``module`` on ``mesh``'s pipe axis, in place: this
+    rank keeps its block of stages (``_Schedule.place``) and the ends of
+    the model its first or last stage reads (``keep_ends``). Returns the
+    layouts of what it keeps: a stage's parameters placed on this pipe
+    coordinate (their JAX leaf's stage dim sharded over the axis), the
+    embedding, final norm and head on theirs, and GPT's tied ``wte``,
+    which the first and last ranks both hold, replicated (the first
+    persists it). A model without stages, or a stage count the degree
+    does not divide, raises ``ValueError``."""
+    from dlrover_tpu_torch.accel.pipeline import PipeRanks
+
+    size = axis_sizes(mesh)["pipe"]
+    _check_spec_axes_used(ParallelSpec(pipe=size), module)
+    pipe = module.pipeline
+    if pipe.num_stages % size:
+        raise ValueError(f"pipeline_stages {pipe.num_stages} does not "
+                         f"divide by the pipe degree {size}")
+    axis = mesh.mesh_dim_names.index("pipe")
+    ranks = mesh.mesh
+
+    def line(coord, i):
+        c = list(coord)
+        c[axis] = i
+        return int(ranks[tuple(c)])
+
+    coord = list(mesh.get_coordinate())
+    ends = None
+    if getattr(module, "TIED", ()):
+        # Every rank makes every line's group of its two ends.
+        others = [range(n) if i != axis else range(1)
+                  for i, n in enumerate(ranks.shape)]
+        for c in itertools.product(*others):
+            pair = [line(c, 0), line(c, size - 1)]
+            group = dist.new_group(pair)
+            if dist.get_rank() in pair:
+                ends = group
+    r = coord[axis]
+    pipe.place(PipeRanks(r, tuple(line(coord, i) for i in range(size)),
+                         ends))
+    module.keep_ends(pipe.first, pipe.last)
+    free = (None,) * ranks.ndim
+    stage = sharding.Layout(mesh, free, placed=(axis,),
+                            stages=pipe.num_stages)
+    placed = sharding.Layout(mesh, free, placed=(axis,))
+    replicated = sharding.Layout.replicated(mesh)
+    return {name: (stage if name.startswith("pipeline.")
+                   else replicated if name in module.TIED else placed)
+            for name, _ in module.named_parameters()}
+
+
 def fully_shard_model(module: nn.Module, mesh) -> Dict[str, Any]:
     """FSDP2 over ``mesh``'s fsdp axis: ``fully_shard`` on each block,
     then on the root. Every parameter is sharded along dim 0; returns
@@ -625,6 +773,11 @@ def _bind_on_mesh(optimizer, module: nn.Module, layouts):
 
     named = list(module.named_parameters())
     if getattr(optimizer, "takes_named_parameters", False):
+        if _pipeline(module) is not None:
+            raise NotImplementedError(
+                "an update_and_apply optimizer (adam8bit, "
+                "bf16_master_weights) on pipe ranks comes with "
+                + _PIPE_REST)
         return MeshOptimizer(optimizer, named, layouts)
     if isinstance(optimizer, torch.optim.Optimizer) or hasattr(
             optimizer, "update_and_apply"):
@@ -650,17 +803,22 @@ def accelerate_on_mesh(
     offload_optimizer: bool = False,
 ) -> AccelerateResult:
     """``auto_accelerate``'s multi-device branch on ``mesh`` (a
-    ``DeviceMesh`` whose axes are among ``data``, ``fsdp``, ``tensor``,
-    ``seq`` and ``expert``, of any sizes, 1 included;
+    ``DeviceMesh`` whose axes are among ``data``, ``fsdp``, ``pipe``,
+    ``seq``, ``expert`` and ``tensor``, of any sizes, 1 included;
     ``mesh.create_mesh``). Every process passes the same module,
     initialized alike, and the same global ``sample_batch``."""
     sizes = axis_sizes(mesh)
     other = [a for a in sizes if a not in MESH_AXES]
     if other:
-        raise NotImplementedError(
-            f"mesh axes {other} come with the pipeline slice of the port "
-            "(ROADMAP queue 1, item 6: accel/pipeline.py)")
+        raise ValueError(f"unknown mesh axes {other}; the axes are "
+                         f"{MESH_AXES}")
     _check_axes(sizes)
+    pipe = getattr(module, "pipeline", None)
+    if pipe is not None and set(sizes) & {"fsdp", "tensor", "seq",
+                                          "expert"}:
+        raise NotImplementedError(
+            "a pipelined model on an fsdp, tensor, seq or expert axis comes "
+            "with " + _PIPE_REST)
     moe = [m for m in module.modules() if isinstance(m, MoEMLP)]
     if moe and ("fsdp" in sizes or "tensor" in sizes):
         raise NotImplementedError(
@@ -684,15 +842,24 @@ def accelerate_on_mesh(
     if (rows // shards) % grad_accum:
         raise ValueError(f"a rank's batch of {rows // shards} rows is not "
                          f"divisible by grad_accum {grad_accum}")
+    # A pipelined model's microbatches (of each accumulation step): each
+    # data rank takes its slice of every one.
+    parts = 1 if pipe is None else grad_accum * pipe.num_microbatches
+    if rows % (parts * shards):
+        raise ValueError(f"a global batch of {rows} rows does not split "
+                         f"into {parts} microbatches over {shards} "
+                         "data/fsdp ranks")
     if sample_batch.shape[1] % sizes.get("seq", 1):
         raise ValueError(f"a sequence of {sample_batch.shape[1]} tokens "
                          f"does not split over {sizes['seq']} seq ranks")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     shard = coord.get("data", 0) * sizes.get("fsdp", 1) + coord.get("fsdp", 0)
-    width = rows // shards
+    width = rows // parts // shards
     module = module.to(dev)
     rules = spec.rules(vocab_size=getattr(module.cfg, "vocab_size", 0))
     layouts: Dict[str, Any] = {}
+    if sizes.get("pipe", 1) > 1:
+        layouts.update(pipeline_parallel(module, mesh))
     if "tensor" in sizes:
         layouts.update(tensor_parallel(module, mesh, rules))
     if "fsdp" in sizes:
@@ -712,12 +879,13 @@ def accelerate_on_mesh(
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
     logger.info("auto_accelerate: %.1fM params on mesh %s (%s), rows "
-                "[%s, %s) of %s", sum(p.numel() for p in module.parameters())
-                / 1e6, sizes, dev, shard * width, (shard + 1) * width, rows)
+                "[%s, %s) of each of %s parts of %s",
+                sum(p.numel() for p in module.parameters()) / 1e6, sizes, dev,
+                shard * width, (shard + 1) * width, parts, rows)
     return AccelerateResult(
         spec=spec, device=dev, state=state,
         train_step=make_train_step(module, loss, grad_accum=grad_accum,
                                    mesh=mesh),
         module=module, mesh=mesh,
-        batch_rows=((shard * width, (shard + 1) * width), rows),
+        batch_rows=((shard * width, (shard + 1) * width), rows), parts=parts,
     )

@@ -94,11 +94,17 @@ def mesh_dims(axes: Sequence[Optional[str]], rules) -> dict:
 class Layout:
     """Where one parameter's values lie on ``mesh``: ``shard[i]`` is the
     tensor dim mesh axis ``i`` shards (None: replicated over it);
-    ``fused`` equal regions split the tensor-parallel dim (GPT's qkv)."""
+    ``fused`` equal regions split the tensor-parallel dim (GPT's qkv).
+    ``placed`` are the mesh axes along which the parameter lies whole
+    on one coordinate only (a pipe rank's stages, the embedding on the
+    first); ``stages`` is, for a stage's parameter, the global count of
+    stages of its JAX leaf (whose stage dim the pipe axis shards)."""
 
     mesh: Any  # the job's DeviceMesh
     shard: Tuple[Optional[int], ...]
     fused: int = 1
+    placed: Tuple[int, ...] = ()
+    stages: int = 0
 
     @staticmethod
     def replicated(mesh) -> "Layout":
@@ -127,7 +133,7 @@ class Layout:
         the one that persists them)."""
         idx = 0
         for i, (d, n) in enumerate(zip(self.shard, self.sizes)):
-            if d is None:
+            if d is None and i not in self.placed:
                 idx = idx * n + self.coord[i]
         return idx
 

@@ -17,7 +17,23 @@ has its naming table (``Naming``):
   scanned layers.
 
 The port's ``state_dict`` has one ``blocks.<i>`` / ``layers.<i>`` per
-layer, and the table is chosen from the names (``naming_of``). Dense
+layer, and the table is chosen from the names (``naming_of``). A
+pipelined model's layers (both families) are the JAX pipeline's:
+
+- GPipe: ``pipeline.stages.<p>.blocks.<j>`` is
+  ``pipeline/ticks/stages/stage/blocks/*`` ``[P, L/P, ...]`` under
+  ``scan_layers``, ``pipeline/ticks/stages/stage/block_<j>/*``
+  ``[P, ...]`` without it;
+- circular: ``pipeline.bank.<p>.<c>.blocks.<k>`` is
+  ``pipeline/bank/blocks/*`` ``[P, C, L/(P*C), ...]`` (or
+  ``pipeline/bank/block_<k>/*`` ``[P, C, ...]``): the bank's own
+  ``(p, c)``, which holds logical chunk ``c*P + p``
+  (``dense_state_dict`` renames a pipelined model's layers to the
+  unpipelined model's by logical layer).
+
+On a pipe rank a stage leaf's members are its stages only: the leaf
+keeps the global stage count (``stages``) and says which stages it
+holds (``StageBlock.index``). Dense
 kernels keep flax's ``[in, out]`` layout on both sides (the port
 multiplies ``x @ kernel``), and flax's norm ``scale`` is the port's
 ``weight``. Both directions copy the values bit for bit, bf16 included
@@ -36,6 +52,8 @@ JAX leaf's. The flash checkpoint writes and restores through it, so a
 checkpoint of either package restores into the other.
 """
 
+import dataclasses
+import math
 import re
 from typing import (
     Any,
@@ -118,6 +136,9 @@ LLAMA_NAMING = Naming(
 )
 
 
+_LLAMA_MODULES = frozenset(m for m, _ in LLAMA_NAMING.layer) - {"moe"}
+
+
 def naming_of(names: Iterable[str]) -> Naming:
     """The naming table of a model from its parameter names (the port's,
     ``layers.3.q_proj.kernel``) or its JAX leaf paths
@@ -125,11 +146,67 @@ def naming_of(names: Iterable[str]) -> Naming:
     GPT's otherwise."""
     llama = LLAMA_NAMING
     for name in names:
-        head = re.split(r"[./]", name, maxsplit=1)[0]
+        parts = re.split(r"[./]", name)
         if (name in llama.top or name in llama.top_name
-                or head == llama.stack or head.startswith(llama.unscanned)):
+                or parts[0] == llama.stack
+                or parts[0].startswith(llama.unscanned)
+                or _LLAMA_MODULES.intersection(parts)):
             return llama
     return GPT_NAMING
+
+
+# A pipelined model's layers: (port name pattern, JAX leaf path prefix).
+_PIPE_GPIPE = (re.compile(r"pipeline\.stages\.(\d+)\.blocks\.(\d+)\."
+                          r"(\w+)\.(\w+)$"), "pipeline/ticks/stages/stage/")
+_PIPE_BANK = (re.compile(r"pipeline\.bank\.(\d+)\.(\d+)\.blocks\.(\d+)\."
+                         r"(\w+)\.(\w+)$"), "pipeline/bank/")
+
+
+def _pipe_layer(name: str):
+    """(JAX prefix, bank indices, block index, module, port leaf) of a
+    pipelined model's layer parameter, or None."""
+    for pattern, prefix in (_PIPE_GPIPE, _PIPE_BANK):
+        hit = pattern.match(name)
+        if hit:
+            *idx, block, module, leaf = hit.groups()
+            return prefix, tuple(int(i) for i in idx), int(block), module, leaf
+    return None
+
+
+def _pipe_path(path: str):
+    """(JAX prefix, lead dims of the bank, block index or None when
+    stacked, module, leaf) of a pipelined JAX leaf path, or None."""
+    for pattern, prefix in (_PIPE_GPIPE, _PIPE_BANK):
+        if path.startswith(prefix):
+            blocks, module, leaf = path[len(prefix):].split("/")
+            lead = 1 if pattern is _PIPE_GPIPE[0] else 2
+            block = None if blocks == "blocks" else int(blocks[len("block_"):])
+            return prefix, lead, block, module, leaf
+    return None
+
+
+def _pipe_name(prefix: str, idx, block: int, module: str, port: str) -> str:
+    bank = "stages" if prefix == _PIPE_GPIPE[1] else "bank"
+    return (f"pipeline.{bank}." + "".join(f"{i}." for i in idx)
+            + f"blocks.{block}.{module}.{port}")
+
+
+def dense_state_dict(state_dict: Mapping[str, torch.Tensor], cfg
+                     ) -> Dict[str, torch.Tensor]:
+    """A pipelined model's ``state_dict`` under the unpipelined model's
+    names (its layers by logical index: bank chunk ``(p, c)`` is chunk
+    ``c*P + p``); the tensors are not copied."""
+    from dlrover_tpu_torch.accel.pipeline import layer_names
+
+    stack = naming_of(state_dict).stack
+    dense = dataclasses.replace(cfg, pipeline_stages=0, pipeline_repeats=1)
+    rename = dict(zip(layer_names(cfg, stack), layer_names(dense, stack)))
+    out = {}
+    for name, value in state_dict.items():
+        hit = re.match(r"(pipeline\.\w+\.\d+\.(?:\d+\.)?blocks\.\d+)\.(.*)$",
+                       name)
+        out[f"{rename[hit.group(1)]}.{hit.group(2)}" if hit else name] = value
+    return out
 
 
 def _tensor(v) -> torch.Tensor:
@@ -181,6 +258,17 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if path in top_name:
             out[top_name[path]] = _tensor(value)
             continue
+        pipe = _pipe_path(path)
+        if pipe is not None:
+            prefix, lead, block, module, leaf = pipe
+            port = port_leaf[module, leaf]
+            arr = np.asarray(value)
+            dims = arr.shape[:lead + (block is None)]
+            for idx in np.ndindex(*dims):
+                b = idx[lead] if block is None else block
+                out[_pipe_name(prefix, idx[:lead], b, module, port)] = \
+                    _tensor(arr[idx])
+            continue
         prefix, module, leaf = path.split("/")
         port = port_leaf[module, leaf]
         if prefix == naming.stack:
@@ -199,12 +287,11 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor],
     ``block_<i>`` / ``layer_<i>`` per layer."""
     leaves = jax_leaves(((n, tuple(v.shape)) for n, v in state_dict.items()),
                         stacked=stacked)
-    stack = naming_of(state_dict).stack + "/"
     flat = {}
     for path, leaf in leaves.items():
         arrays = [_array(state_dict[n]) for n in leaf.names]
-        flat[path] = (np.stack(arrays) if path.startswith(stack)
-                      else arrays[0])
+        flat[path] = (arrays[0] if arrays[0].shape == leaf.shape
+                      else np.stack(arrays).reshape(leaf.shape))
     return _nest(flat)
 
 
@@ -213,29 +300,60 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor],
 
 class JaxLeaf(NamedTuple):
     """One leaf of the JAX params tree: its parameters in the port, in
-    layer order (one, or one per layer of a stacked leaf), and its shape
-    in the JAX tree."""
+    the order of its stacked (layer, stage) dims (one, or one per layer
+    of a stacked leaf), and its shape in the JAX tree."""
 
     names: Tuple[str, ...]
     shape: Tuple[int, ...]
 
+    @property
+    def index(self) -> Optional[Tuple[Tuple[int, int], ...]]:
+        """The region of the stacked dims the parameters cover: None, all
+        of them (``StageBlock``: a pipe rank's stages)."""
+        return None
 
-def _jax_path(name: str, stacked: bool, naming: Naming) -> Tuple[str, int]:
-    """(JAX leaf path, layer index or -1) of a port parameter name; a
-    name the model does not have is its own leaf, under its own name."""
+
+class StageBlock(JaxLeaf):
+    """A pipe rank's stages of a stage leaf: the names are those stages'
+    parameters, ``shape`` the whole leaf's, ``index`` the region of its
+    stacked dims they cover."""
+
+    def __new__(cls, names, shape, index=None):
+        self = super().__new__(cls, names, shape)
+        self._index = index
+        return self
+
+    @property
+    def index(self):
+        return self._index
+
+
+def _jax_path(name: str, stacked: bool, naming: Naming
+              ) -> Tuple[str, Tuple[int, ...]]:
+    """(JAX leaf path, indices along its stacked dims) of a port
+    parameter name; a name the model does not have is its own leaf,
+    under its own name."""
     if name in naming.top:
-        return naming.top[name], -1
+        return naming.top[name], ()
+    pipe = _pipe_layer(name)
+    if pipe is not None:
+        prefix, idx, block, module, port = pipe
+        leaf = naming.layer[module, port]
+        if stacked:
+            return f"{prefix}blocks/{module}/{leaf}", idx + (block,)
+        return f"{prefix}block_{block}/{module}/{leaf}", idx
     hit = naming.layer_param(name)
     if hit:
         i, module, port = hit
         leaf = naming.layer[module, port]
         prefix = naming.stack if stacked else f"{naming.unscanned}{i}"
-        return f"{prefix}/{module}/{leaf}", (i if stacked else -1)
-    return name, -1
+        return f"{prefix}/{module}/{leaf}", ((i,) if stacked else ())
+    return name, ()
 
 
 def jax_leaves(named_shapes: Iterable[Tuple[str, Tuple[int, ...]]],
-               stacked: bool = True) -> Dict[str, JaxLeaf]:
+               stacked: bool = True, stages: Optional[int] = None
+               ) -> Dict[str, JaxLeaf]:
     """Group the port's parameters (name, shape) into the leaves of the
     JAX model's params tree, keyed by the leaf's ``/``-joined path:
     ``blocks/qkv/kernel`` holds every layer's ``qkv.kernel`` with shape
@@ -243,26 +361,58 @@ def jax_leaves(named_shapes: Iterable[Tuple[str, Tuple[int, ...]]],
     ``block_<i>/qkv/kernel`` holds one layer's otherwise (LLaMA's:
     ``layers/...`` and ``layer_<i>/...``; its norm scales stack to
     ``[L, d]`` leaves, which the 8-bit Adam quantizes whole, as the JAX
-    package does). The names select the model's table
-    (``naming_of``)."""
+    package does); a pipelined model's leaves stack its stages first
+    (``[P, L/P, ...]``, ``[P, C, L/(P*C), ...]``). ``stages`` is the
+    global stage count when the names hold a pipe rank's stages only.
+    The names select the model's table (``naming_of``)."""
     named_shapes = [(n, tuple(s)) for n, s in named_shapes]
     naming = naming_of(n for n, _ in named_shapes)
-    members: Dict[str, List[Tuple[int, str, Tuple[int, ...]]]] = {}
+    members: Dict[str, List[Tuple[Tuple[int, ...], str,
+                                  Tuple[int, ...]]]] = {}
     for name, shape in named_shapes:
-        path, layer = _jax_path(name, stacked, naming)
-        members.setdefault(path, []).append((layer, name, shape))
+        path, idx = _jax_path(name, stacked, naming)
+        members.setdefault(path, []).append((idx, name, shape))
     out = {}
     for path, group in members.items():
         group.sort()
         shape = group[0][2]
         if any(s != shape for _, _, s in group):
             raise ValueError(f"layers of {path} differ in shape")
-        if path.startswith(naming.stack + "/"):
-            if [layer for layer, _, _ in group] != list(range(len(group))):
+        lead = len(group[0][0])
+        index = None
+        if lead:
+            dims = [sorted({idx[d] for idx, _, _ in group})
+                    for d in range(lead)]
+            counts = [len(v) for v in dims]
+            first = [v[0] for v in dims]
+            partial = (stages is not None and path.startswith("pipeline/")
+                       and counts[0] < stages)
+            if (math.prod(counts) != len(group)
+                    or any(v != list(range(v[0], v[0] + len(v)))
+                           for v in dims)
+                    or any(first[1:]) or (first[0] and not partial)):
                 raise ValueError(f"{path} misses a layer")
-            shape = (len(group),) + shape
-        out[path] = JaxLeaf(tuple(n for _, n, _ in group), shape)
+            if partial:
+                index = ((first[0], first[0] + counts[0]),) + tuple(
+                    (0, n) for n in counts[1:])
+                counts[0] = stages
+            shape = tuple(counts) + shape
+        names = tuple(n for _, n, _ in group)
+        out[path] = (JaxLeaf(names, shape) if index is None
+                     else StageBlock(names, shape, index))
     return out
+
+
+def param_leaves(params: Mapping[str, torch.Tensor], stacked: bool = True
+                 ) -> Dict[str, JaxLeaf]:
+    """``jax_leaves`` of live parameters; on a pipe rank, with the global
+    stage count their layouts carry (``accel.sharding.Layout.stages``)."""
+    from dlrover_tpu_torch.accel import sharding
+
+    stages = max((getattr(sharding.layout_of(p), "stages", 0)
+                  for p in params.values()), default=0)
+    return jax_leaves(((n, tuple(p.shape)) for n, p in params.items()),
+                      stacked=stacked, stages=stages or None)
 
 
 # ----------------------------------------------------- 8-bit Adam state
@@ -315,7 +465,10 @@ class StateLeaf(NamedTuple):
     ``global_shape`` in the JAX leaf's global coordinates (both None for
     the whole leaf), its members views of the local tensors, and
     ``persist`` whether this rank is the replica that writes it;
-    ``layout`` is the ``accel.sharding.Layout`` it came from."""
+    ``layout`` is the ``accel.sharding.Layout`` it came from. Before
+    that, ``stacked`` is the region of the stacked dims the members
+    cover when they are some of the leaf's stages (``JaxLeaf.index``;
+    ``shape`` is then the whole leaf's)."""
 
     path: str
     shape: Tuple[int, ...]
@@ -328,6 +481,7 @@ class StateLeaf(NamedTuple):
     global_shape: Optional[Tuple[int, ...]] = None
     persist: bool = True
     layout: Any = None
+    stacked: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
 def keystr(prefix: str, path: str) -> str:
@@ -412,7 +566,8 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
             members = tuple(opt.master[n] for n in groups[path].names)
             leaves.append(StateLeaf(keystr(f"{prefix}.master", path),
                                     groups[path].shape, members[0].dtype,
-                                    members, param_path=path))
+                                    members, param_path=path,
+                                    stacked=groups[path].index))
         return leaves + _opt_leaves(opt.inner, f"{prefix}.inner", opt.master,
                                     groups, order)
     if isinstance(opt, Adam8bitOptimizer):
@@ -440,7 +595,8 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
                 leaves.append(StateLeaf(
                     keystr(f"{prefix}[0].{moment}", path), groups[path].shape,
                     members[0].dtype, members, param_path=path,
-                    layout=sharding.layout_of(params[groups[path].names[0]])))
+                    layout=sharding.layout_of(params[groups[path].names[0]]),
+                    stacked=groups[path].index))
     else:
         raise TypeError(
             f"no JAX train-state layout for optimizer {type(opt).__name__}; "
@@ -469,15 +625,15 @@ def train_state_leaves(state, stacked: bool = True,
 
     params, opt = state["params"], state["opt"]
     if groups is None:
-        groups = jax_leaves(((n, tuple(p.shape)) for n, p in params.items()),
-                            stacked=stacked)
+        groups = param_leaves(params, stacked=stacked)
     order = _in_jax_order(groups)
     leaves = _opt_leaves(opt, "['opt']", params, groups, order)
     for path in order:
         members = tuple(params[n] for n in groups[path].names)
         leaves.append(StateLeaf(keystr("['params']", path),
                                 groups[path].shape, members[0].dtype,
-                                members, layout=sharding.layout_of(members[0])))
+                                members, layout=sharding.layout_of(members[0]),
+                                stacked=groups[path].index))
 
     def set_step(v: int):
         state["step"] = int(v)
@@ -504,19 +660,23 @@ def _blocks(leaves: List[StateLeaf]) -> List[StateLeaf]:
             out.append(leaf._replace(persist=persist, layout=lay))
             continue
         member = tuple(leaf.members[0].shape)  # a DTensor's: global
-        stacked = member != tuple(leaf.shape)
+        # The stacked dims (layers, stages) before the member's own, and
+        # the region of them the members cover.
+        lead = leaf.stacked or tuple(
+            (0, n) for n in leaf.shape[:len(leaf.shape) - len(member)])
+        lead_shape = tuple(b - a for a, b in lead)
         per = [sharding.blocks(m, lay, member) for m in leaf.members]
         for k, (region, _) in enumerate(per[0]):
             views = tuple(p[k][1] for p in per)
             shape = tuple(views[0].shape)
             index = global_shape = None
-            if region is not None:
-                index = (((0, len(views)),) if stacked else ()) + region
+            if region is not None or leaf.stacked is not None:
+                index = lead + (region or tuple((0, n) for n in member))
                 global_shape = tuple(leaf.shape)
             out.append(leaf._replace(
-                shape=((len(views),) if stacked else ()) + shape,
-                members=views, index=index, global_shape=global_shape,
-                persist=persist, layout=lay))
+                shape=lead_shape + shape, members=views, index=index,
+                global_shape=global_shape, persist=persist, layout=lay,
+                stacked=None))
     return out
 
 

@@ -34,7 +34,17 @@ loss averaged over the layers; train it with ``moe_loss_fn``. On a
 ``seq`` mesh axis (``accel.accelerate``) the model keeps its shard of
 each row's sequence, its position rows are sharded over the axis, and
 its logits are a sequence-sharded DTensor (``models/sequence_parallel``).
-Pipeline stages and the int8 MLP raise ``NotImplementedError``.
+
+``pipeline_stages > 1`` splits the blocks into a GPipe schedule
+(``pipeline.stages.<p>.blocks.<j>``), or with ``pipeline_repeats > 1`` a
+circular one (``pipeline.bank.<p>.<c>.blocks.<k>``), of
+``pipeline_microbatches`` microbatches (``accel/pipeline.py``); the
+blocks are initialized in logical layer order, so a pipelined model
+holds the weights of the unpipelined one of the same seed. On a
+``pipe`` mesh axis a rank keeps its stages, the first also ``wte`` and
+``wpe``, the last ``ln_f`` and the tied head's ``wte``; the forward
+returns None on every rank but the last. The int8 MLP raises
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -134,11 +144,6 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig):
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "pipeline_stages > 1 comes with the pipeline slice of the port "
-            "(ROADMAP queue 1, item 6: accel/pipeline.py, GPipe and "
-            "circular)")
     check_policy(cfg)
     if cfg.mlp_precision != "bf16":
         raise NotImplementedError(
@@ -329,11 +334,18 @@ class GPT(nn.Module):
             cfg.max_seq_len, cfg.d_model, dtype=cfg.param_dtype,
             device=device,
         ))
-        self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers)
-        )
-        self.ln_f = LayerNorm(cfg.d_model, cfg, device)
         self.remat = Remat(cfg)
+        self.pipeline = None
+        if cfg.pipeline_stages > 1:
+            from dlrover_tpu_torch.accel import pipeline
+
+            self.pipeline = pipeline.build(cfg, lambda: Block(cfg, device),
+                                           self.remat)
+        else:
+            self.blocks = nn.ModuleList(
+                Block(cfg, device) for _ in range(cfg.num_layers)
+            )
+        self.ln_f = LayerNorm(cfg.d_model, cfg, device)
         # The seq axis's 1-D mesh on a seq mesh (set by accel.accelerate).
         self.seq_mesh = None
         if generator is None:
@@ -344,9 +356,26 @@ class GPT(nn.Module):
         with torch.no_grad():
             self.wte.weight.normal_(0.0, 0.02, generator=generator)
             self.wpe.normal_(0.0, 0.01, generator=generator)
-        for m in self.modules():
-            if isinstance(m, (Dense, LayerNorm, moe_ops.MoEMLP)):
-                m.reset_parameters(generator)
+        _reset_in_order(self, [self.ln_f], generator,
+                        (Dense, LayerNorm, moe_ops.MoEMLP))
+
+    def layers_in_order(self):
+        """The blocks this model holds, in logical layer order."""
+        return layers_in_order(self, "blocks")
+
+    def keep_ends(self, first: bool, last: bool):
+        """On a pipe rank: drop what neither end of the pipeline it holds
+        reads (the first embeds, the last runs ``ln_f`` and the tied
+        head)."""
+        if not first:
+            self.wpe = None
+        if not (first or last):
+            self.wte = None
+        if not last:
+            self.ln_f = None
+
+    #: Parameters a pipe mesh keeps on both its first and its last rank.
+    TIED = ("wte.weight",)
 
     def logical_axes(self):
         """Each parameter's logical axes, as the JAX GPT annotates them
@@ -357,17 +386,47 @@ class GPT(nn.Module):
     def forward(self, tokens):
         cfg = self.cfg
         tokens, lo = sp.shard_tokens(tokens, self.seq_mesh)
-        s = tokens.shape[1]
-        wpe = sp.gather_rows(self.wpe, self.seq_mesh)
-        x = self.wte(tokens).to(cfg.dtype) + wpe[lo:lo + s].to(cfg.dtype)
-        x, auxes = self.remat.run(self.blocks, x)
+        b, s = tokens.shape
+        pipe = self.pipeline
+        if pipe is None or pipe.first:
+            wpe = sp.gather_rows(self.wpe, self.seq_mesh)
+            x = self.wte(tokens).to(cfg.dtype) + wpe[lo:lo + s].to(cfg.dtype)
+        else:  # a later pipe rank: the shape of what it receives
+            x = torch.empty(b, s, cfg.d_model, dtype=cfg.dtype, device="meta")
+        if pipe is None:
+            x, auxes = self.remat.run(self.blocks, x)
+            aux = torch.stack(auxes).mean() if auxes else None
+        else:
+            out = pipe(x)
+            if out is None:
+                return None
+            x, aux = out
         x = self.ln_f(x)
         # Tied output head: logits via the embedding table, in dtype.
         logits = sp.shard_logits(x @ self.wte.weight.to(cfg.dtype).t(),
                                  self.seq_mesh)
         if cfg.num_experts > 0:
-            return logits, torch.stack(auxes).mean()
+            return logits, aux
         return logits
+
+
+def layers_in_order(model: nn.Module, stack: str):
+    """A model's blocks in logical layer order: its ``stack``, or its
+    pipeline's chunks in logical order."""
+    if model.pipeline is not None:
+        return model.pipeline.layers()
+    return list(getattr(model, stack))
+
+
+def _reset_in_order(model: nn.Module, tail, generator: torch.Generator,
+                    kinds):
+    """Initialize the ``kinds`` of modules of every block in logical layer
+    order, then those of ``tail``: a pipelined model draws what the
+    unpipelined one of the same seed draws, in the same order."""
+    for block in list(model.layers_in_order()) + list(tail):
+        for m in block.modules():
+            if isinstance(m, kinds):
+                m.reset_parameters(generator)
 
 
 def _logical_axes(model: nn.Module, top, norms=(LayerNorm,)) -> dict:

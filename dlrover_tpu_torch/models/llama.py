@@ -26,9 +26,13 @@ first, as in JAX); ``remat`` checkpoints each layer under
 layer's MLP an ``ops.moe.MoEMLP`` of swiglu experts (``layers.<i>.moe``:
 ``router``, ``w_up``, ``b_up``, ``w_gate``, ``w_down``, ``b_down``) and
 the model returns ``(logits, aux)``, as the port's GPT does. On a
-``seq`` mesh axis RoPE takes each shard's global positions. Pipeline
-stages and the int8 MLP raise ``NotImplementedError``, as in the port's
-GPT.
+``seq`` mesh axis RoPE takes each shard's global positions.
+``pipeline_stages > 1`` runs the layers as the port's GPT runs its
+blocks (``accel/pipeline.py``; ``pipeline.stages.<p>.blocks.<j>``, or
+``pipeline.bank.<p>.<c>.blocks.<k>``, JAX's ``_LlamaStage`` names); on a
+``pipe`` axis the first rank keeps ``embed``, the last ``final_norm``
+and ``lm_head``. The int8 MLP raises ``NotImplementedError``, as in the
+port's GPT.
 """
 
 import dataclasses
@@ -47,6 +51,8 @@ from dlrover_tpu_torch.models.gpt import (  # shared attention + loss
     _attention,
     _check_supported,
     _logical_axes,
+    _reset_in_order,
+    layers_in_order,
     loss_fn,
     moe_loss_fn,
 )
@@ -282,11 +288,18 @@ class Llama(nn.Module):
         self.embed = nn.Embedding(
             cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, device=device
         )
-        self.layers = nn.ModuleList(
-            LlamaBlock(cfg, device) for _ in range(cfg.num_layers)
-        )
-        self.final_norm = RMSNorm(cfg.d_model, cfg, device)
         self.remat = Remat(cfg)
+        self.pipeline = None
+        if cfg.pipeline_stages > 1:
+            from dlrover_tpu_torch.accel import pipeline
+
+            self.pipeline = pipeline.build(
+                cfg, lambda: LlamaBlock(cfg, device), self.remat)
+        else:
+            self.layers = nn.ModuleList(
+                LlamaBlock(cfg, device) for _ in range(cfg.num_layers)
+            )
+        self.final_norm = RMSNorm(cfg.d_model, cfg, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, device,
                              use_bias=False, axes=("embed", "vocab"))
         # The tensor-parallel group's mesh when the head is vocab-parallel
@@ -302,9 +315,23 @@ class Llama(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         with torch.no_grad():
             self.embed.weight.normal_(0.0, 0.02, generator=generator)
-        for m in self.modules():
-            if isinstance(m, (Dense, RMSNorm, moe_ops.MoEMLP)):
-                m.reset_parameters(generator)
+        _reset_in_order(self, [self.final_norm, self.lm_head], generator,
+                        (Dense, RMSNorm, moe_ops.MoEMLP))
+
+    def layers_in_order(self):
+        """The layers this model holds, in logical order."""
+        return layers_in_order(self, "layers")
+
+    def keep_ends(self, first: bool, last: bool):
+        """On a pipe rank: the first keeps the embedding, the last the
+        final norm and the head."""
+        if not first:
+            self.embed = None
+        if not last:
+            self.final_norm = None
+            self.lm_head = None
+
+    TIED = ()
 
     def logical_axes(self):
         """Each parameter's logical axes, as the JAX LLaMA annotates them
@@ -315,8 +342,20 @@ class Llama(nn.Module):
     def forward(self, tokens):
         cfg = self.cfg
         tokens, _ = sp.shard_tokens(tokens, self.seq_mesh)
-        x = self.embed(tokens).to(cfg.dtype)
-        x, auxes = self.remat.run(self.layers, x)
+        pipe = self.pipeline
+        if pipe is None or pipe.first:
+            x = self.embed(tokens).to(cfg.dtype)
+        else:  # a later pipe rank: the shape of what it receives
+            x = torch.empty(*tokens.shape, cfg.d_model, dtype=cfg.dtype,
+                            device="meta")
+        if pipe is None:
+            x, auxes = self.remat.run(self.layers, x)
+            aux = torch.stack(auxes).mean() if auxes else None
+        else:
+            out = pipe(x)
+            if out is None:
+                return None
+            x, aux = out
         x = self.final_norm(x)
         if self.vocab_mesh is None:
             logits = sp.shard_logits(self.lm_head(x), self.seq_mesh)
@@ -327,5 +366,5 @@ class Llama(nn.Module):
             logits = DTensor.from_local(logits, self.vocab_mesh, [Shard(2)],
                                         run_check=False)
         if cfg.num_experts > 0:
-            return logits, torch.stack(auxes).mean()
+            return logits, aux
         return logits

@@ -366,12 +366,14 @@ class Remat:
         self.pool = (HostPool() if cfg.remat and cfg.remat_policy == "offload"
                      else None)
 
-    def run(self, blocks, x):
+    def run(self, blocks, x, offset: int = 0):
         """``x`` through ``blocks`` in order: ``(x, auxes)``, where
         ``auxes`` are the auxiliary losses of the blocks that return
         ``(x, aux)`` (MoE blocks). Without remat, or when autograd does
         not record the call (there is nothing to keep), each block runs
-        as it is."""
+        as it is. ``offset`` is the logical index of the first block (a
+        pipeline chunk's), the position of its host slab under
+        "offload"."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         policy, prev, auxes = cfg.remat_policy, None, []
@@ -384,7 +386,7 @@ class Remat:
                 out = checkpoint(block, x, use_reentrant=False,
                                  preserve_rng_state=False)
             else:
-                keep = _Keep(policy, i, self.pool, prev)
+                keep = _Keep(policy, offset + i, self.pool, prev)
                 out = checkpoint(_kept_call, block, keep, x,
                                  use_reentrant=False,
                                  preserve_rng_state=False)

@@ -29,7 +29,10 @@ gives). A stacked ``[L, ...]`` leaf of rank >= 3 quantizes per layer
 (``_chunked``); any other leaf is flattened whole, so the blocks of a
 stacked bias ``[L, 3d]`` straddle layers. The kernel reads every value
 from, and writes it back to, its own layer's tensor, so a straddling
-leaf needs no gathered copy.
+leaf needs no gathered copy. A pipelined leaf ``[P, L/P, ...]``
+quantizes per stage, its layers straddling the stage's blocks: the
+table gives each stage a row of its own, pointing at the stage's
+blocks of the state (``_row_count``).
 
 **In place.** Unlike optax, ``update`` and ``update_and_apply`` update
 the state's tensors (and, fused, the parameters) in place: a second
@@ -261,13 +264,30 @@ def _members(members: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
     return list(members)
 
 
+def _row_count(shape, nmem: int) -> int:
+    """The table's rows of a leaf: one, or one a chunk when a chunk holds
+    several members (a pipelined leaf's ``[P, L/P, ...]`` has a member a
+    layer and quantizes a stage at a time: each stage's members lie one
+    after another in its blocks, a row of its own)."""
+    return shape[0] if _chunked(shape) and nmem > shape[0] else 1
+
+
 def leaf_rows(leaves: Sequence[Tuple[tuple, int, int]],
               block: int = KERNEL_BLOCK) -> List[LeafRow]:
     """The table's rows for ``leaves``, each ``(JAX shape, members, values
-    a member)``, in order; the leaves' blocks are numbered one after
-    another."""
+    a member)``, in order (``_row_count`` rows a leaf); the leaves'
+    blocks are numbered one after another."""
     rows, block0, member0 = [], 0, 0
     for shape, nmem, n in leaves:
+        chunks = _row_count(shape, nmem)
+        if chunks > 1:
+            k = nmem // chunks
+            per = -(-(k * n) // block)
+            for _ in range(chunks):
+                rows.append(LeafRow(block0, per, n, n, member0, k))
+                block0 += per
+                member0 += k
+            continue
         if _chunked(shape):
             per = -(-n // block)
             nblocks, stride = nmem * per, per * block
@@ -333,12 +353,16 @@ class _Table:
             self.n += [members[0].numel()] * len(members)
         self.rows = leaf_rows(specs)
         table = []
-        for row, (shape, _, qm, qv) in zip(self.rows, leaves):
+        rows = iter(self.rows)
+        for (shape, nmem, _), (_, _, qm, qv) in zip(specs, leaves):
+            own = [next(rows) for _ in range(_row_count(shape, nmem))]
+            nblocks = sum(row.nblocks for row in own)
             # The kernel indexes a leaf's blocks, a member's values and a
             # straddling leaf's values in 32 bits.
-            if (row.nblocks * KERNEL_BLOCK >= 2 ** 31 - KERNEL_BLOCK
-                    and row.stride % KERNEL_BLOCK) or \
-                    row.n >= 2 ** 31 - KERNEL_BLOCK or row.nblocks >= 2 ** 31:
+            if any((row.nblocks * KERNEL_BLOCK >= 2 ** 31 - KERNEL_BLOCK
+                    and row.stride % KERNEL_BLOCK)
+                   or row.n >= 2 ** 31 - KERNEL_BLOCK
+                   or row.nblocks >= 2 ** 31 for row in own):
                 raise ValueError(f"adam8bit leaf {shape} is too large")
             for t, dt, elems in ((qm.q, torch.int8, KERNEL_BLOCK),
                                  (qv.q, torch.int8, KERNEL_BLOCK),
@@ -346,13 +370,19 @@ class _Table:
                                  (qv.scale, torch.float32, 1)):
                 if (t.dtype != dt or t.device != dev or not t.is_contiguous()
                         or t.data_ptr() % 16
-                        or t.numel() != row.nblocks * elems):
+                        or t.numel() != nblocks * elems):
                     raise ValueError(
                         f"adam8bit state {tuple(t.shape)} {t.dtype} does "
-                        f"not match a leaf {shape} of {row.nblocks} blocks "
+                        f"not match a leaf {shape} of {nblocks} blocks "
                         f"(contiguous, 16-byte aligned, on {dev})")
-            table.append(list(row) + [qm.q.data_ptr(), qm.scale.data_ptr(),
-                                      qv.q.data_ptr(), qv.scale.data_ptr()])
+            for row in own:
+                # A chunk's state: its blocks of the leaf's.
+                b = row.block0 - own[0].block0
+                table.append(list(row) + [
+                    qm.q.data_ptr() + b * KERNEL_BLOCK,
+                    qm.scale.data_ptr() + 4 * b,
+                    qv.q.data_ptr() + b * KERNEL_BLOCK,
+                    qv.scale.data_ptr() + 4 * b])
         self.nblocks = self.rows[-1].block0 + self.rows[-1].nblocks
         self.zeros = None  # what a member without a gradient reads
         nmem = len(self.n)
@@ -464,7 +494,8 @@ def _plain_leaf(g, qm: QTensor, qv: QTensor, bc, shape, hp: _Hyper, p=None):
     out = _unblocks(out, shape, hp.block)
     if len(g) == 1:
         return [out.reshape(g[0].shape)]
-    return [o.reshape(t.shape) for o, t in zip(out.unbind(0), g)]
+    return [o.reshape(t.shape)
+            for o, t in zip(out.reshape(len(g), -1).unbind(0), g)]
 
 
 def adam8_update(g: Sequence[torch.Tensor], qm: QTensor, qv: QTensor, bc,

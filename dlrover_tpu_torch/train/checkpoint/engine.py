@@ -95,7 +95,7 @@ from dlrover_tpu_torch.common.storage import (
 )
 from dlrover_tpu_torch.models.convert import (
     StateLeaf,
-    jax_leaves,
+    param_leaves,
     train_state_leaves,
 )
 
@@ -137,8 +137,7 @@ def _flatten_state(state, cache: Optional[Dict] = None
         key = tuple((n, p.shape) for n, p in params.items())
         if cache.get("key") != key:
             cache["key"] = key
-            cache["groups"] = jax_leaves(
-                (n, tuple(p.shape)) for n, p in params.items())
+            cache["groups"] = param_leaves(params)
         groups = cache["groups"]
     return train_state_leaves(state, groups=groups), {}
 

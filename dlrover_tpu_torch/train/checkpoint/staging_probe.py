@@ -70,6 +70,7 @@ from dlrover_tpu_torch.optim import adam8bit, adamw
 from dlrover_tpu_torch.train.checkpoint import engine as engine_module
 from dlrover_tpu_torch.train.checkpoint.engine import _flatten_state, _scalars
 from dlrover_tpu_torch.train.trainer import Trainer, TrainerCallback
+from dlrover_tpu_torch.utils.profiler import device_kernels, device_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -238,17 +239,11 @@ def _poll(event):
 def _trace(on: bool):
     import contextlib
 
-    from torch.profiler import ProfilerActivity, profile
-
-    if not on:
-        return contextlib.nullcontext()
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return device_trace() if on else contextlib.nullcontext()
 
 
 def _device_times(prof, steps, wall):
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_kernels(prof)
     copies = sum(e.self_device_time_total for e in events
                  if "Memcpy" in e.key or "Memset" in e.key)
     dtoh = sum(e.self_device_time_total for e in events

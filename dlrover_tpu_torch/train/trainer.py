@@ -26,8 +26,9 @@ On a mesh (``spec`` of several degrees over as many processes, each
 under torchrun) every process passes the global batch, as in the JAX
 trainer; the loop copies only this rank's rows to the device
 (``AccelerateResult.local_batch``, before the prefetcher's copy), the
-reported loss and ``eval_loss`` are means over all ranks and
-``tokens_per_s`` counts the global batch. A checkpoint over several
+reported loss and ``eval_loss`` are means over all ranks (over the last
+stage's on a pipe mesh, which form the loss) and ``tokens_per_s``
+counts the global batch. A checkpoint over several
 processes is a ``ShardedCheckpointer`` (one shard a process).
 
 Pieces that need modules of later slices raise ``NotImplementedError``
@@ -222,16 +223,15 @@ class Trainer:
             else batches
         )
         total, n = torch.zeros((), device=self.device), 0
-        params = self.state["params"]
         with torch.no_grad():
             for batch in DevicePrefetchIterator(
                     src, self.device, depth=2,
                     take=self._result.local_batch):
-                total = total + self._loss(self.module, params, batch)
+                total = total + self._result.forward_loss(self._loss, batch)
                 n += 1
             if self._result.mesh is not None:
                 dist.all_reduce(total)
-                total = total / dist.get_world_size()
+                total = total / self._result.loss_ranks
         return {"eval_loss": float(total) / max(n, 1), "eval_batches": n}
 
     def fit(self, batches: Iterable, steps: int,

@@ -1,13 +1,15 @@
 """Step statistics and MFU for the port — the part of
 ``dlrover_tpu/utils/profiler.py`` the trainer uses: the device's peak
-FLOP/s, ``StepStats`` and ``PhaseBreakdown``; and ``CopyClock``, which
-times host-device copies ("offload" remat and the offloaded optimizer).
-Trace capture and module cost analysis come with the observability
-slice.
+FLOP/s, ``StepStats`` and ``PhaseBreakdown``; ``CopyClock``, which
+times host-device copies ("offload" remat and the offloaded optimizer);
+and ``device_trace``, a torch.profiler trace of the host and the card,
+with the count of its launches the profiler kept no device record of.
+Module cost analysis comes with the observability slice.
 """
 
+import contextlib
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -148,3 +150,63 @@ class CopyClock:
             out[f"{way}_ms"] = self._ms[way]
         self._reset()
         return out
+
+
+# torch.profiler (Kineto over CUPTI) on an H100 can keep no device record
+# of the first launches of a trace: none in a process's first traces, then
+# more as traces follow, with returns to none; a pad of launches at the
+# trace's start, or in a warm-up cycle of the profiler's schedule, does
+# not stop it (``utils/trace_probe.py``). A count of device records can
+# therefore fall short, where the host's side of the trace, the calls
+# that launch, is whole.
+
+# The traced work: a host range around the body of ``device_trace``.
+BODY_RANGE = "device_trace.body"
+# Host calls that put work on the card, each with one device record.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+@contextlib.contextmanager
+def device_trace():
+    """``torch.profiler.profile`` of the host and the card, yielded; the
+    body runs inside the host range ``BODY_RANGE``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(BODY_RANGE):
+            yield prof
+
+
+def device_kernels(prof):
+    """The device entries of ``prof.key_averages()`` with device time,
+    without the user ranges' own."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_records(events) -> Dict[int, str]:
+    """The device records of a trace's events (``prof.events()``): kernel
+    or copy name by correlation id, the id of the host call that put it on
+    the card."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.id: e.name for e in events if e.device_type == cuda}
+
+
+def launches_without_record(events) -> Tuple[int, List[int]]:
+    """``(calls, lost)``: how many calls of ``LAUNCH_CALLS`` the body of
+    ``device_trace`` made, and the places, in time order, of those whose
+    device record the profiler did not keep."""
+    cpu = torch.autograd.DeviceType.CPU
+    kept = device_records(events)
+    body = [e.time_range for e in events
+            if e.name == BODY_RANGE and e.device_type == cpu]
+    calls = sorted((e for e in events if e.device_type == cpu
+                    and e.name in LAUNCH_CALLS
+                    and any(r.start <= e.time_range.start <= r.end
+                            for r in body)),
+                   key=lambda e: e.time_range.start)
+    return len(calls), [i for i, e in enumerate(calls) if e.id not in kept]

@@ -178,15 +178,29 @@ def test_init_is_seeded_by_the_generator():
     assert float(a.blocks[0].qkv.kernel.detach().std()) == pytest.approx(0.02, rel=0.1)
 
 
-@pytest.mark.parametrize("change", [
-    # Experts and ring / Ulysses attention build (tests/test_torch_moe.py,
-    # tests/test_torch_seq_expert.py); with pipeline stages or the int8
-    # MLP they still raise.
-    dict(num_experts=4, pipeline_stages=2), dict(pipeline_stages=2),
-    dict(mlp_precision="int8"), dict(attn_impl="ring", pipeline_stages=2),
-    dict(attn_impl="ulysses", mlp_precision="int8"),
+@pytest.mark.parametrize("change,spec,match", [
+    # Experts, ring / Ulysses attention and pipeline stages build
+    # (tests/test_torch_moe.py, tests/test_torch_seq_expert.py,
+    # tests/test_torch_pipeline.py); the int8 MLP still raises, and so
+    # does a pipelined model on a pipe axis with expert, tensor, seq or
+    # fsdp.
+    (dict(num_experts=4, pipeline_stages=2), dict(pipe=2, expert=2),
+     "pipe axis together"),
+    (dict(pipeline_stages=2), dict(pipe=2, tensor=2), "pipe axis together"),
+    (dict(mlp_precision="int8"), None, "mlp_precision"),
+    (dict(attn_impl="ring", pipeline_stages=2), dict(pipe=2, seq=2),
+     "pipe axis together"),
+    (dict(attn_impl="ulysses", pipeline_stages=2), dict(pipe=2, fsdp=2),
+     "pipe axis together"),
 ])
-def test_later_slices_raise(change):
+def test_later_slices_raise(change, spec, match):
+    from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
+    from dlrover_tpu_torch.optim import adamw
+
     cfg = dataclasses.replace(configs("float32", "xla")[1], **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPT(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=match) as e:
+        model = GPT(cfg, device="cpu")
+        if spec is not None:
+            auto_accelerate(model, adamw(1e-3), np.zeros((2, 8), np.int64),
+                            None, spec=ParallelSpec(**spec), device="cpu")
+    assert "ROADMAP" in str(e.value)

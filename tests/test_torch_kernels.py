@@ -654,7 +654,34 @@ def test_adam8_one_launch_step_matches_plain(cuda_device, dtype):
     (their pointers refreshed) and a parameter without a gradient."""
     from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
 
-    model = GPT(GPTConfig.tiny(), device="cpu")
+    _one_launch_steps(GPT(GPTConfig.tiny(), device="cpu"), cuda_device,
+                      dtype, "wpe.weight")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repeats", [1, 2], ids=["gpipe", "circular"])
+def test_adam8_one_launch_step_on_pipelined_leaves_matches_plain(
+        cuda_device, repeats):
+    """The same on a pipelined tiny GPT, whose ``[P, L/P, ...]`` leaves
+    quantize a stage at a time with the stage's layers straddling its
+    blocks: the kernel's table gives each stage a row of its own."""
+    import dataclasses
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), num_layers=8,
+                              pipeline_stages=2, pipeline_microbatches=2,
+                              pipeline_repeats=repeats)
+    name = ("pipeline.stages.1.blocks.2.ln1.bias" if repeats == 1
+            else "pipeline.bank.1.0.blocks.1.ln1.bias")
+    _one_launch_steps(GPT(cfg, device="cpu"), cuda_device, torch.bfloat16,
+                      name)
+
+
+def _one_launch_steps(model, cuda_device, dtype, dropped):
+    """Two steps of the bound optimizer over ``model``'s parameters, the
+    second without a gradient for ``dropped``, held leaf by leaf to the
+    plain version."""
     rng = np.random.default_rng(3)
     params = {n: p.detach().to(device=cuda_device, dtype=dtype)
               for n, p in model.named_parameters()}
@@ -665,7 +692,7 @@ def test_adam8_one_launch_step_matches_plain(cuda_device, dtype):
         grads = {n: torch.tensor(rng.standard_normal(p.shape) * 1e-2,
                                  dtype=dtype, device=cuda_device)
                  for n, p in params.items()
-                 if not (step and n == "wpe.weight")}
+                 if not (step and n == dropped)}
         before = {n: p.clone() for n, p in params.items()}
         state = {path: tuple(lowbit.QTensor(qt.q.clone(), qt.scale.clone())
                              for qt in (opt.state.m[path], opt.state.v[path]))

@@ -12,7 +12,6 @@ for bit. The multi-process training and checkpoints are in
 """
 
 import dataclasses
-import socket
 
 import flax.linen as nn
 import jax
@@ -199,11 +198,12 @@ def test_replica_index_counts_unsharded_axes():
 @pytest.mark.parametrize("spec,match", [
     (ParallelSpec(data=2, zero=True), "ZeRO"),
     (ParallelSpec(collectives=(("data", "lat"),)), "collectives"),
-    # seq and expert degrees place a module (tests/test_torch_seq_expert.py);
+    # seq, expert and pipe degrees place a module
+    # (tests/test_torch_seq_expert.py, tests/test_torch_pipeline.py);
     # together, or with fsdp or tensor, they still raise.
     (ParallelSpec(seq=2, expert=2), "item 6"),
     (ParallelSpec(expert=2, fsdp=2), "item 6"),
-    (ParallelSpec(pipe=2), "item 6"),
+    (ParallelSpec(pipe=2, tensor=2), "item 6"),
 ])
 def test_later_specs_raise_naming_their_slice(spec, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -251,14 +251,13 @@ def test_indivisible_heads_raise(model):
 
 
 @pytest.fixture(scope="module")
-def world_of_one():
-    """A gloo process group of one rank, as the card's NCCL one."""
+def world_of_one(tmp_path_factory):
+    """A gloo process group of one rank, as the card's NCCL one; it meets
+    at a file, so no port is picked."""
     if dist.is_initialized():
         pytest.fail("a process group is already up in this process")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    rdzv = tmp_path_factory.mktemp("world-of-one") / "rdzv"
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}",
                             rank=0, world_size=1)
     yield
     dist.destroy_process_group()

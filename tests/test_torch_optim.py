@@ -281,6 +281,32 @@ def test_update_and_apply_matches_jax(dt):
                             name)
 
 
+def test_update_and_apply_matches_jax_on_pipelined_leaves():
+    """The same on a circular GPT (8 layers, 2 stages x 2 repeats): its
+    ``[P, C, Lc, ...]`` bank leaves quantize a stage at a time, the
+    stage's layers straddling its blocks; from JAX's initial state."""
+    cfg = dataclasses.replace(JaxConfig.tiny(), num_layers=8,
+                              pipeline_stages=2, pipeline_microbatches=2,
+                              pipeline_repeats=2)
+    variables = jax.jit(JaxGPT(cfg).init)(jax.random.PRNGKey(0),
+                                          jnp.zeros((2, 16), jnp.int32))
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  nn.meta.unbox(variables["params"]))
+    jopt = jlb.adam8bit(1e-2, weight_decay=0.1)
+    state = jax.tree_util.tree_map(np.asarray, jopt.init(tree))
+    grads = seeded_grads(tree, np.random.default_rng(2))
+    jp, js = jopt.update_and_apply(grads, state, tree)
+    params = params_from_flax(tree)
+    opt = adam8bit(1e-2, weight_decay=0.1)(params.items())
+    opt.state = adam8bit_state_from_flax(state)
+    g = params_from_flax(grads)
+    opt.update_and_apply([g[n] for n in params], list(params.values()))
+    assert_states_close(opt.state, js)
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, jp))
+    for name, p in params.items():
+        assert_values_close(p, want[name], eps_of(jnp.float32), name)
+
+
 def test_state_round_trips_bit_exactly():
     tree = jax_tree(jnp.bfloat16)
     state = warm_jax_state(jlb.adam8bit(1e-2), tree, np.random.default_rng(3))

@@ -1,8 +1,8 @@
 """The port on a mesh of gloo CPU ranks against the JAX package's mesh.
 
 Two worlds of processes, started as torchrun starts them (``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): this
-file is also the worker (``python tests/test_torch_parallel.py
+``WORLD_SIZE``, ``LOCAL_RANK``; the group meets at a file, not a port):
+this file is also the worker (``python tests/test_torch_parallel.py
 <inputs>``). A world of 2 trains ``ParallelSpec(data=2)``, ``(fsdp=2)``
 and ``(tensor=2)`` and runs the checkpoint cases; a world of 4 trains
 ``(data=2, fsdp=2)`` and ``(data=2, tensor=2)``. Each training case is
@@ -37,7 +37,6 @@ import glob
 import os
 import pickle
 import shutil
-import socket
 import subprocess
 import sys
 import time
@@ -253,6 +252,7 @@ def worker(path):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    join_world()
     with open(path, "rb") as f:
         inputs = pickle.load(f)
     from dlrover_tpu_torch.models import gpt, llama
@@ -281,32 +281,39 @@ def worker(path):
 # ------------------------------------------------------ spawning
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def join_world():
+    """A worker joins the gloo group of its ``World``: ranks meet at the
+    file the world names (``WORLD_INIT``), so no port is picked and
+    freed for the group to bind later, when another process may hold
+    it."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=os.environ["WORLD_INIT"],
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
 
 
 class World:
     """``n`` worker processes of ``script`` (this file by default) on
     ``inputs`` (a pickle path; ``--jax``: one process of JAX references);
-    ``join`` waits up to the deadline, kills
+    a worker joins the group with ``join_world`` (a file rendezvous
+    beside the inputs); ``join`` waits up to the deadline, kills
     every process on expiry or failure, and raises with their logs."""
 
     def __init__(self, n: int, inputs: str, job: str, jax_refs=False,
                  script: str = __file__):
         self.n, self.inputs, self.job = n, inputs, job
-        port = _free_port()
         self.procs, self.logs = [], []
         for r in range(n):
             env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
                        LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
-                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_INIT=f"file://{os.path.abspath(inputs)}.rdzv",
                        OMP_NUM_THREADS="1", DLROVER_TPU_JOB_NAME=job,
                        PYTHONPATH=REPO)
             for name in ("DLROVER_TPU_PROCESS_ID", "DLROVER_TPU_NUM_PROCESSES",
                          "DLROVER_TPU_LOCAL_RANK",
-                         "DLROVER_TPU_LOCAL_WORLD_SIZE"):
+                         "DLROVER_TPU_LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                         "MASTER_PORT"):
                 env.pop(name, None)
             log = open(f"{inputs}.log{r}", "w+")
             self.logs.append(log)

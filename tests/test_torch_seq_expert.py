@@ -60,6 +60,7 @@ from test_torch_parallel import (  # noqa: E402
     _hold_params,
     assemble,
     blocks_of,
+    join_world,
 )
 
 ATTN_TOL = 1e-5
@@ -272,6 +273,7 @@ def worker(path):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    join_world()
     with open(path, "rb") as f:
         inputs = pickle.load(f)
     rank = int(os.environ["RANK"])
@@ -665,7 +667,7 @@ def test_expert_checkpoints_cross_between_the_packages(runs):
     ({"seq": 2, "fsdp": 2}, "item 6"),
     ({"seq": 2, "tensor": 2}, "item 6"),
     ({"seq": 2, "expert": 2}, "item 6"),
-    ({"pipe": 2}, "pipeline slice"),
+    ({"pipe": 2, "expert": 2}, "item 6"),
 ])
 def test_refused_compositions_name_their_slice(spec, match):
     from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
@@ -710,13 +712,21 @@ def test_expert_degree_without_experts_raises():
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_pipeline_stages_raise_naming_their_slice(family):
+    """Pipelined models build (tests/test_torch_pipeline.py); on a seq
+    axis they still raise, naming the rest of item 6."""
+    from dlrover_tpu_torch.accel import accelerate_on_mesh
     from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
     from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+    from test_torch_mesh import FakeMesh
 
     cls, cfg = ((GPT, GPTConfig.tiny()) if family == "gpt"
                 else (Llama, LlamaConfig.tiny()))
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        cls(dataclasses.replace(cfg, pipeline_stages=2), device="cpu")
+    model = cls(dataclasses.replace(cfg, pipeline_stages=2,
+                                    attn_impl="ring"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        accelerate_on_mesh(model, port_opt("adamw"), global_batches()[0],
+                           port_loss, FakeMesh({"seq": 2}, [0]),
+                           device="cpu")
 
 
 if __name__ == "__main__":

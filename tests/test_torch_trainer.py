@@ -279,15 +279,19 @@ def test_init_training_single_process(monkeypatch):
 
 def test_init_training_joins_a_gloo_group(tmp_path):
     """Two CPU processes join one group from the agent's env contract
-    and all-reduce across it."""
+    (a ``host:port`` coordinator) and all-reduce across it. The store at
+    that address is this process's, bound to a port the system picks and
+    held open, as torchrun's agent holds its own for its workers
+    (``TORCHELASTIC_USE_AGENT_STORE``), so no port is freed before the
+    group binds it."""
     import os
-    import socket
     import subprocess
     import sys
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False)
     script = (
         "import torch, torch.distributed as dist\n"
         "from dlrover_tpu_torch.train import init_training\n"
@@ -301,7 +305,8 @@ def test_init_training_joins_a_gloo_group(tmp_path):
     procs = []
     for rank in range(2):
         env = dict(os.environ, PYTHONPATH=repo,
-                   DLROVER_TPU_COORDINATOR_ADDR=f"localhost:{port}",
+                   DLROVER_TPU_COORDINATOR_ADDR=f"127.0.0.1:{store.port}",
+                   TORCHELASTIC_USE_AGENT_STORE="True",
                    DLROVER_TPU_NUM_PROCESSES="2",
                    DLROVER_TPU_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen(
