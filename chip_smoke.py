@@ -5,8 +5,9 @@
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. build the CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` with nvcc,
-   one process per source, all at once; print nvcc's seconds and each
-   kernel's registers and spills;
+   one process per source, all at once; print nvcc's seconds, each
+   kernel's registers and spills, and the highest register of each in
+   its SASS (what a consumer thread takes after setmaxnreg);
 2. hold each kernel against its plain PyTorch version on the card:
    flash attention at the GPT-2 124M shape (batch*heads 16*12, seq 1024,
    head_dim 64, bf16, causal), at GPT-2 xl's (4*25) and at the pipelined
@@ -25,8 +26,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    shapes (B 4, S 2048 and B 1, S 8192, 16 heads, causal) and the
    pipelined preset's (B 1, S 2048), non-causal,
    ragged (causal and not), at S 192 and at shapes that strain the
-   forward's walk over its items (one block of one tile; 120 items; 40
-   (b, h) in L2 groups), and timed at both preset shapes the same way;
+   forward's and dK/dV's walks over their items (one block of one tile;
+   120 items; 40 (b, h) in L2 groups); at both preset shapes dK/dV
+   launched twice gives the same bits; timed there the same way;
 4. check the GPT's and the LLaMA's kernel paths against their einsum
    paths on a small input (2 layers at full width), then train GPT-2 124M (12 x 768, batch 16 x 1024, random weights from
    the seed, one fixed batch, AdamW) through ``Trainer.fit``: 2 warm-up
@@ -313,12 +315,16 @@ def build_kernels():
         built = dict(zip(names, pool.map(build.build, names)))
     attn._lib()
     lowbit._lib()
-    for name, (_, secs, ptxas) in built.items():
+    for name, (path, secs, ptxas) in built.items():
         log(f"[build] {name}: nvcc {secs:.1f}s")
         for line in ptxas.splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "setmaxnreg", "wgmma")):
                 log(f"[build]   {line.strip()}")
+        # What a consumer thread really takes after setmaxnreg (ptxas -v
+        # reports the launch's 168 a thread for every Hopper kernel).
+        log(f"[build]   SASS highest register: "
+            + json.dumps(build.sass_registers(path)))
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s with "
         "loading")
 
@@ -2460,6 +2466,7 @@ def d128_kernels(gen, errs):
     timing = {}
     for label, (b, s) in shapes.items():
         x = qkv_do(gen, b, s, heads, 128)
+        repeat_dkv_bitwise(*x, label)
         timing[label], yard = time_kernels(*x)
         pair = timing[label]["flash_bwd_dq_d128"]["ms"] + \
             timing[label]["flash_bwd_dkv_d128"]["ms"]
@@ -2472,6 +2479,17 @@ def d128_kernels(gen, errs):
         torch.cuda.empty_cache()
     b, s, _ = LLAMA_RUNS[0]
     return timing[f"llama B{b} S{s}"], bounds(b, s, heads, 128, True)
+
+
+def repeat_dkv_bitwise(q, k, v, do, label):
+    """Two dK/dV launches on the same inputs give the same bits: the
+    kernel uses no atomics, which the bit-for-bit checks of remat
+    policies and pipelines rest on."""
+    _, lse, delta, _, dk, dv = run_kernels(q, k, v, do, True)
+    dk2, dv2 = attn.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          f"dK/dV {label}: two launches differ")
+    log(f"[kernels] d128 {label}: two dK/dV launches bit for bit equal")
 
 
 def main():

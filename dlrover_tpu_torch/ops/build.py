@@ -30,6 +30,10 @@ BUILD_DIR = os.path.join(
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_REGISTER = re.compile(r"\bR(\d+)\b")
+# A kernel's name in a mangled template: after its length's digits.
+_TEMPLATE_KERNEL = re.compile(r"\d([a-z_]+_kernel)ILi(\d+)E")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -104,6 +108,37 @@ def build(name: str) -> Tuple[str, float, str]:
     logger.info("built %s in %.1fs\n%s", out, dt, ptxas)
     os.replace(tmp, out)  # atomic: concurrent ranks never load half a file
     return out, dt, ptxas
+
+
+def kernel_label(mangled: str) -> str:
+    """``bwd_dkv_kernel<128>`` for a mangled ``template <int>`` kernel,
+    the mangled name for any other function."""
+    m = _TEMPLATE_KERNEL.search(mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def sass_registers(lib: str) -> Dict[str, int]:
+    """The highest general register (``R<n>``) of each kernel of a built
+    library in its SASS (``cuobjdump -sass``), by ``kernel_label``: what
+    a thread of it really takes after ``setmaxnreg``, where ``ptxas -v``
+    reports the launch's allocation. Raises when cuobjdump fails."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc_path()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {lib} failed:\n{proc.stderr}")
+    out: Dict[str, int] = {}
+    name = None
+    for line in proc.stdout.splitlines():
+        found = _SASS_FUNCTION.search(line)
+        if found:
+            name = kernel_label(found.group(1))
+            out.setdefault(name, -1)
+        elif name is not None:
+            for reg in _SASS_REGISTER.findall(line):
+                out[name] = max(out[name], int(reg))
+    return out
 
 
 def load_library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

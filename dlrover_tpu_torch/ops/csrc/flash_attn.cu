@@ -59,9 +59,10 @@
 //     loads) through 3 stages (119 KB); S^T = K Q^T and dP^T = V dO^T
 //     (m64n64k16, the kv rows as M), P^T and dS^T in registers, dV += P^T
 //     dO and dK += dS^T Q with dO and Q MN-major; the low kv tiles (the
-//     most query tiles) come first. Its products and its softmax do not
-//     overlap inside a warpgroup; the two warpgroups and the load ring are
-//     what overlap. It keeps 168 registers a thread with a 16-byte spill.
+//     most query tiles) come first. At D = 64 its products and its softmax
+//     do not overlap inside a warpgroup; the two warpgroups and the load
+//     ring are what overlap. It keeps 168 registers a thread with a
+//     16-byte spill (SASS R177).
 //   bwd_dq_kernel: dK/dV with Q and K/V swapped. 128 query rows of one
 //     (b, h) an item, the last query tiles first; Q and dO once (two
 //     buffers), then 64-row tiles of K and V through 4 stages (129 KB);
@@ -81,7 +82,8 @@
 // P^T dO, dS^T Q, dS K) are m64n128k16 with the descriptor's leading
 // offset stepping between panels. Tiles and warpgroups stay as at D = 64;
 // what shrinks is the rings, to fit 227 KB of shared memory: the forward
-// keeps 2 K/V stages (192 KB), dQ 3 (225 KB), dK/dV 2 (195 KB). The
+// keeps 2 K/V stages (192 KB), dQ 3 (225 KB), dK/dV one K/V buffer and 4
+// Q/dO stages (197 KB). The
 // accumulators double: the forward's O and dQ's hold 64 fp32 a thread,
 // dK/dV's dK and dV 64 each beside S^T and dP^T (32 each), within the
 // 240 registers setmaxnreg gives a consumer.
@@ -110,6 +112,32 @@
 // a tile) against its and the other warpgroup's products (about 1,000
 // each), the issue behind those products, the K/V waits, and each item's
 // first tile and epilogue.
+//   dK/dV at D = 128 runs the D = 64 kernel plus four things (Dkv<128>;
+// each measured on the H100 with ops/flash_probe.py, which keeps the forms
+// that were dropped; PERF.md, section 6), at 4 x 2048 / 1 x 8192 (16
+// heads, causal) 0.2485 / 0.8785 ms against the D = 64 design's 0.2958 /
+// 0.9612 in one call: its waits trap out of line (TRAP_OUT_OF_LINE: the
+// inlined trap cost 3% and 2%, though it never held dK/dV to 168
+// registers, SASS R235); the items go in groups of (b, h) whose Q and dO
+// fit in half the L2 cache (L2_GROUPS, 22 (b, h) at 4 x 2048: the 64 (b,
+// h) hold 64 MB of Q and dO, which the plain order streamed again from
+// HBM for every kv tile; 10% at 4 x 2048, none at 1 x 8192); inside a
+// warpgroup S^T_t goes out with dV += P^T_{t-1} dO_{t-1} and dK +=
+// dS^T_{t-1} Q_{t-1}, and P^T_t is computed while they run, then dP^T_t
+// and dS^T_t (OVERLAP; 6% and 10%); the ring is one K/V buffer and 4
+// Q/dO stages, as the overlap holds two tiles a warpgroup (two buffers and
+// 2 stages: 39% and 29% slower; two buffers and 3 stages, which fit with
+// each stage's lse and delta after the ring, even with the next item's
+// K/V loaded a ring ahead: 9% and 5%). Its live registers peak at 192 a
+// thread, as the serial loop's do (SASS R235, no spill): the overlaps
+// that also put dP^T_t, or dP^T_t and dS^T_t, under tile t - 1's
+// products keep 208 or 224 live, and ptxas spills them and serialises
+// every wgmma (C7512), 0.33 and 0.44 ms. dK and dV written from the
+// registers, the K/V buffer freed before them, were 8% and 3% slower.
+// What bounds it (the probe's phase clocks): a tile's dP^T, dS^T and
+// packing, which no product of its own warpgroup covers, the Q/dO waits,
+// and each item's K/V wait, first tile and epilogue, about a fifth of a
+// block's clocks.
 //
 // Inputs are bf16 [B, S, H, D], D 64 or 128, read through their strides
 // (head_dim stride 1, the others multiples of 8 elements, each at least
@@ -289,7 +317,7 @@ struct FwdItem {
 // the tiles' weights rise and fall smoothly across groups (snake_item
 // pairs a block's heavy item with a light one in the next round) and end
 // light. The kernel walks it, and the host's choice of ``group``
-// (l2_group) models that walk.
+// (fwd_l2_group) models that walk.
 __host__ __device__ __forceinline__ FwdItem grouped_item(int item, int BH,
                                                          int n_q, int group) {
   const int g = item / (n_q * group), g0 = g * group;
@@ -689,6 +717,41 @@ __device__ __forceinline__ void dkv_probs(float (&s)[32], float (&dp)[32],
   }
 }
 
+// dkv_probs in two halves, for a loop that computes each under a product
+// of its own: P^T in place of S^T (dkv_p), then dS^T in place of dP^T
+// (dkv_ds), with the same arithmetic.
+template <bool MASKED>
+__device__ __forceinline__ void dkv_p(float (&s)[32], const float* s_lse,
+                                      float scale_log2, int col_off,
+                                      const int (&lo)[2], int hi) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 l2 =
+        *reinterpret_cast<const float2*>(s_lse + 8 * n + col_off);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int idx = 4 * n + r, jj = r % 2, cc = 8 * n + jj;
+      float p = hopper::fast_exp2(s[idx] * scale_log2 - (jj ? l2.y : l2.x));
+      if (MASKED && (cc < lo[r / 2] || cc >= hi)) p = 0.0f;
+      s[idx] = p;
+    }
+  }
+}
+
+__device__ __forceinline__ void dkv_ds(const float (&s)[32], float (&dp)[32],
+                                       const float* s_delta, int col_off) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 dl =
+        *reinterpret_cast<const float2*>(s_delta + 8 * n + col_off);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int idx = 4 * n + r;
+      dp[idx] = s[idx] * (dp[idx] - (r % 2 ? dl.y : dl.x));
+    }
+  }
+}
+
 constexpr int DBN = 128;                   // kv rows per item
 constexpr int DBM = 64;                    // query rows per tile
 constexpr int kDkvKvPanel = DBN * ROW_BYTES;  // a panel of K or V
@@ -696,22 +759,66 @@ constexpr int kDkvPanel = DBM * ROW_BYTES;    // a panel of Q or dO
 
 template <int D>
 struct Dkv {
-  static constexpr int STAGES = D == 64 ? 3 : 2;  // Q/dO ring
+  // What the head_dim-128 form adds to the head_dim-64 one (bwd_dkv_kernel;
+  // each measured on the H100 with ops/flash_probe.py): TRAP_OUT_OF_LINE,
+  // a wait that never ends traps through hopper::deadlock, which leaves the
+  // consumers setmaxnreg's registers; L2_GROUPS, the items of a group of
+  // (b, h) whose Q and dO fit in half the L2 cache come before the next
+  // group's; OVERLAP, inside a warpgroup S^T_t goes out with the products
+  // of tile t - 1 and P^T_t is computed while those run (the ring then
+  // holds two tiles a warpgroup); and a ring of one K/V buffer and 4
+  // Q/dO stages in place of two buffers and 2 stages.
+  static constexpr bool TRAP_OUT_OF_LINE = D == 128;
+  static constexpr bool L2_GROUPS = D == 128;
+  static constexpr bool OVERLAP = D == 128;
+  static constexpr int KV_BUFS = D == 64 ? 2 : 1;  // K/V item buffers
+  static constexpr int STAGES = D == 64 ? 3 : 4;  // Q/dO ring
   static constexpr int KV = tile_bytes<D>(DBN);    // K or V
   static constexpr int TILE = tile_bytes<D>(DBM);  // Q or dO
   static constexpr int STAGE = 2 * TILE + 1024;  // + lse and delta, aligned
-  static constexpr size_t SMEM = 1024 + 4 * KV + STAGES * STAGE +
-                                 (4 + 2 * STAGES) * sizeof(uint64_t);
+  static constexpr size_t SMEM = 1024 + 2 * KV_BUFS * KV + STAGES * STAGE +
+                                 (2 * KV_BUFS + 2 * STAGES) * sizeof(uint64_t);
   static_assert(SMEM <= kMaxSmem, "dK/dV shared memory");
 };
 
+// A dK/dV work item: its kv tile (of DBN rows) and (b, h).
+struct DkvItem {
+  int kv_tile, bh;
+};
+
+// Item ``item`` of the dK/dV walk in groups of ``group`` (b, h)
+// (Dkv<D>::L2_GROUPS): grouped_item's walk over the kv tiles, the low ones
+// (which see the most query tiles when causal) where it puts the high
+// query tiles. The blocks at work at once then stream the Q and dO of a
+// few (b, h), which stay in the L2 cache from one kv tile to the next. The
+// kernel walks it, and the host's choice of ``group`` (dkv_l2_group)
+// models that walk.
+__host__ __device__ __forceinline__ DkvItem grouped_kv_item(int item, int BH,
+                                                            int n_kv,
+                                                            int group) {
+  const FwdItem it = grouped_item(item, BH, n_kv, group);
+  return {n_kv - 1 - it.q_tile, it.bh};
+}
+
+// The first query tile of a dK/dV item at kv row k0: the diagonal's when
+// causal. With OVERLAP every item takes one tile at least (a kv tile past
+// every query row sees a masked one), so that a warpgroup's loop, which
+// holds no branch around a wgmma, always runs.
+template <int D>
+__host__ __device__ __forceinline__ int dkv_first_tile(int k0, int n_q,
+                                                       int causal) {
+  const int last = Dkv<D>::OVERLAP ? n_q - 1 : n_q;
+  return !causal ? 0 : k0 / DBM < last ? k0 / DBM : last;
+}
+
 // A persistent kernel: one block on each SM walks the work items (kv tile
 // of 128 rows, batch*head) in snake_item's order, the low kv tiles (which
-// see the most query tiles) first. K and V of an item come
-// in once, into one of two buffers, so the next item's load overlaps this
-// one's end; each item loops over the 64-row query tiles from the
-// diagonal. Scores are formed transposed (S^T = K Q^T), so the kv rows
-// are the M of every product.
+// see the most query tiles) first; with L2_GROUPS group by group
+// (grouped_kv_item). K and V of an item come in once, into one of
+// KV_BUFS buffers, so the next item's load overlaps this one's end; each
+// item loops over the 64-row query tiles from the diagonal. Scores are
+// formed transposed (S^T = K Q^T), so the kv rows are the M of every
+// product.
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -721,25 +828,42 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int H,
                int Sq, int Sk, Layout ldk, Layout ldv, float scale,
-               int causal) {
-  constexpr int DKV_STAGES = Dkv<D>::STAGES, kDkvKv = Dkv<D>::KV;
-  constexpr int kDkvTile = Dkv<D>::TILE, kDkvStage = Dkv<D>::STAGE;
+               int causal, int group) {
+  using C = Dkv<D>;
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    hopper::mbar_wait<C::TRAP_OUT_OF_LINE>(bar, parity);
+  };
+  constexpr int DKV_STAGES = C::STAGES, KV_BUFS = C::KV_BUFS;
+  constexpr int kDkvKv = C::KV, kDkvTile = C::TILE, kDkvStage = C::STAGE;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sKV = align_1024(smem_raw);  // two buffers of K then V
-  unsigned char* stages = sKV + 4 * kDkvKv;
+  unsigned char* sKV = align_1024(smem_raw);  // buffers of K then V
+  unsigned char* stages = sKV + KV_BUFS * 2 * kDkvKv;
   uint64_t* kv_full =
       reinterpret_cast<uint64_t*>(stages + DKV_STAGES * kDkvStage);
-  uint64_t* kv_empty = kv_full + 2;
-  uint64_t* full = kv_empty + 2;
+  uint64_t* kv_empty = kv_full + KV_BUFS;
+  uint64_t* full = kv_empty + KV_BUFS;
   uint64_t* empty = full + DKV_STAGES;
+  // lse (times log2 e) and delta of the tile in stage st, DBM each.
+  auto stage_rows = [&](int st) {
+    return reinterpret_cast<float*>(stages + st * kDkvStage + 2 * kDkvTile);
+  };
 
   const int n_kv = (Sk + DBN - 1) / DBN, n_items = n_kv * BH;
   const int n_q = (Sq + DBM - 1) / DBM;
-  // Item i: kv tile i / BH of (b, h) = i % BH, and its first query tile.
-  auto first_q_tile = [&](int k0) { return causal ? min(k0 / DBM, n_q) : 0; };
+  // Item i: kv tile i / BH of (b, h) = i % BH, or grouped_kv_item's.
+  auto item_at = [&](int item) -> DkvItem {
+    if constexpr (C::L2_GROUPS) {
+      return grouped_kv_item(item, BH, n_kv, group);
+    } else {
+      return {item / BH, item % BH};
+    }
+  };
+  auto first_q_tile = [&](int k0) {
+    return dkv_first_tile<D>(k0, n_q, causal);
+  };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < KV_BUFS; ++i) {
       hopper::mbar_init(kv_full + i, 1);
       hopper::mbar_init(kv_empty + i, 2 * WG / 32);  // one arrival a warp
     }
@@ -758,11 +882,11 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x / 32 == 2 * WG / 32) {
       int ring = 0;  // position in the Q/dO ring, across items
       for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-        const int k0 = item / BH * DBN, bh = item % BH, b = bh / H,
-                  h = bh % H;
-        const int kb = j % 2;
+        const DkvItem it = item_at(item);
+        const int k0 = it.kv_tile * DBN, bh = it.bh, b = bh / H, h = bh % H;
+        const int kb = j % KV_BUFS;
         unsigned char* sK = sKV + kb * 2 * kDkvKv;
-        if (j >= 2) hopper::mbar_wait(kv_empty + kb, (j / 2 - 1) & 1);
+        if (j >= KV_BUFS) wait(kv_empty + kb, (j / KV_BUFS - 1) & 1);
         if (lane == 0) {
           hopper::mbar_arrive_tx(kv_full + kb, 2 * kDkvKv);
           load_tile<D>(sK, &tm_k, kv_full + kb, DBN, h, k0, b);
@@ -772,9 +896,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int st = ring % DKV_STAGES, q0 = t * DBM;
           unsigned char* stage = stages + st * kDkvStage;
           if (ring >= DKV_STAGES) {
-            hopper::mbar_wait(empty + st, (ring / DKV_STAGES - 1) & 1);
+            wait(empty + st, (ring / DKV_STAGES - 1) & 1);
           }
-          float* s_lse = reinterpret_cast<float*>(stage + 2 * kDkvTile);
+          float* s_lse = stage_rows(st);
           float* s_delta = s_lse + DBM;
           for (int r = lane; r < DBM; r += 32) {
             const bool in = q0 + r < Sq;
@@ -800,8 +924,9 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float scale_log2 = scale * LOG2E;
     int ring = 0;
     for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-      const int k0 = item / BH * DBN, bh = item % BH, b = bh / H, h = bh % H;
-      const int kb = j % 2;
+      const DkvItem it = item_at(item);
+      const int k0 = it.kv_tile * DBN, bh = it.bh, b = bh / H, h = bh % H;
+      const int kb = j % KV_BUFS;
       // This thread holds pieces of kv rows row0 and row0 + 8, at query
       // columns 8 n + col_off + j of every accumulator.
       const int kv_lo = k0 + wg * 64;
@@ -813,83 +938,230 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
-      hopper::mbar_wait(kv_full + kb, (j / 2) & 1);
+      wait(kv_full + kb, (j / KV_BUFS) & 1);
 
-      for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
-        const int st = ring % DKV_STAGES, q0 = t * DBM;
-        unsigned char* stage = stages + st * kDkvStage;
-        hopper::mbar_wait(full + st, (ring / DKV_STAGES) & 1);
-        if (causal && q0 + DBM - 1 < kv_lo) {  // every pair masked
-          if (lane == 0) hopper::mbar_arrive(empty + st);
-          continue;
-        }
-        const uint32_t q_addr = hopper::smem_addr(stage);
-        const uint32_t do_addr = q_addr + kDkvTile;
-        const float* s_lse =
-            reinterpret_cast<const float*>(stage + 2 * kDkvTile);
-        const float* s_delta = s_lse + DBM;
-
+      if constexpr (C::OVERLAP) {
+        // The item's tiles from t0, and this warpgroup's from t_mine: the
+        // first that one of its rows sees (in a causal item, warpgroup 1's
+        // rows see none of the first), or the last tile when none does.
+        // The loops hold no branch around a wgmma.
+        const int t0 = first_q_tile(k0);
+        const int t_mine = causal ? min(kv_lo / DBM, n_q - 1) : 0;
+        auto stage_of = [&](int t) { return (ring + t - t0) % DKV_STAGES; };
+        auto q_addr = [&](int t) {
+          return hopper::smem_addr(stages + stage_of(t) * kDkvStage);
+        };
+        auto wait_full = [&](int t) {
+          wait(full + stage_of(t), ((ring + t - t0) / DKV_STAGES) & 1);
+        };
+        auto release = [&](int t) {
+          if (lane == 0) hopper::mbar_arrive(empty + stage_of(t));
+        };
         float s[32], dp[32];
+        uint32_t pa[DBM / 16][4], da[DBM / 16][4];
+        // Each product is a commit group of its own: S^T = K Q_t^T,
+        // dP^T = V dO_t^T, dV += P^T dO_t and dK += dS^T Q_t (dO and Q
+        // MN-major).
+        auto issue_s = [&](int t) {
+          const uint32_t qa = q_addr(t);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            hopper::wgmma_m64n64k16_ss(
+                s, hopper::desc_k_major(k_step(k_addr, kk, kDkvKvPanel)),
+                hopper::desc_k_major(k_step(qa, kk, kDkvPanel)), kk);
+          }
+          hopper::wgmma_commit();
+        };
+        auto issue_dp = [&](int t) {
+          const uint32_t doa = q_addr(t) + kDkvTile;
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            hopper::wgmma_m64n64k16_ss(
+                dp, hopper::desc_k_major(k_step(v_addr, kk, kDkvKvPanel)),
+                hopper::desc_k_major(k_step(doa, kk, kDkvPanel)), kk);
+          }
+          hopper::wgmma_commit();
+        };
+        auto issue_dv = [&](int t) {
+          const uint32_t doa = q_addr(t) + kDkvTile;
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+            hopper::wgmma_rs_tb(
+                dv_acc, pa[kk],
+                mn_desc<D>(doa + kk * 16 * ROW_BYTES, kDkvPanel));
+          }
+          hopper::wgmma_commit();
+        };
+        auto issue_dk = [&](int t) {
+          const uint32_t qa = q_addr(t);
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+            hopper::wgmma_rs_tb(
+                dk_acc, da[kk],
+                mn_desc<D>(qa + kk * 16 * ROW_BYTES, kDkvPanel));
+          }
+          hopper::wgmma_commit();
+        };
+        // P^T of tile t in s, masked only on the diagonal and the ragged
+        // end; then dS^T in dp.
+        auto p_of = [&](int t) {
+          const int q0 = t * DBM;
+          const float* s_lse = stage_rows(stage_of(t));
+          const int hi = Sq - q0 - col_off;
+          int lo[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            lo[i] = causal ? row0 + 8 * i - q0 - col_off : -DBM;
+          }
+          if (q0 + DBM > Sq || (causal && q0 < kv_lo + 63)) {
+            dkv_p<true>(s, s_lse, scale_log2, col_off, lo, hi);
+          } else {
+            dkv_p<false>(s, s_lse, scale_log2, col_off, lo, hi);
+          }
+        };
+        auto ds_of = [&](int t) {
+          dkv_ds(s, dp, stage_rows(stage_of(t)) + DBM, col_off);
+        };
+        auto pack = [&](const float (&x)[32], uint32_t (&a)[DBM / 16][4]) {
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              a[kk][r] = hopper::pack_bf16(x[8 * kk + 2 * r],
+                                           x[8 * kk + 2 * r + 1]);
+            }
+          }
+        };
+
+        // Tiles none of this warpgroup's rows sees: loaded, so waited
+        // for, and handed back.
+        for (int t = t0; t < t_mine; ++t) {
+          wait_full(t);
+          release(t);
+        }
+        wait_full(t_mine);
         hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          hopper::wgmma_m64n64k16_ss(
-              s, hopper::desc_k_major(k_step(k_addr, kk, kDkvKvPanel)),
-              hopper::desc_k_major(k_step(q_addr, kk, kDkvPanel)), kk);
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          hopper::wgmma_m64n64k16_ss(
-              dp, hopper::desc_k_major(k_step(v_addr, kk, kDkvKvPanel)),
-              hopper::desc_k_major(k_step(do_addr, kk, kDkvPanel)), kk);
-        }
-        hopper::wgmma_commit();
+        issue_s(t_mine);
+        issue_dp(t_mine);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
         hopper::fence_regs(dp);
-
-        // P^T and dS^T, masked only on the diagonal and the ragged end.
-        const int hi = Sq - q0 - col_off;
-        int lo[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          lo[i] = causal ? row0 + 8 * i - q0 - col_off : -DBM;
-        }
-        if (q0 + DBM > Sq || (causal && q0 < kv_lo + 63)) {
-          dkv_probs<true>(s, dp, s_lse, s_delta, scale_log2, col_off, lo, hi);
-        } else {
-          dkv_probs<false>(s, dp, s_lse, s_delta, scale_log2, col_off, lo,
-                           hi);
-        }
-        uint32_t pa[DBM / 16][4], da[DBM / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < DBM / 16; ++kk) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            pa[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r],
-                                          s[8 * kk + 2 * r + 1]);
-            da[kk][r] = hopper::pack_bf16(dp[8 * kk + 2 * r],
-                                          dp[8 * kk + 2 * r + 1]);
-          }
+        p_of(t_mine);
+        ds_of(t_mine);
+        pack(s, pa);
+        pack(dp, da);
+        // S^T_t goes out with dV += P^T_{t-1} dO_{t-1} and dK += dS^T_{t-1}
+        // Q_{t-1}, and P^T_t is computed while those run; then dP^T_t,
+        // and dS^T_t. At most both accumulators, S^T and the two packed
+        // operands, or both accumulators, P^T and dP^T, are live: 192
+        // registers a thread, as in the serial loop.
+        for (int t = t_mine + 1; t < n_q; ++t) {
+          wait_full(t);
+          hopper::wgmma_fence();
+          issue_s(t);
+          issue_dv(t - 1);
+          issue_dk(t - 1);
+          hopper::wgmma_wait<2>();  // S^T_t is in
+          hopper::fence_regs(s);
+          p_of(t);
+          hopper::fence_regs(s);  // P^T is done before the wait
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dv_acc);
+          hopper::fence_regs(dk_acc);
+          release(t - 1);
+          hopper::wgmma_fence();
+          issue_dp(t);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dp);
+          ds_of(t);
+          pack(s, pa);
+          pack(dp, da);
         }
         hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < DBM / 16; ++kk) {
-          hopper::wgmma_rs_tb(
-              dv_acc, pa[kk],
-              mn_desc<D>(do_addr + kk * 16 * ROW_BYTES, kDkvPanel));
-        }
-#pragma unroll
-        for (int kk = 0; kk < DBM / 16; ++kk) {
-          hopper::wgmma_rs_tb(
-              dk_acc, da[kk],
-              mn_desc<D>(q_addr + kk * 16 * ROW_BYTES, kDkvPanel));
-        }
-        hopper::wgmma_commit();
+        issue_dv(n_q - 1);
+        issue_dk(n_q - 1);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(dv_acc);
         hopper::fence_regs(dk_acc);
-        if (lane == 0) hopper::mbar_arrive(empty + st);
+        release(n_q - 1);
+        ring += n_q - t0;
+      } else {
+        for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {
+          const int st = ring % DKV_STAGES, q0 = t * DBM;
+          unsigned char* stage = stages + st * kDkvStage;
+          wait(full + st, (ring / DKV_STAGES) & 1);
+          if (causal && q0 + DBM - 1 < kv_lo) {  // every pair masked
+            if (lane == 0) hopper::mbar_arrive(empty + st);
+            continue;
+          }
+          const uint32_t q_addr = hopper::smem_addr(stage);
+          const uint32_t do_addr = q_addr + kDkvTile;
+          const float* s_lse = stage_rows(st);
+          const float* s_delta = s_lse + DBM;
+
+          float s[32], dp[32];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            hopper::wgmma_m64n64k16_ss(
+                s, hopper::desc_k_major(k_step(k_addr, kk, kDkvKvPanel)),
+                hopper::desc_k_major(k_step(q_addr, kk, kDkvPanel)), kk);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            hopper::wgmma_m64n64k16_ss(
+                dp, hopper::desc_k_major(k_step(v_addr, kk, kDkvKvPanel)),
+                hopper::desc_k_major(k_step(do_addr, kk, kDkvPanel)), kk);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+          hopper::fence_regs(dp);
+
+          // P^T and dS^T, masked only on the diagonal and the ragged end.
+          const int hi = Sq - q0 - col_off;
+          int lo[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            lo[i] = causal ? row0 + 8 * i - q0 - col_off : -DBM;
+          }
+          if (q0 + DBM > Sq || (causal && q0 < kv_lo + 63)) {
+            dkv_probs<true>(s, dp, s_lse, s_delta, scale_log2, col_off, lo,
+                            hi);
+          } else {
+            dkv_probs<false>(s, dp, s_lse, s_delta, scale_log2, col_off, lo,
+                             hi);
+          }
+          uint32_t pa[DBM / 16][4], da[DBM / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              pa[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r],
+                                            s[8 * kk + 2 * r + 1]);
+              da[kk][r] = hopper::pack_bf16(dp[8 * kk + 2 * r],
+                                            dp[8 * kk + 2 * r + 1]);
+            }
+          }
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+            hopper::wgmma_rs_tb(
+                dv_acc, pa[kk],
+                mn_desc<D>(do_addr + kk * 16 * ROW_BYTES, kDkvPanel));
+          }
+#pragma unroll
+          for (int kk = 0; kk < DBM / 16; ++kk) {
+            hopper::wgmma_rs_tb(
+                dk_acc, da[kk],
+                mn_desc<D>(q_addr + kk * 16 * ROW_BYTES, kDkvPanel));
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dv_acc);
+          hopper::fence_regs(dk_acc);
+          if (lane == 0) hopper::mbar_arrive(empty + st);
+        }
       }
 
       // This warpgroup's K and V rows are read; they stage its dK and dV,
@@ -1204,49 +1476,93 @@ int resident_blocks(int items) {
   return items < sms ? items : sms;
 }
 
-// The forward's (b, h) a group (Fwd<D>::L2_GROUPS), at most as many as
-// have their K and V (bf16 [Sk, D] each) within half the card's L2 cache.
-// Blocks take items by snake_item, fixed in advance, so the group's size
-// sets how evenly the work falls on them: each size up to that bound is
-// tried on a model of the walk (grouped_item; an item costs its kv tiles
-// plus two for its first tile and epilogue, as the phase clocks of
-// ops/flash_probe.py show), and the largest within 1% of the most even
-// is taken. Kept for the last shape asked, per host thread.
-int l2_group(int BH, int Sq, int Sk, int D, int causal, int blocks) {
+// The most (b, h) whose ``bytes`` each, read again and again by a walk,
+// fit in half the card's L2 cache (at least 1, at most BH).
+int l2_cap(int BH, long long bytes) {
   int dev = 0, l2 = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) !=
           cudaSuccess) {
     l2 = 0;
   }
-  const long long fit = (long long)l2 / 2 / (4LL * Sk * D);
-  const int cap = fit < 1 ? 1 : fit < BH ? (int)fit : BH;
-  if (cap == BH || !causal) return cap;
-  // The bound folds in D and the cache's size.
-  thread_local long long key[5] = {-1};
-  thread_local int last = 0;
-  const long long want[5] = {BH, Sq, Sk, cap, blocks};
-  if (std::equal(want, want + 5, key)) return last;
-  const int n_q = (Sq + FBM - 1) / FBM, n_items = n_q * BH;
-  const int n_k = (Sk + FBN - 1) / FBN;
+  const long long fit = (long long)l2 / 2 / bytes;
+  return fit < 1 ? 1 : fit < BH ? (int)fit : BH;
+}
+
+// The (b, h) a group of grouped_item's walk over ``n_tiles`` tiles of
+// each (b, h), at most ``cap``. Blocks take items by snake_item, fixed in
+// advance, so the group's size sets how evenly the work falls on them:
+// each size up to ``cap`` is tried on a model of the walk, in which the
+// item grouped_item gives tile index r costs cost(r), and the largest
+// within 1% of the most even is taken.
+template <typename Cost>
+int even_group(int BH, int n_tiles, int cap, int blocks, Cost cost) {
+  const int n_items = n_tiles * BH;
   std::vector<long long> load(blocks);
   std::vector<long long> worst(cap + 1);
   for (int g = 1; g <= cap; ++g) {
     std::fill(load.begin(), load.end(), 0);
     for (int item = 0; item < n_items; ++item) {
-      const int qt = grouped_item(item, BH, n_q, g).q_tile;
-      const int j = item / blocks, r = item % blocks;
-      load[j % 2 ? blocks - 1 - r : r] +=
-          std::min(n_k, (qt * FBM + FBM - 1) / FBN + 1) + 2;
+      const int r = grouped_item(item, BH, n_tiles, g).q_tile;
+      const int j = item / blocks, b = item % blocks;
+      load[j % 2 ? blocks - 1 - b : b] += cost(r);
     }
     worst[g] = *std::max_element(load.begin(), load.end());
   }
   const long long best = *std::min_element(worst.begin() + 1, worst.end());
   int g = cap;
   while (worst[g] * 100 > best * 101) --g;
-  std::copy(want, want + 5, key);
-  last = g;
   return g;
+}
+
+// The last group size a walk chose, per host thread, keyed on everything
+// the choice depends on (the cap folds in D and the cache's size).
+struct GroupMemo {
+  long long key[5] = {-1, -1, -1, -1, -1};
+  int group = 0;
+
+  template <typename Choose>
+  int get(const long long (&want)[5], Choose choose) {
+    if (!std::equal(want, want + 5, key)) {
+      group = choose();
+      std::copy(want, want + 5, key);
+    }
+    return group;
+  }
+};
+
+// The forward's (b, h) a group (Fwd<D>::L2_GROUPS): their K and V (bf16
+// [Sk, D] each) within half the L2 cache, and an item costs its kv tiles
+// plus two for its first tile and epilogue, as the phase clocks of
+// ops/flash_probe.py show.
+int fwd_l2_group(int BH, int Sq, int Sk, int D, int causal, int blocks) {
+  const int cap = l2_cap(BH, 4LL * Sk * D);
+  if (cap == BH || !causal) return cap;
+  thread_local GroupMemo memo;
+  const long long want[5] = {BH, Sq, Sk, cap, blocks};
+  return memo.get(want, [&] {
+    const int n_q = (Sq + FBM - 1) / FBM, n_k = (Sk + FBN - 1) / FBN;
+    return even_group(BH, n_q, cap, blocks, [&](int qt) {
+      return std::min(n_k, (qt * FBM + FBM - 1) / FBN + 1) + 2;
+    });
+  });
+}
+
+// dK/dV's (b, h) a group (Dkv<D>::L2_GROUPS): their Q and dO (bf16 [Sq,
+// D] each) with lse and delta within half the L2 cache, and an item costs
+// the query tiles it visits.
+template <int D>
+int dkv_l2_group(int BH, int Sq, int Sk, int causal, int blocks) {
+  const int cap = l2_cap(BH, 4LL * Sq * D + 8LL * Sq);
+  if (cap == BH || !causal) return cap;
+  thread_local GroupMemo memo;
+  const long long want[5] = {BH, Sq, Sk, cap, blocks};
+  return memo.get(want, [&] {
+    const int n_q = (Sq + DBM - 1) / DBM, n_kv = (Sk + DBN - 1) / DBN;
+    return even_group(BH, n_kv, cap, blocks, [&](int r) {
+      return n_q - dkv_first_tile<D>((n_kv - 1 - r) * DBN, n_q, causal);
+    });
+  });
 }
 
 // strides: [b, s, h] element strides of q, k, v, o (12 values).
@@ -1267,7 +1583,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   const int items = (Sq + FBM - 1) / FBM * B * H;
   const int blocks = resident_blocks(items);
   const int group =
-      Fwd<D>::L2_GROUPS ? l2_group(B * H, Sq, Sk, D, causal, blocks) : 0;
+      Fwd<D>::L2_GROUPS ? fwd_l2_group(B * H, Sq, Sk, D, causal, blocks) : 0;
   fwd_kernel<D><<<blocks, HOPPER_THREADS, Fwd<D>::SMEM,
                   (cudaStream_t)stream>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, B * H, H, Sq, Sk,
@@ -1318,11 +1634,14 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sk + DBN - 1) / DBN * B * H;
-  bwd_dkv_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Dkv<D>::SMEM,
+  const int blocks = resident_blocks(items);
+  const int group =
+      Dkv<D>::L2_GROUPS ? dkv_l2_group<D>(B * H, Sq, Sk, causal, blocks) : 0;
+  bwd_dkv_kernel<D><<<blocks, HOPPER_THREADS, Dkv<D>::SMEM,
                       (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, B * H, H, Sq, Sk, layout_at(strides, 4),
-      layout_at(strides, 5), scale, causal);
+      layout_at(strides, 5), scale, causal, group);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,18 @@ overlapped. The variant ``clocks`` adds ``clock64()`` marks to the
 forward's consumer warpgroups and prints where a warpgroup's clocks go,
 per kv tile of the main loop and per item, at both head_dims (the marks
 cost registers and time of their own, so its ms are not the committed
-kernel's).
+kernel's). What the head_dim-128 dK/dV adds to the head_dim-64 one is
+three switches of ``Dkv<D>`` (TRAP_OUT_OF_LINE, L2_GROUPS, OVERLAP) and
+its ring (one K/V buffer, 4 Q/dO stages): ``dkv128_before`` is the form
+before them, ``dkv128_inline_trap``, ``dkv128_snake`` and
+``dkv128_serial`` turn each switch off alone, ``dkv128_two_kv``,
+``dkv128_stages_3``, ``dkv128_two_kv_3`` and ``dkv128_two_kv_ahead``
+try other rings, and the dropped forms are ``dkv128_split`` and
+``dkv128_together`` (more of each tile under the last tile's products:
+more registers than a consumer has) and ``dkv128_direct_store``;
+``dkv128_clocks`` marks its consumers' phases at head_dim 128. Each
+variant prints the highest register of every kernel in its SASS. A
+variant named again in one run is timed again, not built again.
 
     python -m dlrover_tpu_torch.ops.flash_probe [variant ...]
 
@@ -62,11 +73,20 @@ def _stages(committed, d128, ring, n):
             f"STAGES = D == 64 ? {n} : {d128};  // {ring} ring")
 
 
-def _switch(name, committed, value):
-    """One of the forward's schedule switches in ``Fwd<D>`` set to
-    ``value`` at both head_dims."""
-    decl = f"  static constexpr bool {name} = "
-    return ("flash_attn.cu", f"{decl}{committed};", f"{decl}{value};")
+def _switch(name, committed, value, trait="Fwd", kind="bool"):
+    """One of the schedule switches of ``trait`` (``Fwd<D>`` or
+    ``Dkv<D>``) set to ``value`` at both head_dims."""
+    decl = f"  static constexpr {kind} {name} = "
+    return ("flash_attn.cu", f"{decl}{committed};", f"{decl}{value};",
+            f"struct {trait} {{\n")
+
+
+def _dkv(name, value, committed="D == 128"):
+    """A switch of ``Dkv<D>``: a bool, or with a number the ring's
+    STAGES or KV_BUFS."""
+    if isinstance(value, int):
+        return _switch(name, committed, value, "Dkv", "int")
+    return _switch(name, committed, value, "Dkv")
 
 
 # PR 9's head_dim-128 forward loop: one product at a time inside a
@@ -161,21 +181,34 @@ _FEW_CHAINS = [("flash_attn.cu", old, new) for old, new in (
 )]
 
 
+# Reads and zeroes the phase clocks (a C entry of a clocks variant).
+_READ_CLOCKS = ('}  // extern "C"\n',
+                "int flash_probe_clocks(unsigned long long* out) {\n"
+                "  cudaError_t err = cudaMemcpyFromSymbol(out, g_clocks, "
+                "sizeof(g_clocks));\n"
+                "  if (err != cudaSuccess) return (int)err;\n"
+                "  unsigned long long zero[32] = {};\n"
+                "  return (int)cudaMemcpyToSymbol(g_clocks, zero, "
+                "sizeof(zero));\n"
+                "}\n\n"
+                '}  // extern "C"\n')
+_CLOCK_SUMS = ("namespace {\n\nconstexpr float NEG_INF",
+               "__device__ unsigned long long g_clocks[32];\n"
+               "namespace {\n\nconstexpr float NEG_INF")
+_MARK = ("    uint32_t P[16] = {};\n"
+         "    long long tc = clock64();\n"
+         "    auto mark = [&](int k) {\n"
+         "      const long long n = clock64();\n"
+         "      P[k] += (uint32_t)(n - tc);\n"
+         "      tc = n;\n"
+         "    };\n")
+
 # Phase clocks of the forward's consumer warpgroups: 32-bit sums a thread
 # (a block's launch is well under 2^32 clocks), read per warpgroup.
 _CLOCKS = [
-    ("namespace {\n\nconstexpr float NEG_INF",
-     "__device__ unsigned long long g_clocks[32];\n"
-     "namespace {\n\nconstexpr float NEG_INF"),
+    _CLOCK_SUMS,
     ("    uint32_t pa[FBN / 16][4] = {};\n",
-     "    uint32_t pa[FBN / 16][4] = {};\n"
-     "    uint32_t P[16] = {};\n"
-     "    long long tc = clock64();\n"
-     "    auto mark = [&](int k) {\n"
-     "      const long long n = clock64();\n"
-     "      P[k] += (uint32_t)(n - tc);\n"
-     "      tc = n;\n"
-     "    };\n"),
+     "    uint32_t pa[FBN / 16][4] = {};\n" + _MARK),
     # per item
     ("      wait(q_full + qb, (j / FWD_QBUF) & 1);\n",
      "      mark(0);\n      wait(q_full + qb, (j / FWD_QBUF) & 1);\n"),
@@ -219,15 +252,130 @@ _CLOCKS = [
      "      for (int k = 0; k < 16; ++k) "
      "atomicAdd(&g_clocks[16 * wg + k], (unsigned long long)P[k]);\n"
      "    }\n  }\n}\n"),
-    ('}  // extern "C"\n',
-     "int flash_probe_clocks(unsigned long long* out) {\n"
-     "  cudaError_t err = cudaMemcpyFromSymbol(out, g_clocks, "
-     "sizeof(g_clocks));\n"
-     "  if (err != cudaSuccess) return (int)err;\n"
-     "  unsigned long long zero[32] = {};\n"
-     "  return (int)cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));\n"
-     "}\n\n"
-     '}  // extern "C"\n'),
+    _READ_CLOCKS,
+]
+
+
+# The head_dim-128 dK/dV loop body: S^T_t issued with dV and dK of tile
+# t - 1, P^T_t computed under them, then dP^T_t alone (the committed
+# kernel, 192 registers live); tile t - 1's products in two halves, each
+# beside half of tile t's (208 live), and all four at once, P^T_t and
+# dS^T_t computed under dV and dK of tile t - 1 (224 live). ptxas spills
+# the last two and serialises their wgmmas (C7512).
+_DKV_AHEAD = (
+    "          hopper::wgmma_fence();\n"
+    "          issue_s(t);\n"
+    "          issue_dv(t - 1);\n"
+    "          issue_dk(t - 1);\n"
+    "          hopper::wgmma_wait<2>();  // S^T_t is in\n"
+    "          hopper::fence_regs(s);\n"
+    "          p_of(t);\n"
+    "          hopper::fence_regs(s);  // P^T is done before the wait\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(dv_acc);\n"
+    "          hopper::fence_regs(dk_acc);\n"
+    "          release(t - 1);\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_dp(t);\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(dp);\n"
+    "          ds_of(t);\n"
+    "          pack(s, pa);\n"
+    "          pack(dp, da);\n")
+_DKV_SPLIT = (
+    "          hopper::wgmma_fence();\n"
+    "          issue_s(t);\n"
+    "          issue_dv(t - 1);\n"
+    "          hopper::wgmma_wait<1>();  // S^T_t is in\n"
+    "          hopper::fence_regs(s);\n"
+    "          p_of(t);\n"
+    "          hopper::fence_regs(s);  // P^T is done before the wait\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(dv_acc);\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_dp(t);\n"
+    "          issue_dk(t - 1);\n"
+    "          hopper::wgmma_wait<1>();  // dP^T_t is in\n"
+    "          hopper::fence_regs(dp);\n"
+    "          ds_of(t);\n"
+    "          pack(s, pa);\n"
+    "          hopper::fence_regs(dp);  // dS^T is done before the wait\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(dk_acc);\n"
+    "          release(t - 1);\n"
+    "          pack(dp, da);\n")
+_DKV_TOGETHER = (
+    "          hopper::wgmma_fence();\n"
+    "          issue_s(t);\n"
+    "          issue_dp(t);\n"
+    "          issue_dv(t - 1);\n"
+    "          issue_dk(t - 1);\n"
+    "          hopper::wgmma_wait<2>();  // S^T_t and dP^T_t are in\n"
+    "          hopper::fence_regs(s);\n"
+    "          hopper::fence_regs(dp);\n"
+    "          p_of(t);\n"
+    "          ds_of(t);\n"
+    "          hopper::fence_regs(s);\n"
+    "          hopper::fence_regs(dp);\n"
+    "          hopper::wgmma_wait<0>();\n"
+    "          hopper::fence_regs(dv_acc);\n"
+    "          hopper::fence_regs(dk_acc);\n"
+    "          release(t - 1);\n"
+    "          pack(s, pa);\n"
+    "          pack(dp, da);\n")
+
+
+def _marked(text, marks):
+    """``text`` with ``mark(k)`` after each of its lines named in
+    ``marks`` ({line: k}, 10-space indent)."""
+    out = []
+    for line in text.splitlines(keepends=True):
+        out.append(line)
+        if line.strip() in marks:
+            out.append(f"          mark({marks[line.strip()]});\n")
+    return "".join(out)
+
+
+# Phase clocks of the dK/dV consumer warpgroups at head_dim 128, in the
+# overlapped loop: per item and per query tile of the loop.
+_DKV_CLOCKS = [
+    _CLOCK_SUMS,
+    ("    const float scale_log2 = scale * LOG2E;\n    int ring = 0;\n"
+     "    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {"
+     "\n      const DkvItem it",
+     "    const float scale_log2 = scale * LOG2E;\n" + _MARK +
+     "    int ring = 0;\n"
+     "    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {"
+     "\n      const DkvItem it"),
+    ("      wait(kv_full + kb, (j / KV_BUFS) & 1);\n",
+     "      mark(0);\n      wait(kv_full + kb, (j / KV_BUFS) & 1);\n"
+     "      mark(1);\n"),
+    ("        wait_full(t_mine);\n",
+     "        mark(2);\n        wait_full(t_mine);\n"),
+    ("        pack(s, pa);\n        pack(dp, da);\n        // S^T_t goes",
+     "        pack(s, pa);\n        pack(dp, da);\n        mark(3);\n"
+     "        // S^T_t goes"),
+    ("          wait_full(t);\n" + _DKV_AHEAD,
+     "          wait_full(t);\n          mark(6);\n" + _marked(_DKV_AHEAD, {
+         "issue_dk(t - 1);": 7,
+         "hopper::fence_regs(s);": 8,
+         "hopper::fence_regs(s);  // P^T is done before the wait": 9,
+         "release(t - 1);": 10,
+         "hopper::fence_regs(dp);": 11,
+         "ds_of(t);": 12,
+         "pack(dp, da);": 13}) + "          P[15] += 1;\n"),
+    ("        release(n_q - 1);\n        ring += n_q - t0;\n",
+     "        release(n_q - 1);\n        mark(4);\n        P[14] += 1;\n"
+     "        ring += n_q - t0;\n"),
+    ("      if (lane == 0) hopper::mbar_arrive(kv_empty + kb);\n    }\n"
+     "  }\n}\n",
+     "      if (lane == 0) hopper::mbar_arrive(kv_empty + kb);\n"
+     "      mark(5);\n    }\n"
+     "    if (D == 128 && threadIdx.x % WG == 0) {\n"
+     "      for (int k = 0; k < 16; ++k) "
+     "atomicAdd(&g_clocks[16 * wg + k], (unsigned long long)P[k]);\n"
+     "    }\n  }\n}\n"),
+    _READ_CLOCKS,
 ]
 
 
@@ -258,7 +406,8 @@ def _turns(cond, bar=False):
          "\n    }\n",
          "      if (F::K_RELEASE) hopper::mbar_init(k_empty + s, 2 * WG / 32);"
          "\n    }\n"
-         "    for (int w = 0; w < 2; ++w) hopper::mbar_init(turn + w, WG / 32);"
+         "    for (int w = 0; w < 2; ++w) hopper::mbar_init(turn + w, WG /"
+         " 32);"
          "\n")]
     out += [
         (_LOOP_START, _LOOP_START.replace(
@@ -369,6 +518,148 @@ _DQ_SERIAL = (
 
 
 
+def _dkv_ring(bufs, stages):
+    """dK/dV's ring at head_dim 128: ``bufs`` K/V item buffers and
+    ``stages`` Q/dO stages."""
+    return ("flash_attn.cu",
+            "  static constexpr int KV_BUFS = D == 64 ? 2 : 1;  // K/V item "
+            "buffers\n"
+            "  static constexpr int STAGES = D == 64 ? 3 : 4;  // Q/dO ring\n",
+            f"  static constexpr int KV_BUFS = D == 64 ? 2 : {bufs};\n"
+            f"  static constexpr int STAGES = D == 64 ? 3 : {stages};\n")
+
+
+# At head_dim 128 each stage's lse and delta (2 DBM floats) after the
+# ring, not in 1024 bytes beside its tiles: two K/V buffers and 3 stages
+# then fit in 227 KB.
+_ROWS = "(D == 128 ? DKV_STAGES * 2 * DBM * 4 : 0)"
+_DKV_ROWS_APART = [("flash_attn.cu", old, new) for old, new in (
+    ("  static constexpr int STAGE = 2 * TILE + 1024;  // + lse and delta, "
+     "aligned\n",
+     "  static constexpr int STAGE = 2 * TILE + (D == 128 ? 0 : 1024);\n"),
+    ("                                 (2 * KV_BUFS + 2 * STAGES) * "
+     "sizeof(uint64_t);\n",
+     "                                 (D == 128 ? STAGES * 2 * DBM * 4 : 0) "
+     "+\n"
+     "                                 (2 * KV_BUFS + 2 * STAGES) * "
+     "sizeof(uint64_t);\n"),
+    ("      reinterpret_cast<uint64_t*>(stages + DKV_STAGES * kDkvStage);",
+     f"      reinterpret_cast<uint64_t*>(stages + DKV_STAGES * kDkvStage + "
+     f"{_ROWS});"),
+    ("    return reinterpret_cast<float*>(stages + st * kDkvStage + 2 * "
+     "kDkvTile);",
+     "    return reinterpret_cast<float*>(\n"
+     "        D == 128 ? stages + DKV_STAGES * kDkvStage + st * 2 * DBM * 4\n"
+     "                 : stages + st * kDkvStage + 2 * kDkvTile);"))]
+# At head_dim 128 the next item's K and V go out once the producer has
+# filled the ring with this item's first tiles (the consumers have taken
+# the first: the item before is done with its buffer), not after this
+# item's last tile.
+_DKV_KV_AHEAD = (
+    "flash_attn.cu",
+    "        const int kb = j % KV_BUFS;\n"
+    "        unsigned char* sK = sKV + kb * 2 * kDkvKv;\n"
+    "        if (j >= KV_BUFS) wait(kv_empty + kb, (j / KV_BUFS - 1) & 1);\n"
+    "        if (lane == 0) {\n"
+    "          hopper::mbar_arrive_tx(kv_full + kb, 2 * kDkvKv);\n"
+    "          load_tile<D>(sK, &tm_k, kv_full + kb, DBN, h, k0, b);\n"
+    "          load_tile<D>(sK + kDkvKv, &tm_v, kv_full + kb, DBN, h, k0, b);"
+    "\n        }\n"
+    "        for (int t = first_q_tile(k0); t < n_q; ++t, ++ring) {\n",
+    "        auto load_kv = [&](int j, int item) {\n"
+    "          const DkvItem it = item_at(item);\n"
+    "          const int k0 = it.kv_tile * DBN, b = it.bh / H, h = it.bh % H;"
+    "\n          const int kb = j % KV_BUFS;\n"
+    "          unsigned char* sK = sKV + kb * 2 * kDkvKv;\n"
+    "          if (j >= KV_BUFS) wait(kv_empty + kb, (j / KV_BUFS - 1) & 1);"
+    "\n          if (lane == 0) {\n"
+    "            hopper::mbar_arrive_tx(kv_full + kb, 2 * kDkvKv);\n"
+    "            load_tile<D>(sK, &tm_k, kv_full + kb, DBN, h, k0, b);\n"
+    "            load_tile<D>(sK + kDkvKv, &tm_v, kv_full + kb, DBN, h, k0, "
+    "b);\n          }\n        };\n"
+    "        if (D == 64 || j == 0) load_kv(j, item);\n"
+    "        const int t_first = first_q_tile(k0);\n"
+    "        const int t_kv = min(t_first + DKV_STAGES - 1, n_q - 1);\n"
+    "        for (int t = t_first; t < n_q; ++t, ++ring) {\n")
+_DKV_KV_NEXT = (
+    "flash_attn.cu",
+    "            hopper::mbar_arrive(full + st);\n          }\n",
+    "            hopper::mbar_arrive(full + st);\n          }\n"
+    "          if (D == 128 && t == t_kv && snake_item(j + 1, n_items) >= 0) {"
+    "\n            load_kv(j + 1, snake_item(j + 1, n_items));\n"
+    "          }\n")
+
+# dK and dV at head_dim 128 written straight from the accumulators (a
+# thread's pairs of columns, 16 bytes of 8 rows a warp store), with the
+# K/V buffer handed back before them instead of staging them.
+_ROUND_J = ("// Round j of a persistent kernel's walk over its work items, "
+            "heaviest")
+_DKV_DIRECT_STORE = [("flash_attn.cu", _ROUND_J, (
+    "// Writes this thread's pieces of a warpgroup's 64 x D fp32"
+    " accumulator,\n"
+    "// times ``mul``, as bf16 straight from the registers: rows ``row0``"
+    " and\n"
+    "// row0 + 8 of a strided output (those below ``nrows``), two columns at"
+    " 8 n\n"
+    "// + col_off each (the warp's stores fill 16 bytes of 8 rows at once;"
+    " the\n"
+    "// L2 cache joins the halves of each 32-byte sector). No shared memory"
+    " and\n"
+    "// no barrier.\n"
+    "template <int D>\n"
+    "__device__ __forceinline__ void store_rows_direct(const float (&acc)[D"
+    " / 2],\n"
+    "                                                  float mul, bf16* out,\n"
+    "                                                  long long row_stride,\n"
+    "                                                  int row0, int nrows)"
+    " {\n"
+    "  const int col_off = 2 * (threadIdx.x % 4);\n"
+    "#pragma unroll\n"
+    "  for (int i = 0; i < 2; ++i) {\n"
+    "    if (row0 + 8 * i >= nrows) continue;\n"
+    "    bf16* row = out + (long long)(row0 + 8 * i) * row_stride + col_off;\n"
+    "#pragma unroll\n"
+    "    for (int n = 0; n < D / 8; ++n) {\n"
+    "      *reinterpret_cast<uint32_t*>(row + 8 * n) = hopper::pack_bf16(\n"
+    "          acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);\n"
+    "    }\n"
+    "  }\n"
+    "}\n"
+    "\n"
+) + _ROUND_J), ("flash_attn.cu", (
+    "      // This warpgroup's K and V rows are read; they stage its dK and"
+    " dV,\n"
+    "      // and the buffer goes back to the producer once the rows are"
+    " stored.\n"
+    "      store_rows<D>(dk_acc, scale, scale, k_rows, kDkvKvPanel,\n"
+    "                    dk + b * ldk.b + h * ldk.h, ldk.s, kv_lo, Sk, wg);\n"
+    "      store_rows<D>(dv_acc, 1.0f, 1.0f, v_rows, kDkvKvPanel,\n"
+    "                    dv + b * ldv.b + h * ldv.h, ldv.s, kv_lo, Sk, wg);\n"
+    "      __syncwarp();\n"
+    "      if (lane == 0) hopper::mbar_arrive(kv_empty + kb);"
+), (
+    "      if constexpr (D == 128) {\n"
+    "        __syncwarp();\n"
+    "        if (lane == 0) hopper::mbar_arrive(kv_empty + kb);\n"
+    "        store_rows_direct<D>(dk_acc, scale, dk + b * ldk.b + h * ldk.h,\n"
+    "                             ldk.s, row0, Sk);\n"
+    "        store_rows_direct<D>(dv_acc, 1.0f, dv + b * ldv.b + h * ldv.h,\n"
+    "                             ldv.s, row0, Sk);\n"
+    "      } else {\n"
+    "        // This warpgroup's K and V rows are read; they stage its dK"
+    " and dV,\n"
+    "        // and the buffer goes back to the producer once the rows are"
+    " stored.\n"
+    "        store_rows<D>(dk_acc, scale, scale, k_rows, kDkvKvPanel,\n"
+    "                      dk + b * ldk.b + h * ldk.h, ldk.s, kv_lo, Sk,"
+    " wg);\n"
+    "        store_rows<D>(dv_acc, 1.0f, 1.0f, v_rows, kDkvKvPanel,\n"
+    "                      dv + b * ldv.b + h * ldv.h, ldv.s, kv_lo, Sk,"
+    " wg);\n"
+    "        __syncwarp();\n"
+    "        if (lane == 0) hopper::mbar_arrive(kv_empty + kb);"
+    "\n      }"))]
+
 _serial = ("flash_attn.cu", _LOOP_START,
            _LOOP_START.replace("    int tile = 0;\n",
                                _FWD128_SERIAL + "    int tile = 0;\n"))
@@ -381,7 +672,7 @@ VARIANTS = {
     "turns": _turns("true"),
     "fwd_stages_2": [("flash_attn.cu",) + _stages(4, 2, "K/V", 2)],
     "fwd_stages_3": [("flash_attn.cu",) + _stages(4, 2, "K/V", 3)],
-    "dkv_stages_2": [("flash_attn.cu",) + _stages(3, 2, "Q/dO", 2)],
+    "dkv_stages_2": [("flash_attn.cu",) + _stages(3, 4, "Q/dO", 2)],
     "dq_stages_2": [("flash_attn.cu",) + _stages(4, 3, "K/V", 2)],
     "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL)],
     # PR 9's serial head_dim-128 loop, in the item order without groups
@@ -401,26 +692,65 @@ VARIANTS = {
     "fwd128_pv_first": _PV_FIRST,
     "fwd128_few_chains": _FEW_CHAINS,
     "clocks": [("flash_attn.cu",) + r for r in _CLOCKS],
+    # The head_dim-128 dK/dV before its redesign: the serial loop (the
+    # products of a query tile, then its P^T / dS^T, then the next
+    # products), the plain item order, the inlined trap, two K/V buffers
+    # and 2 Q/dO stages.
+    "dkv128_before": [_dkv("TRAP_OUT_OF_LINE", "false"),
+                      _dkv("L2_GROUPS", "false"), _dkv("OVERLAP", "false"),
+                      _dkv_ring(2, 2)],
+    # Each switch of the redesign turned off alone.
+    "dkv128_inline_trap": [_dkv("TRAP_OUT_OF_LINE", "false")],
+    "dkv128_snake": [_dkv("L2_GROUPS", "false")],
+    "dkv128_serial": [_dkv("OVERLAP", "false")],
+
+    # The ring: two K/V buffers and 2 stages (the ring before), one
+    # buffer and 3 stages; two buffers and 3 stages, each stage's lse and
+    # delta after the ring (so they fit), and with the next item's K and V
+    # loaded as soon as the consumers take an item's first tile.
+    "dkv128_two_kv": [_dkv_ring(2, 2)],
+    "dkv128_stages_3": [_dkv_ring(1, 3)],
+    "dkv128_two_kv_3": [_dkv_ring(2, 3)] + _DKV_ROWS_APART,
+    # dK and dV from the registers, the K/V buffer freed before them.
+    "dkv128_direct_store": _DKV_DIRECT_STORE,
+    "dkv128_two_kv_ahead": ([_dkv_ring(2, 3)] + _DKV_ROWS_APART
+                            + [_DKV_KV_AHEAD, _DKV_KV_NEXT]),
+    # The overlaps that do not fit in the registers.
+    "dkv128_split": [("flash_attn.cu", _DKV_AHEAD, _DKV_SPLIT)],
+    "dkv128_together": [("flash_attn.cu", _DKV_AHEAD, _DKV_TOGETHER)],
+    "dkv128_clocks": [("flash_attn.cu",) + r for r in _DKV_CLOCKS],
 }
 ITEM_PHASES = ["to the item", "Q/K/V waits", "issue, S wait",
                "softmax", "last P V wait", "epilogue", "zero O, pack P"]
 TILE_PHASES = ["K/V waits", "issue", "S wait", "softmax", "P V wait",
                "rescale, pack"]
+DKV_ITEM_PHASES = ["to the item", "K/V wait", "skipped tiles", "first tile",
+                   "last dK/dV", "epilogue"]
+DKV_TILE_PHASES = ["Q/dO wait", "issue S^T, dV, dK", "S^T wait", "P^T",
+                   "dV/dK wait", "dP^T", "dS^T", "pack"]
 
 
 def variant_source(name: str) -> str:
-    """A copy of csrc/ with the variant's replacements, under build/."""
+    """A copy of csrc/ with the variant's replacements, under build/
+    (its library, built from it, stays beside it: a variant named again
+    in one run is timed again, not built again)."""
     out = os.path.join(os.path.dirname(build.BUILD_DIR), "probe", name)
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(SOURCES, out)
-    for fname, old, new in VARIANTS[name]:
+    for fname in os.listdir(SOURCES):
+        if fname.endswith((".cu", ".cuh")):
+            os.makedirs(out, exist_ok=True)
+            shutil.copy(os.path.join(SOURCES, fname), out)
+    for fname, old, new, *scope in VARIANTS[name]:
         path = os.path.join(out, fname)
         with open(path) as f:
             text = f.read()
-        if text.count(old) != 1:
+        # A replacement scoped to a struct applies inside its braces.
+        start = text.index(scope[0]) if scope else 0
+        end = text.index("\n};\n", start) if scope else len(text)
+        if text.count(old, start, end) != 1:
             raise ValueError(f"{name}: {old!r} is not in {fname} once")
+        text = text[:start] + text[start:end].replace(old, new) + text[end:]
         with open(path, "w") as f:
-            f.write(text.replace(old, new))
+            f.write(text)
     return out
 
 
@@ -437,26 +767,30 @@ def time_ms(fn, iters=100, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def clocks(lib, fwd):
+def clocks(lib, launch, item_phases=ITEM_PHASES, tile_phases=TILE_PHASES):
+    """Where a consumer warpgroup's clocks go over 10 launches: the sums
+    of each phase a warpgroup, the item phases first, then the loop
+    tile's; counts of items and loop tiles in the last two."""
     buf = (ctypes.c_ulonglong * 32)()
     lib.flash_probe_clocks.argtypes = [ctypes.c_void_p]
     lib.flash_probe_clocks.restype = ctypes.c_int
     lib.flash_probe_clocks(ctypes.addressof(buf))  # zero
     for _ in range(10):
-        fwd()
+        launch()
     torch.cuda.synchronize()
     if lib.flash_probe_clocks(ctypes.addressof(buf)):
         raise RuntimeError("reading the clocks failed")
     out = {}
+    first_tile = len(item_phases)
     for wg in range(2):
         c = buf[16 * wg:16 * wg + 16]
         items, tiles = c[14], c[15]
         out[f"warpgroup {wg}"] = {
             "items": items // 10, "loop tiles": tiles // 10,
             "clocks an item": {n: round(c[i] / max(items, 1)) for i, n in
-                               enumerate(ITEM_PHASES)},
-            "clocks a loop tile": {n: round(c[7 + i] / max(tiles, 1))
-                                   for i, n in enumerate(TILE_PHASES)},
+                               enumerate(item_phases)},
+            "clocks a loop tile": {n: round(c[first_tile + i] / max(tiles, 1))
+                                   for i, n in enumerate(tile_phases)},
         }
     return out
 
@@ -469,13 +803,14 @@ def probe(name, inputs):
                                                           "kernels")
     build._LIBS.clear()
     try:
-        _, _, ptxas = build.build("flash_attn")
+        path, _, ptxas = build.build("flash_attn")
         lib = attn._lib()
     finally:
         build.BUILD_DIR = root
     res = {"ptxas": [ln.strip() for ln in ptxas.splitlines()
                      if "spill" in ln or "registers" in ln or "C75" in ln
-                     or "Compiling entry" in ln]}
+                     or "Compiling entry" in ln],
+           "sass_highest_register": build.sass_registers(path)}
     for label, (q, k, v, do) in inputs.items():
         o_ref, lse_ref = attn._fwd_plain(q, k, v, True)
         delta = attn.attention_delta(o_ref, do)
@@ -503,6 +838,9 @@ def probe(name, inputs):
         torch.cuda.empty_cache()
         if name == "clocks":
             row["clocks"] = clocks(lib, fwd)
+        if name == "dkv128_clocks" and q.shape[-1] == 128:
+            row["clocks"] = clocks(lib, dkv, DKV_ITEM_PHASES,
+                                   DKV_TILE_PHASES)
         res[label] = row
     return res
 

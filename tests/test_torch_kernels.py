@@ -8,7 +8,8 @@ once with a planted fault, and show that the check passes the first and
 fails the second: ``tile_rel_err`` against ``TILE_REL_TOL`` and the
 logsumexp against ``LSE_TOL`` for flash attention (a wrong mask, a V,
 dO or K tile read with the wrong transpose flag, a logsumexp stored in
-base 2), ``adam8_errors`` against ``ADAM8_LIMITS`` for
+base 2, and the schedule faults an overlapped head_dim-128 loop can
+make), ``adam8_errors`` against ``ADAM8_LIMITS`` for
 the 8-bit Adam kernels (a neighbouring block's scale, the 0.5 floor
 dropped, round half away from zero, weight decay dropped, the padded
 tail in a block's absmax), and the kernel's exact bit tricks for the
@@ -113,6 +114,41 @@ def test_cuda_d128_kernels_match_plain(cuda_device, causal, s, b, h, fused):
         q, k, v = fused_views(q, k, v)
         assert q.stride(1) == 3 * h * 128 and port._aligned(q) is q
     _check_kernels(q, k, v, g, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,s,b,h", [
+    (True, 2048, 1, 40),  # dK/dV's L2 groups of 22 and 18 (b, h)
+    (False, 2048, 1, 40),  # 24 and 16
+    (True, 8192, 1, 16),  # the preset's long row: groups of 4
+    (True, 1000, 2, 4),  # a ragged S
+    (False, 1000, 2, 4),
+    (True, 900, 2, 3),  # the last kv tile's upper rows see no query
+])
+def test_cuda_d128_dkv_walk_writes_every_row(cuda_device, causal, s, b, h):
+    """The head_dim-128 dK/dV kernel's walk over its items: dK and dV,
+    filled with NaN before each launch, hold none after it (a dropped item
+    fails even where the plain version's rows are zero), match the plain
+    version, and come out bit for bit the same from a second launch."""
+    q, k, v, g = (torch.tensor(x).to(cuda_device, torch.bfloat16)
+                  for x in inputs(s, seed=6, b=b, h=h, d=128))
+    o_ref, lse_ref = port._fwd_plain(q, k, v, causal)
+    delta = port.attention_delta(o_ref, g)
+    dk_ref, dv_ref = port._bwd_dkv_plain(q, k, v, g, lse_ref, delta, causal)
+    outs = []
+    for _ in range(2):
+        dk = torch.full_like(k, float("nan"))
+        dv = torch.full_like(v, float("nan"))
+        port._launcher(port.entry_name("flash_bwd_dkv", 128), q, k, {
+            "ptrs": (q, k, v, g, lse_ref, delta, dk, dv),
+            "strided": (q, k, v, g, dk, dv)}, causal)()
+        torch.cuda.synchronize()
+        assert not dk.isnan().any() and not dv.isnan().any()
+        outs.append((dk, dv))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert port.tile_rel_err(dk, dk_ref) <= port.TILE_REL_TOL
+    assert port.tile_rel_err(dv, dv_ref) <= port.TILE_REL_TOL
 
 
 # ------------------------------------------- the check, on the CPU
@@ -394,6 +430,80 @@ def test_check_rejects_wrong_d128_schedule(check_case_d128, wrong, outputs):
     worst = max(_err_over_limit(n, got[n], refs[n])
                 for n in _OUTPUTS[outputs])
     assert worst > 2
+
+
+DKV_ITEM, DKV_TILE = 128, 64  # dK/dV's kv rows an item, query rows a tile
+
+
+def emulated_dkv_pipelined(q, k, v, do, lse, delta, fault=None):
+    """The head_dim-128 dK/dV kernel's overlapped loop as it runs, causal:
+    each 128-row kv item of each (b, h) as two warpgroups of 64 kv rows,
+    each over the 64-row query tiles from the first one of its rows sees;
+    tile t's P^T and dS^T (fp32, rounded to bf16) go into dV += P^T dO_t
+    and dK += dS^T Q_t while tile t + 1's S^T forms and its P^T is
+    computed. Faults of that pipeline: "do_of_next_tile" multiplies P^T_t
+    with dO_{t+1} (the last tile's with its own); "delta_of_previous_tile"
+    forms dS^T_t with the previous tile's delta (a warpgroup's first tile
+    with its own); "rows_of_other_warpgroup" gives each item's upper 64 kv
+    rows the lower 64 rows' dK and dV. (dK, dV) in bf16."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt, dot = (_bhsd(x) for x in (q, k, v, do))
+    s_len = qt.shape[-2]
+    n_q = -(-s_len // DKV_TILE)
+    dk, dv = torch.zeros_like(kt), torch.zeros_like(vt)
+    tile = lambda x, t: x[..., t * DKV_TILE:(t + 1) * DKV_TILE, :]  # noqa
+    for lo in range(0, s_len, DKV_TILE):  # a warpgroup's kv rows
+        rows = torch.arange(lo, min(lo + DKV_TILE, s_len))
+        first = min(lo // DKV_TILE, n_q - 1)
+        for t in range(first, n_q):
+            cols = torch.arange(t * DKV_TILE, min((t + 1) * DKV_TILE, s_len))
+            seen = cols[None, :] >= rows[:, None]
+            s_t = kt[..., rows, :] @ tile(qt, t).transpose(-1, -2) * scale
+            p = torch.exp(s_t - lse[..., None, cols]).masked_fill(~seen, 0.0)
+            dp = vt[..., rows, :] @ tile(dot, t).transpose(-1, -2)
+            t_delta = t - 1 if fault == "delta_of_previous_tile" and \
+                t > first else t
+            d_cols = cols - (t - t_delta) * DKV_TILE
+            ds = (p * (dp - delta[..., None, d_cols])).bfloat16().float()
+            t_do = t + 1 if fault == "do_of_next_tile" and t + 1 < n_q \
+                else t
+            do_t = tile(dot, t_do)[..., :len(cols), :]
+            dv[..., rows, :] += p.bfloat16().float() @ do_t
+            dk[..., rows, :] += ds @ tile(qt, t) * scale
+    if fault == "rows_of_other_warpgroup":
+        upper = torch.arange(s_len) % DKV_ITEM >= DKV_TILE
+        other = torch.where(upper, torch.arange(s_len) - DKV_TILE,
+                            torch.arange(s_len))
+        dk, dv = dk[..., other, :], dv[..., other, :]
+    return tuple(x.transpose(1, 2).bfloat16() for x in (dk, dv))
+
+
+def test_check_passes_d128_pipelined_dkv_rounding(check_case_d128):
+    """The dK/dV kernel's overlapped loop (a warpgroup's query tiles in
+    order, bf16 P^T and dS^T a tile) stays as far inside the limit as the
+    one-pass emulation."""
+    (q, k, v, do, lse, delta), refs = check_case_d128
+    dk, dv = emulated_dkv_pipelined(q, k, v, do, lse, delta)
+    assert _err_over_limit("dk", dk, refs["dk"]) <= 0.5
+    assert _err_over_limit("dv", dv, refs["dv"]) <= 0.5
+
+
+# Faults that the overlapped head_dim-128 dK/dV loop can make, each with
+# the output it reaches.
+_DKV_SCHEDULE_FAULTS = [("do_of_next_tile", "dv"),
+                        ("delta_of_previous_tile", "dk"),
+                        ("rows_of_other_warpgroup", "dk"),
+                        ("rows_of_other_warpgroup", "dv")]
+
+
+@pytest.mark.parametrize("wrong,output", _DKV_SCHEDULE_FAULTS,
+                         ids=[f"{w}-{o}" for w, o in _DKV_SCHEDULE_FAULTS])
+def test_check_rejects_wrong_d128_dkv_schedule(check_case_d128, wrong,
+                                               output):
+    (q, k, v, do, lse, delta), refs = check_case_d128
+    dk, dv = emulated_dkv_pipelined(q, k, v, do, lse, delta, wrong)
+    got = {"dk": dk, "dv": dv}
+    assert _err_over_limit(output, got[output], refs[output]) > 2
 
 
 def test_tile_rel_err_ragged_and_tile_local():

@@ -187,10 +187,16 @@ def case_train(case, inputs):
 def case_save(case, inputs):
     """Train 2 steps and persist step 2 (``persist_every=2``); then a
     fresh trainer of another seed restores it, and one more step runs on
-    both: the restored blocks and the next losses."""
+    both: the restored blocks and the next losses. A rank returns from
+    ``fit`` once its own shard is written, shard 0 once it has committed
+    the step: the barrier keeps every restore behind the commit (a
+    restore that finds shard 0's meta missing quarantines the step)."""
+    import torch.distributed as dist
+
     t = ckpt_trainer("gpt", case["opt"], case["spec"], case["dir"])
     t.fit(iter(global_batches()[:2]), steps=2, start_step=0)
     saved = blocks_of(t.state)
+    dist.barrier()
     fresh = ckpt_trainer("gpt", case["opt"], case["spec"], case["dir"],
                          seed=5)
     step = fresh.restore()
