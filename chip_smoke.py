@@ -41,7 +41,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 5. remat on GPT-2 xl 1.5B (48 x 1600, bf16 params, batch 4 x 1024, the
    port's fused ``adam8bit(2e-4)``, as bench.py trains it): windows of 4
    steps (after 2 warm-up) without remat and under "nothing", "dots",
-   "dots_lite" and "offload", in turns, two rounds of alternating order, the last round's traced
+   "dots_lite" and "offload", in turns, one round, traced
    (busy share, of the kernels and with the copies): each policy's
    median step ms, tokens/s, MFU, peak memory, busy share, and
    "offload"'s GB and GB/s each way a step; every window's losses equal
@@ -59,7 +59,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    leaves in pinned host memory between steps, the state's GB and the
    copies' GB/s). Then remat on the LLaMA preset (22 x 2048, 16 / 8
    heads, vocab 32000, bf16 params, ``adam8bit(2e-4)``) at 4 x 2048 the
-   same way without remat and under "nothing", "dots" and "offload"
+   same way, in two rounds of alternating order (the last traced),
+   without remat and under "nothing", "dots" and "offload"
    (each head_dim-128 kernel 22 times a step, the forward 44 under
    remat, no head_dim-64 kernel), and a window at 1 x 8192 under
    "dots". Then AGD (through ``Trainer.fit``) and WeightedSAM (its own
@@ -71,19 +72,29 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    seed and batch: GPT-2 xl ("dots", ``adam8bit``, 4 x 1024) under fsdp
    (FSDP2) and data, the LLaMA preset (4 x 2048, "dots") under tensor
    (its kernels DTensors, the head vocab-parallel): 2 warm-up steps, a
-   window of 4 and 3 traced, each window's losses equal the one-device
+   window of 4 and 1 traced, each window's losses equal the one-device
    path's bit for bit (fsdp's parameters too), the kernels' launches as
    many, and a sharded snapshot of the fsdp run persisted and restored
    into a fresh one-device trainer bit for bit, leaf by leaf; step ms,
    peak GiB and busy share of each beside the one-device path's
-   (``[mesh]`` lines). Then the LLaMA preset with 8 swiglu experts (top
+   (``[mesh]`` lines). Then ZeRO-1 (``[zero]`` lines) on a ("data", 1)
+   mesh of an NCCL world of one: the LLaMA preset (4 x 2048, "dots")
+   under ``bf16_master_weights(adamw)`` with ``zero=True`` (the wrapper
+   owns whole leaves and all-gathers them) beside the one-device run of
+   the same seed and batch, each window's losses bit for bit and the
+   head_dim-128 kernels 22 / 44 times a step; the sliced state's GiB,
+   step ms, and its snapshot (stamped with ZeRO degree 0) persisted and
+   restored into a fresh one-device trainer bit for bit; GPT-2 xl's
+   8-bit Adam under ``zero=True``: the JAX package's warning (nothing
+   to slice), the fused kernel once a step, the one-device losses bit
+   for bit. Then the LLaMA preset with 8 swiglu experts (top
    2, capacity factor 1.25; 6.36B parameters, 1.90B active) at full
    width through ``Trainer.fit`` with ``moe_loss_fn`` and
    ``adam8bit(2e-4)``, batch 4 x 2048, remat "dots": 2 warm-up steps, a
    window of 4 (each head_dim-128 kernel 22 times a step, the forward
    44, the fused 8-bit Adam once a step over every leaf, the
-   [22, 8, 2048, 5504] stacks too; the loss finite and falling), 3
-   traced steps (busy share; the MoE's device ms by routing,
+   [22, 8, 2048, 5504] stacks too; the loss finite and falling), a
+   traced step (busy share; the MoE's device ms by routing,
    dispatch/combine and expert products; MFU over the active
    parameters); the same model and seed on a mesh with an expert axis
    of one (losses bit for bit, as many launches, a sharded snapshot
@@ -92,13 +103,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    kernels inside, each launched once) on the NCCL group of one at
    B 4, S 2048, 16 heads, D 128, forward and backward, each held to fp32
    attention by tile and timed beside the flash kernels alone
-   (``[moe ...]`` and ``[seq ...]`` lines). Then pipelines on one card
+   (``[moe ...]`` and ``[seq ...]`` lines). Then the strategy search
+   (``[search]`` line): ``auto_accelerate(spec="auto")`` on the LLaMA
+   preset chooses one device, and the cost model's step estimate over
+   the measured step of each window above (GPT-2 124M, GPT-2 xl without
+   remat and "dots", LLaMA without remat and "dots", the LLaMA-MoE),
+   the LLaMA windows (which its derate is calibrated on) within 30%.
+   Then pipelines on one card
    (``[pipe ...]`` lines): GPT-2 xl as above under GPipe (4 stages, 4
    microbatches of one row) and the circular schedule (4 stages x 2
    repeats: 8 chunks of 6 layers), and the LLaMA preset at 4 x 2048
    under GPipe (2 stages, 4 microbatches): each first step's logits and
    loss equal the unpipelined model of the same seed run microbatch by
-   microbatch, bit for bit; a window of 4 (each flash kernel 4 times a
+   microbatch, bit for bit; a window of 2 (each flash kernel 4 times a
    layer a step, the ticks the JAX package's formula, the loss falling)
    and a traced step, beside the unpipelined "dots" step of the same
    call; then the GPipe run on an NCCL world of one with a ("pipe", 1)
@@ -120,9 +137,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ATen's copy into pinned memory, call to publish), a persist, restores
    from memory and from disk into fresh Trainers, each leaf held bit for
    bit to the state at its step, and one more step whose loss equals the
-   uninterrupted run's; (b) GPT-2 xl 1.5B (without remat), the same
-   windows without the DISK ones, a snapshot taken while the next step runs held bit for bit
-   (the race check), a restore from memory; (c) a child process training
+   uninterrupted run's; (b) GPT-2 xl 1.5B (without remat), windows of 6
+   steps of the same kinds without the DISK ones, a snapshot taken
+   while the next step runs held bit for bit (the race check), a restore from memory; (c) a child process training
    124M, SIGKILLed after step 4, the saver's flush of its last snapshot,
    and a resumed child whose losses equal an unkilled child's;
 8. print each phase's wall time, the card, a ``{"kernels": [...]}`` line
@@ -138,6 +155,7 @@ import contextlib
 import dataclasses
 import glob
 import json
+import logging
 import math
 import os
 import resource
@@ -164,6 +182,7 @@ from dlrover_tpu_torch.accel import (
 from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
 from dlrover_tpu_torch.common import checksum, ckpt_persist, env_utils
 from dlrover_tpu_torch.common.comm import clear_job_sockets
+from dlrover_tpu_torch.common.log import logger as port_logger
 from dlrover_tpu_torch.common.shared_memory import SharedMemory
 from dlrover_tpu_torch.models.convert import leaf_bytes, train_state_leaves
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn, moe_loss_fn
@@ -232,6 +251,10 @@ LAUNCH_ITERS = 100
 # carry that to about 7e-3 on the logits.
 MODEL_TOL = 2e-2
 WARMUP = 2
+# Steps traced after a window of the phases that repeat (remat rounds,
+# mesh branches, the MoE): torch.profiler's processing of a trace costs
+# the host about 5 s a GPT-2 xl step, more than the steps themselves.
+TRACED = 1
 GPT2 = dict(vocab_size=50257, max_seq_len=1024, num_layers=12, num_heads=12,
             d_model=768, attn_impl="pallas")
 BATCH, SEQ, STEPS = 16, 1024, 10
@@ -244,11 +267,13 @@ XL_NOREMAT = dataclasses.replace(XL, remat=False)
 XL_BATCH, XL_UNFUSED_STEPS, XL_LR = 4, 2, 2e-4
 # Remat on the one-chip presets: a window of REMAT_STEPS under each
 # policy ("none": no remat), from the same seed and batch, in turns, in
-# REMAT_ROUNDS rounds of alternating order, so the host's swing between
-# windows spreads over all of them.
+# rounds of alternating order, so the host's swing between windows
+# spreads over all of them: LLAMA_ROUNDS on the LLaMA preset, whose
+# windows calibrate the strategy search's derate, one on GPT-2 xl, whose
+# host-set steps swing 2x between calls whatever the rounds.
 XL_POLICIES = ("none", "nothing", "dots", "dots_lite", "offload")
 LLAMA_POLICIES = ("none", "nothing", "dots", "offload")
-REMAT_ROUNDS, REMAT_STEPS = 2, 4
+XL_ROUNDS, LLAMA_ROUNDS, REMAT_STEPS = 1, 2, 4
 # The optimizer's state in host memory: GPT-2 xl without remat.
 OPT_OFFLOAD_STEPS = 3
 # AGD and WeightedSAM on GPT-2 124M: steps on the card, and the largest
@@ -280,7 +305,7 @@ XL_GPIPE = dataclasses.replace(XL, pipeline_stages=4,
 XL_CIRCULAR = dataclasses.replace(XL_GPIPE, pipeline_repeats=2)
 LLAMA_PIPE = dataclasses.replace(LlamaConfig.preset(2048), pipeline_stages=2,
                                  pipeline_microbatches=4)
-PIPE_STEPS = 4
+PIPE_STEPS = 2
 # The sequence-parallel bodies at the preset's attention shape (B, S, H,
 # D), and the launches each is timed over.
 SEQ_SHAPE, SEQ_ITERS = (4, 2048, 16, 128), 5
@@ -599,8 +624,11 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
     batch = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch_size, seq), dtype=np.int64)
     rec = Record()
+    # One device: "auto" would run the strategy search, whose one-device
+    # choice also takes a pipelined model's stages off (JAX's rule).
     trainer = Trainer(model, optimizer, loss, batch,
-                      spec="auto", callbacks=[rec, LoggingCallback(every=5)],
+                      spec=ParallelSpec(),
+                      callbacks=[rec, LoggingCallback(every=5)],
                       **accel)
     trainer.fit(iter([batch] * WARMUP), steps=WARMUP)  # outside the window
     first = float(rec.losses[0])
@@ -849,22 +877,23 @@ def with_policy(cfg, policy):
     return dataclasses.replace(cfg, remat=True, remat_policy=policy)
 
 
-def remat_rounds(label, base, policies, lr, b, seq, seed, windows,
+def remat_rounds(label, base, policies, lr, b, seq, seed, windows, rounds,
                  model_cls=GPT):
-    """Every policy's window in turns (``REMAT_ROUNDS`` rounds), the last
+    """Every policy's window in turns (``rounds`` rounds), the last
     round's traced (busy share). Checks each window's losses against no
     remat's of its round, bit for bit, and that "offload" peaks below
     "dots"; prints each policy's median step ms, tokens/s, MFU, peak
     memory, busy share and "offload"'s copies. Returns the summary."""
     runs = {p: [] for p in policies}
-    for r in range(REMAT_ROUNDS):
+    for r in range(rounds):
         for policy in (policies if r % 2 == 0 else policies[::-1]):
             name = f"{label} {policy} r{r}"
             windows[name], trainer, batch, stats = train(
                 name, with_policy(base, policy), adam8bit(lr), b,
                 REMAT_STEPS, seed, model_cls=model_cls, seq=seq)
-            if r == REMAT_ROUNDS - 1:
-                prof = profile_window(name, trainer, batch, stats["step_ms"])
+            if r == rounds - 1:
+                prof = profile_window(name, trainer, batch, stats["step_ms"],
+                                      steps=TRACED)
                 stats["busy"] = prof["kernel_busy_share"]
                 stats["busy_with_copies"] = prof["device_busy_share"]
             runs[policy].append(stats)
@@ -1345,7 +1374,7 @@ CKPT_PERSIST = 5
 CRASH_AT, RESUMED = 4, 3
 # 1.5B: windows of CKPT_XL_STEPS with and without, in turns (the host
 # sets this step, and it swings).
-CKPT_XL_STEPS = 10
+CKPT_XL_STEPS = 6
 
 
 def ckpt_setup(root):
@@ -1411,7 +1440,7 @@ def ckpt_trainer(cfg, optimizer, batch, seed, ckpt_dir, persist_every=0,
                  rec=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = GPT(cfg, device="cuda", generator=gen)
-    return Trainer(model, optimizer, token_loss, batch, spec="auto",
+    return Trainer(model, optimizer, token_loss, batch, spec=ParallelSpec(),
                    callbacks=[rec] if rec else [],
                    checkpoint_dir=ckpt_dir, persist_every=persist_every)
 
@@ -1841,8 +1870,9 @@ def crash_drill(seed, root):
 
 # ------------------------------------------------------- the mesh branches
 
-# Each branch's window on its one-rank mesh, after WARMUP steps; then 3
-# traced steps (profile_window), as on the one-device path beside it.
+# Each branch's window on its one-rank mesh, after WARMUP steps; then
+# TRACED traced steps (profile_window), as on the one-device path beside
+# it.
 MESH_STEPS = 4
 
 
@@ -1863,12 +1893,15 @@ class MeshLoop:
         return {"step": self.state["step"]}
 
 
-def mesh_window(label, res, batch, cfg, base, traced=3):
-    """WARMUP steps, a timed window of MESH_STEPS (each flash kernel of
-    the model's head_dim once a layer a step, the forward twice under
-    remat, the fused 8-bit Adam once a step), then ``traced`` steps. The
-    peak is the window's above ``base`` (the bytes allocated before the
-    branch was built: the reference kept beside it)."""
+def mesh_window(label, res, batch, cfg, base, traced=TRACED,
+                steps=MESH_STEPS,
+                fused=True):
+    """WARMUP steps, a timed window of ``steps`` (each flash kernel of the
+    model's head_dim once a layer a step, the forward twice under remat,
+    the fused 8-bit Adam once a step, or never without ``fused``), then
+    ``traced`` steps (none: no trace). The peak is the window's above
+    ``base`` (the bytes allocated before the branch was built: the
+    reference kept beside it)."""
     loop = MeshLoop(res, batch)
     loop.fit(range(WARMUP), WARMUP)
     torch.cuda.synchronize()
@@ -1876,23 +1909,25 @@ def mesh_window(label, res, batch, cfg, base, traced=3):
     loop.losses = []
     reset_counts()
     t0 = time.perf_counter()
-    loop.fit(range(MESH_STEPS), MESH_STEPS)
+    loop.fit(range(steps), steps)
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
     launches = read_counts()
     losses = [float(x) for x in loop.losses]
-    want = flash_want(cfg, MESH_STEPS)
-    want.update(adam8=0, adam8_fused=MESH_STEPS)
+    want = flash_want(cfg, steps)
+    want.update(adam8=0, adam8_fused=steps if fused else 0)
     for name, count in launches.items():
         check(count == want[name],
               f"{label}: {name} launched {count} times, want {want[name]}")
     check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
-    stats = {"step_ms": window_s / MESH_STEPS * 1e3,
+    stats = {"step_ms": window_s / steps * 1e3,
              "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
              / 2**30, "losses": losses, "launches": launches}
-    prof = profile_window(label, loop, batch, stats["step_ms"], steps=traced)
-    stats["busy_share"] = prof["kernel_busy_share"]
-    stats["kernel_ms"] = prof["kernel_ms_per_step"]
+    if traced:
+        prof = profile_window(label, loop, batch, stats["step_ms"],
+                              steps=traced)
+        stats["busy_share"] = prof["kernel_busy_share"]
+        stats["kernel_ms"] = prof["kernel_ms_per_step"]
     log(f"[mesh {label}] " + json.dumps(stats))
     return stats, loop
 
@@ -1938,7 +1973,7 @@ def mesh_phases(seed, windows):
     window's step ms, peak GiB and busy share beside the one-device
     path's."""
     with world_of_one("mesh") as (dev, root):
-        _mesh_phases(seed, windows, dev, root)
+        return _mesh_phases(seed, windows, dev, root)
 
 
 def _mesh_phases(seed, windows, dev, root):
@@ -1974,6 +2009,7 @@ def _mesh_phases(seed, windows, dev, root):
     batch = np.random.default_rng(seed).integers(
         0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
     one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, None)
+    xl_one = one["losses"]
     got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "fsdp")
     check(got["losses"] == one["losses"],
           f"fsdp losses {got['losses']} differ from one device's "
@@ -2027,6 +2063,7 @@ def _mesh_phases(seed, windows, dev, root):
     del res
     torch.cuda.empty_cache()
     log("[mesh] " + json.dumps(summary))
+    return xl_one
 
 
 # ------------------------------------------------------- experts, sequence
@@ -2091,8 +2128,8 @@ def moe_train(seed, windows):
     """(a) The LLaMA-MoE at full width through ``Trainer.fit``: 2 warm-up
     steps, a window of MOE_STEPS (each head_dim-128 flash kernel 22
     times a step, the forward 44; the fused 8-bit Adam once a step over
-    every leaf, the expert stacks too; the loss finite and falling), 3
-    traced steps (busy share, the MoE's device time by part)."""
+    every leaf, the expert stacks too; the loss finite and falling),
+    TRACED traced steps (busy share, the MoE's device time by part)."""
     label = f"llama-moe B{MOE_BATCH} S{MOE.max_seq_len}"
     launches, trainer, batch, stats = train(
         label, MOE, adam8bit(LLAMA_LR), MOE_BATCH, MOE_STEPS, seed,
@@ -2101,7 +2138,7 @@ def moe_train(seed, windows):
     stats["moe_leaves"] = check_moe_leaves(trainer.state["opt"], MOE)
     stats["active_params"] = MOE.param_count(active=True)
     prof = profile_window(label, trainer, batch, stats["step_ms"],
-                          extra=moe_split)
+                          steps=TRACED, extra=moe_split)
     split = prof["moe_ms_per_step"]
     summary = {k: stats[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                      "peak_mem_gib", "params",
@@ -2113,7 +2150,7 @@ def moe_train(seed, windows):
     log(f"[moe {label}] " + json.dumps(summary))
     del trainer
     torch.cuda.empty_cache()
-    return stats["losses"], launches, batch
+    return stats, launches, batch
 
 
 def moe_on_expert_axis(seed, windows, want_losses, want_launches, batch):
@@ -2232,6 +2269,200 @@ def seq_bodies(seed, windows, mesh):
     log(f"[seq B{SEQ_SHAPE[0]} S{SEQ_SHAPE[1]} H{SEQ_SHAPE[2]} "
         f"D{SEQ_SHAPE[3]}] " + json.dumps(out)
         + f" (limit: tile_rel_err <= {attn.TILE_REL_TOL})")
+
+
+# ------------------------------------------------------- ZeRO-1, the search
+
+
+class PortLog:
+    """The messages the port's logger emits (it does not propagate)."""
+
+    def __enter__(self):
+        self.messages = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+        port_logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        port_logger.removeHandler(self.handler)
+
+
+def zero_state_gib(opt):
+    """GiB of a ZeroOptimizer's state (its inner optimizer's, over the
+    slices: masters and moments) and of its slice and gradient buffers."""
+    inner = opt.inner
+    tensors = list(getattr(inner, "master", {}).values())
+    torch_opt = getattr(inner, "inner", inner)
+    tensors += [t for st in torch_opt.state.values() for t in st.values()
+                if torch.is_tensor(t)]
+    state = sum(t.numel() * t.element_size() for t in tensors) / 2**30
+    buffers = sum(t.numel() * t.element_size() for t in
+                  list(opt._send.values()) + list(opt._grads.values()))
+    return state, buffers / 2**30
+
+
+def zero_phases(seed, windows, xl_one):
+    """ZeRO-1 on an NCCL world of one with a ("data", 1) mesh: (a) the
+    LLaMA preset at 4 x 2048 ("dots", the flash kernels) under
+    ``bf16_master_weights(adamw)`` with ``zero=True`` (the wrapper owns
+    whole leaves and all-gathers them) beside the one-device run of the
+    same seed and batch: each window's losses bit for bit, the
+    head_dim-128 kernels 22 / 44 times a step; the sliced state's GiB and
+    step ms; its snapshot persisted (stamped with degree 0) and restored
+    into a fresh one-device trainer bit for bit. (b) GPT-2 xl ("dots")
+    under ``adam8bit`` with ``zero=True``: JAX's warning (nothing to
+    slice), the fused 8-bit Adam once a step over every leaf, and the
+    losses of ``xl_one`` (the one-device run of the mesh phases) bit for
+    bit."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer, zero_degree_of
+
+    b, seq = LLAMA_RUNS[0][:2]
+    cfg = LlamaConfig.preset(seq)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, seq), dtype=np.int64)
+    summary = {}
+
+    def llama(s):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        return Llama(cfg, device="cuda", generator=gen)
+
+    with world_of_one("zero") as (dev, root):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        one = auto_accelerate(llama(seed),
+                              bf16_master_weights(adamw(LLAMA_LR)), batch,
+                              token_loss, spec=ParallelSpec(), device=dev)
+        label = f"llama B{b} S{seq} bf16 adamw"
+        stats = mesh_window(f"{label} one device", one, batch, cfg, base,
+                            traced=0, fused=False)[0]
+        windows[f"zero {label} one device"] = stats["launches"]
+        summary["one device"] = {k: stats[k] for k in ("step_ms",
+                                                       "peak_mem_gib")}
+        want = stats["losses"]
+        del one
+        torch.cuda.empty_cache()
+        mesh = create_mesh([("data", 1)], dev)
+        check(dist.get_backend() == "nccl", "the mesh is not on NCCL")
+        res = accelerate_on_mesh(llama(seed),
+                                 bf16_master_weights(adamw(LLAMA_LR)), batch,
+                                 token_loss, mesh, device=dev, zero=True)
+        opt = res.state["opt"]
+        check(isinstance(opt, ZeroOptimizer) and res.spec.zero,
+              f"zero: the optimizer is a {type(opt).__name__}")
+        check(set(opt.slices) == set(res.state["params"]),
+              "zero: a leaf was not sliced on a data axis of one")
+        stats = mesh_window(f"{label} zero", res, batch, cfg, base,
+                            traced=0, fused=False)[0]
+        windows[f"zero {label}"] = stats["launches"]
+        check(stats["losses"] == want, f"zero losses {stats['losses']} "
+              f"differ from one device's {want}")
+        state_gib, buffers_gib = zero_state_gib(opt)
+        summary["zero"] = {**{k: stats[k] for k in ("step_ms",
+                                                    "peak_mem_gib")},
+                           "sliced_state_gib": state_gib,
+                           "slice_buffers_gib": buffers_gib,
+                           "step_over_one_device": stats["step_ms"]
+                           / summary["one device"]["step_ms"]}
+        step = res.state["step"]
+        degree = zero_degree_of(res.spec)
+        check(degree == 0, f"zero degree {degree} on a data axis of one")
+        ck = ShardedCheckpointer(root, mesh_axes={"data": 1},
+                                 zero_degree=degree)
+        t0 = time.perf_counter()
+        check(ck.save_checkpoint(step, res.state, StorageType.DISK),
+              "zero: the sharded save failed")
+        ck.close()
+        summary["persist_s"] = time.perf_counter() - t0
+        metas = ckpt_persist.load_step_metas(ck.engine.storage, root, step)
+        check(bool(metas) and all(m.zero_degree == 0
+                                  for m in metas.values()),
+              "zero: a meta is not stamped with degree 0")
+        unlink_segments(os.environ["DLROVER_TPU_JOB_NAME"])
+        want_bytes = state_bytes(res)
+        del res, opt
+        torch.cuda.empty_cache()
+        fresh = auto_accelerate(llama(seed + 1),
+                                bf16_master_weights(adamw(LLAMA_LR)), batch,
+                                token_loss, spec=ParallelSpec(), device=dev)
+        ck = FlashCheckpointer(root)
+        t0 = time.perf_counter()
+        restored = ck.load_checkpoint(fresh.state)[0]
+        ck.close()
+        summary["restore_s"] = time.perf_counter() - t0
+        check(restored == step, f"zero: restored step {restored}, want "
+              f"{step}")
+        bad = differing(state_bytes(fresh), want_bytes)
+        check(not bad, f"the zero snapshot restored with leaves {bad} "
+              "differing")
+        log(f"[zero {label}] snapshot of step {step}: every leaf restored "
+            "bit for bit on one device")
+        del fresh, want_bytes
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        xl_batch = np.random.default_rng(seed).integers(
+            0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
+        with PortLog() as messages:
+            res = accelerate_on_mesh(
+                GPT(XL, device="cuda", generator=gen), adam8bit(XL_LR),
+                xl_batch, token_loss, create_mesh([("data", 1)], dev),
+                device=dev, zero=True)
+        warned = [m for m in messages if "no optimizer-state leaf" in m]
+        check(bool(warned), "zero adam8bit: JAX's warning was not logged")
+        check(not isinstance(res.state["opt"], ZeroOptimizer),
+              "zero adam8bit: the 8-bit moments were sliced")
+        stats = mesh_window("gpt2-xl adam8bit zero", res, xl_batch, XL, 0,
+                            traced=0)[0]
+        windows["zero gpt2-xl adam8bit"] = stats["launches"]
+        check(stats["losses"] == xl_one, f"zero adam8bit losses "
+              f"{stats['losses']} differ from one device's {xl_one}")
+        summary["gpt2-xl adam8bit"] = {"warning": warned[0],
+                                       "step_ms": stats["step_ms"]}
+        del res
+        torch.cuda.empty_cache()
+    log("[zero] " + json.dumps(summary))
+
+
+def search_phase(seed, measured):
+    """``auto_accelerate(spec="auto")`` on the LLaMA preset chooses
+    ``ParallelSpec()`` on the one card; then ``estimate(...).step_s`` of
+    each window ``measured`` holds (step ms by window, with its config
+    and batch) beside it. Only the LLaMA windows the derate is
+    calibrated on are held to +-30%."""
+    from dlrover_tpu_torch.accel import search
+
+    b, seq = LLAMA_RUNS[0][:2]
+    cfg = LlamaConfig.preset(seq)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, seq), dtype=np.int64)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res = auto_accelerate(Llama(cfg, device="cuda", generator=gen),
+                          adam8bit(LLAMA_LR), batch, token_loss, spec="auto")
+    ranking = [(str(s), e.step_s * 1e3, e.total_bytes / 2**30)
+               for s, e in res.search_ranking]
+    check(res.spec == ParallelSpec(), f"search chose {res.spec}")
+    check(res.search_ranking[0][0] == ParallelSpec(),
+          f"search ranked {ranking}")
+    del res
+    torch.cuda.empty_cache()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    out = {"chosen": ranking, "mfu_derate": search.MFU_DERATE, "windows": {}}
+    for label, (wcfg, rows, step_ms) in measured.items():
+        est = search.estimate(search.ModelProfile.from_config(wcfg),
+                              ParallelSpec(), rows, hbm)
+        out["windows"][label] = {
+            "measured_ms": step_ms, "estimate_ms": est.step_s * 1e3,
+            "ratio": est.step_s * 1e3 / step_ms,
+            "estimate_gib": est.total_bytes / 2**30,
+            "mfu": wcfg.flops_per_token() * rows * wcfg.max_seq_len
+            / (step_ms / 1e3) / PEAK_BF16}
+    log("[search] " + json.dumps(out))
+    for label in ("llama none", "llama dots"):
+        ratio = out["windows"][label]["ratio"]
+        check(0.7 < ratio < 1.3, f"search: {label} estimate over measured "
+              f"{ratio}, want within 30%")
 
 
 # ------------------------------------------------------- pipelines
@@ -2376,7 +2607,7 @@ def pipeline_phases(seed, windows, unpiped, errs):
             batches[gpipe], token_loss, mesh, device=dev)
         check(res.mesh is mesh, f"{label}: not on the mesh")
         stats = mesh_window(label, res, batches[gpipe], XL_GPIPE, 0,
-                            traced=1)[0]
+                            traced=1, steps=PIPE_STEPS)[0]
         windows[f"pipe {label}"] = stats["launches"]
         check(stats["losses"] == losses[gpipe],
               f"{label}: losses {stats['losses']} differ from one device's "
@@ -2563,15 +2794,23 @@ def main():
     model_check(args.seed, Llama, LlamaConfig.preset())
     phase("model checks")
     windows = {}
+    # The step ms of windows the strategy search's estimate is held to:
+    # (config, batch rows, ms).
+    measured = {}
     windows["gpt2-124m"], trainer, batch, stats = train(
         "gpt2-124m", GPTConfig(**GPT2), adamw(3e-4), BATCH, STEPS, args.seed)
+    measured["gpt2-124m"] = (GPTConfig(**GPT2), BATCH, stats["step_ms"])
     profile_window("gpt2-124m", trainer, batch, stats["step_ms"])
     del trainer
     torch.cuda.empty_cache()
     phase("gpt2-124m")
-    unpiped = {"gpt2-xl": remat_rounds("gpt2-xl", XL, XL_POLICIES, XL_LR,
-                                       XL_BATCH, SEQ, args.seed,
-                                       windows)["dots"]}
+    rounds = remat_rounds("gpt2-xl", XL, XL_POLICIES, XL_LR, XL_BATCH, SEQ,
+                          args.seed, windows, XL_ROUNDS)
+    unpiped = {"gpt2-xl": rounds["dots"]}
+    for policy in ("none", "dots"):
+        measured[f"gpt2-xl {policy}"] = (
+            with_policy(XL, policy), XL_BATCH,
+            rounds[policy]["median_step_ms"])
     # The flagship as bench.py trains it (remat "dots"), then the
     # optax-style loop on the same trainer.
     windows["gpt2-xl"], trainer, batch, _ = train(
@@ -2592,9 +2831,14 @@ def main():
     optimizer_offload(args.seed, windows)
     phase("gpt2-xl optimizer offload")
     b, seq, _ = LLAMA_RUNS[0]
-    unpiped["llama"] = remat_rounds(
+    rounds = remat_rounds(
         f"llama B{b} S{seq}", LlamaConfig.preset(seq), LLAMA_POLICIES,
-        LLAMA_LR, b, seq, args.seed, windows, model_cls=Llama)["dots"]
+        LLAMA_LR, b, seq, args.seed, windows, LLAMA_ROUNDS, model_cls=Llama)
+    unpiped["llama"] = rounds["dots"]
+    for policy in ("none", "dots"):
+        measured[f"llama {policy}"] = (
+            with_policy(LlamaConfig.preset(seq), policy), b,
+            rounds[policy]["median_step_ms"])
     phase(f"llama B{b} S{seq} remat rounds (" + ", ".join(LLAMA_POLICIES)
           + ")")
     for b, seq, steps in LLAMA_RUNS[1:]:
@@ -2607,13 +2851,18 @@ def main():
         phase(label)
     agd_and_wsam(args.seed, windows)
     phase("gpt2-124m agd and wsam")
-    mesh_phases(args.seed, windows)
+    xl_one = mesh_phases(args.seed, windows)
     phase("mesh branches on an NCCL world of one (fsdp, data, tensor)")
-    moe_losses, moe_launches, moe_batch = moe_train(args.seed, windows)
+    zero_phases(args.seed, windows, xl_one)
+    phase("zero: llama bf16 masters and gpt2-xl adam8bit on ('data', 1)")
+    moe_stats, moe_launches, moe_batch = moe_train(args.seed, windows)
+    measured["llama-moe"] = (MOE, MOE_BATCH, moe_stats["step_ms"])
     phase("llama-moe (8 experts, top 2) at full width")
-    moe_on_expert_axis(args.seed, windows, moe_losses, moe_launches,
+    moe_on_expert_axis(args.seed, windows, moe_stats["losses"], moe_launches,
                        moe_batch)
     phase("llama-moe on an expert axis of one; ring and ulysses bodies")
+    search_phase(args.seed, measured)
+    phase("search: auto on the llama preset; estimates against the windows")
     pipeline_phases(args.seed, windows, unpiped, errs)
     phase("pipelines: gpt2-xl gpipe and circular, llama gpipe, ('pipe', 1)")
     checkpoint_phases(args.seed, windows)

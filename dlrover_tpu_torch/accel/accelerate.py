@@ -64,14 +64,31 @@ An optimizer with ``update_and_apply`` (``adam8bit``,
 JAX package's 8-bit Adam does: ``MeshOptimizer`` gathers each sharded
 leaf's gradient and parameter, updates the whole leaf, and writes back
 this rank's shard. A torch optimizer (``adamw``, ``agd``) steps the
-DTensor shards themselves.
+DTensor shards themselves. ``ParallelSpec(data=N, zero=True)`` (ZeRO-1,
+``accel/zero.py``) slices the optimizer state over the data ranks
+instead: each steps its slice of every leaf and all-gathers the updated
+parameters; with another degree above 1 it raises
+``NotImplementedError`` (its leaves would lie over two mesh axes).
+
+``spec="auto"`` runs the JAX package's strategy search
+(``accel/search.py``) for the world's size and the batch: it ranks the
+candidates, reconfigures the model for each (``seq`` switches attention
+to the ring, ``pipe`` sets ``pipeline_stages``; the caller's weights are
+carried over) and builds the first one the port places, logging the
+refusals of those it does not; with ``profile=True`` it first times the
+top ``search_top_k`` on copies of the model (every rank takes the
+slowest rank's time, so all choose alike). ``AccelerateResult``'s
+``search_ranking`` holds the ranking.
 """
 
+import copy
 import dataclasses
 import itertools
+import math
 import os
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -85,20 +102,18 @@ from dlrover_tpu_torch.ops.moe import Axis, MoEMLP
 from dlrover_tpu_torch.optim.base import bind
 from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 
-# The JAX package's auto_accelerate arguments that come with the
-# strategy-search slice of the port.
-_MULTI_DEVICE = ("devices", "profile", "profile_steps", "allow_tensor",
-                 "registry", "search_top_k")
 # The mesh axes this slice places a module on, in the JAX package's order.
 MESH_AXES = ("data", "fsdp", "pipe", "seq", "expert", "tensor")
+_ITEM2 = "a later part of the multi-device slice (ROADMAP queue 1, item 2"
+_TWO_AXES = _ITEM2 + ": fsdp x tensor and zero's two-axis leaves)"
+_REGISTRY = _ITEM2 + (": the sharding registry and tp_planner for plain "
+                      "modules, accel/registry.py and accel/tp_planner.py)")
 _ITEM6 = ("a later part of ROADMAP queue 1, item 6 (sequence and expert "
           "parallelism's rest: a leaf sharded over two mesh axes, as item "
           "2's fsdp x tensor)")
 _PIPE_REST = ("a later part of ROADMAP queue 1, item 6 (pipeline "
               "parallelism's rest: pipe with fsdp, tensor, seq or expert, "
               "and the vocab over pipe)")
-_SEARCH = ("the strategy-search slice of the port (ROADMAP queue 1, "
-           "item 2: search, registry, profile, tp_planner)")
 
 
 @dataclass(frozen=True)
@@ -171,6 +186,9 @@ class AccelerateResult:
     #: The parts: a pipelined model's microbatches (times ``grad_accum``),
     #: of each of which a data rank takes its slice; 1 otherwise.
     parts: int = 1
+    #: ``[(ParallelSpec, CostEstimate)]`` of the strategy search, best
+    #: first (None for an explicit spec).
+    search_ranking: Any = None
 
     def local_batch(self, batch):
         """This rank's rows of a global batch (a tensor or array, or a
@@ -362,31 +380,24 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def _check_spec(spec: Any, module: nn.Module) -> ParallelSpec:
-    """The spec to build: ``"auto"`` in a one-process job is one device;
-    a spec's degrees must be ones this slice places, on axes ``module``
-    uses, over a world of as many processes."""
-    if isinstance(spec, str):
-        if spec != "auto":
-            raise ValueError(f"spec must be a ParallelSpec or 'auto', got "
-                             f"{spec!r}")
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"auto_accelerate(spec='auto') over several processes "
-                f"comes with {_SEARCH}; pass an explicit ParallelSpec")
-        return ParallelSpec()
+def _check_spec(spec: Any, carries: Dict[str, bool]) -> ParallelSpec:
+    """A spec's degrees must be ones this slice places, on axes a model
+    that ``carries`` stages or experts (``_carries``) uses, over a world
+    of as many processes."""
     if not isinstance(spec, ParallelSpec):
         raise TypeError(f"spec must be a ParallelSpec or 'auto', got {spec!r}")
-    if spec.zero:
-        raise NotImplementedError(
-            "ParallelSpec(zero=True) (ZeRO-1) comes with the ZeRO slice of "
-            "the port (ROADMAP queue 1, item 2: accel/zero.py)")
     if spec.collectives:
         raise NotImplementedError(
-            f"collectives={spec.collectives} comes with the collectives "
-            "slice of the port (ROADMAP queue 1, item 2)")
+            f"collectives={spec.collectives} (a per-axis all-reduce "
+            "algorithm) comes with the comms governor (ROADMAP queue 1, "
+            "item 5)")
+    if spec.zero and any(n > 1 for a, n in spec.axes() if a != "data"):
+        raise NotImplementedError(
+            f"ZeRO-1 (zero=True) with {dict(spec.axes())}: its optimizer-"
+            "state leaves would be sharded over two mesh axes; it comes "
+            "with " + _TWO_AXES)
     _check_axes(dict(spec.axes()))
-    _check_spec_axes_used(spec, module)
+    _check_spec_axes_used(spec, carries)
     if spec.total > 1 and spec.total != _world_size():
         raise ValueError(f"{spec} needs a world of {spec.total} processes, "
                          f"have {_world_size()}")
@@ -410,15 +421,18 @@ def _check_axes(sizes: Dict[str, int]):
             "with " + _PIPE_REST)
 
 
-def _check_spec_axes_used(spec: ParallelSpec, module: nn.Module):
+def _carries(module: nn.Module) -> Dict[str, bool]:
+    """Which logical axes a parameter of ``module`` carries: ``stage``
+    (a model with ``pipeline_stages``), ``expert`` (one with experts)."""
+    return {"stage": getattr(module, "pipeline", None) is not None,
+            "expert": any(isinstance(m, MoEMLP) for m in module.modules())}
+
+
+def _check_spec_axes_used(spec: ParallelSpec, carries: Dict[str, bool]):
     """JAX's check: a ``pipe`` or ``expert`` degree above 1 with no
     parameter carrying the matching logical axis (``stage``: a model
     with ``pipeline_stages``; ``expert``: one with experts) would
     silently waste those devices, and raises ``ValueError``."""
-    carries = {
-        "stage": getattr(module, "pipeline", None) is not None,
-        "expert": any(isinstance(m, MoEMLP) for m in module.modules()),
-    }
     for degree, logical in ((spec.pipe, "stage"), (spec.expert, "expert")):
         if degree > 1 and not carries[logical]:
             raise ValueError(
@@ -428,6 +442,62 @@ def _check_spec_axes_used(spec: ParallelSpec, module: nn.Module):
                 "model for it (e.g. GPTConfig.pipeline_stages / "
                 "num_experts) or drop the degree."
             )
+
+
+def _check_mesh(sizes: Dict[str, int], carries: Dict[str, bool],
+                offload_optimizer: bool):
+    """What ``accelerate_on_mesh`` refuses on a mesh of ``sizes`` (the
+    axes present, of any size) for a model that ``carries`` stages or
+    experts."""
+    _check_axes(sizes)
+    if carries["stage"] and set(sizes) & {"fsdp", "tensor", "seq",
+                                          "expert"}:
+        raise NotImplementedError(
+            "a pipelined model on an fsdp, tensor, seq or expert axis comes "
+            "with " + _PIPE_REST)
+    if carries["expert"] and ("fsdp" in sizes or "tensor" in sizes):
+        raise NotImplementedError(
+            "an MoE model on an fsdp or tensor axis comes with " + _ITEM6)
+    if "fsdp" in sizes and "tensor" in sizes:
+        raise NotImplementedError(
+            "fsdp and tensor degrees together (FSDP2 over tensor-parallel "
+            "DTensors) come with " + _TWO_AXES)
+    if offload_optimizer:
+        raise NotImplementedError(
+            "offload_optimizer on a mesh comes with " + _ITEM2 + ")")
+
+
+def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
+                     optimizer, offload_optimizer: bool, rows: int):
+    """Whether the port places ``spec`` for a model of ``cfg`` (already
+    reconfigured for it) and ``optimizer``: raises what building it
+    would raise, before anything is built or any group made."""
+    from dlrover_tpu_torch.accel.zero import _sliceable
+
+    if not isinstance(spec, ParallelSpec):
+        raise TypeError(f"spec must be a ParallelSpec, got {spec!r}")
+    _check_spec(spec, carries)
+    if spec.total == 1:
+        return
+    _check_mesh(dict(spec.axes()), carries, offload_optimizer)
+    if spec.tensor > 1:
+        counts = {"num_heads": cfg.num_heads, "mlp width": cfg.ff_dim}
+        if hasattr(cfg, "kv_heads"):
+            counts["num_kv_heads"] = cfg.kv_heads
+        for what, n in counts.items():
+            if n % spec.tensor:
+                raise ValueError(f"{what} {n} does not divide by the tensor "
+                                 f"degree {spec.tensor}")
+    if spec.pipe > 1 and getattr(optimizer, "takes_named_parameters", False):
+        raise NotImplementedError(
+            "an update_and_apply optimizer (adam8bit, bf16_master_weights) "
+            "on pipe ranks comes with " + _PIPE_REST)
+    if spec.zero:
+        _sliceable(optimizer)
+    shards = spec.data * spec.fsdp
+    if rows % shards:
+        raise ValueError(f"a global batch of {rows} rows does not split "
+                         f"over {shards} data/fsdp ranks")
 
 
 def auto_accelerate(
@@ -440,7 +510,12 @@ def auto_accelerate(
     grad_accum: int = 1,
     offload_optimizer: bool = False,
     precision: str = "bf16",
-    **later,
+    profile: bool = False,
+    profile_steps: int = 3,
+    allow_tensor: Optional[bool] = None,
+    search_top_k: int = 4,
+    registry=None,
+    devices=None,
 ) -> AccelerateResult:
     """Place the model, bind the optimizer, build the train step.
 
@@ -451,17 +526,27 @@ def auto_accelerate(
     this worker's card and raises without CUDA; the CPU runs only when
     named. ``offload_optimizer=True`` keeps the optimizer's big state
     leaves in host memory between steps (``optim/offload.py``).
-    ``precision="int8"`` and the JAX package's other arguments
-    (``devices``, ``profile``, ...) raise, naming the slice that brings
-    them.
+
+    ``spec`` is a ``ParallelSpec`` or ``"auto"``, the strategy search
+    over the world's processes, with the JAX package's arguments:
+    ``profile=True`` dry-runs the top ``search_top_k`` candidates for
+    ``profile_steps`` steps each and keeps the fastest;
+    ``allow_tensor=False`` strips tensor parallelism from the search.
+    ``allow_tensor=True`` and ``registry=`` on a model without
+    ``logical_axes()`` (and ``"auto"`` on one over several processes),
+    ``devices=`` and ``precision="int8"`` raise, naming the slice that
+    brings them.
     """
-    for name in later:
-        if name not in _MULTI_DEVICE:
-            # rng too: a port model is initialized where it is built.
-            raise TypeError(f"auto_accelerate() got an unexpected keyword "
-                            f"argument {name!r}")
+    if devices is not None:
         raise NotImplementedError(
-            f"auto_accelerate({name}=...) comes with {_SEARCH}")
+            "auto_accelerate(devices=...): a process of the port drives one "
+            "device (device=); choosing the world's devices comes with "
+            + _ITEM2 + ")")
+    plain = not hasattr(module, "logical_axes")
+    if registry is not None or (allow_tensor and plain):
+        raise NotImplementedError(
+            "a sharding registry, or tensor parallelism planned for a "
+            "model without logical_axes(), comes with " + _REGISTRY)
     if precision == "int8":
         raise NotImplementedError(
             'precision="int8" comes with the int8 matmul slice of the port '
@@ -470,12 +555,29 @@ def auto_accelerate(
         raise ValueError(f"precision must be 'bf16' or 'int8', got "
                          f"{precision!r}")
     dev = resolve_device(device)
-    spec = _check_spec(spec, module)
+    if isinstance(spec, str):
+        if spec != "auto":
+            raise ValueError(f"spec must be a ParallelSpec or 'auto', got "
+                             f"{spec!r}")
+        return _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
+                     offload_optimizer, profile, profile_steps, allow_tensor,
+                     search_top_k)
+    return _build(module, optimizer, sample_batch, loss,
+                  _check_spec(spec, _carries(module)), dev, grad_accum,
+                  offload_optimizer)
+
+
+def _build(module, optimizer, sample_batch, loss, spec: ParallelSpec, dev,
+           grad_accum: int, offload_optimizer: bool) -> AccelerateResult:
+    """``spec`` (checked) built: on a mesh of its axes, or one device."""
     if spec.total > 1:
         mesh = create_mesh(spec.axes(), dev)
-        return accelerate_on_mesh(
+        res = accelerate_on_mesh(
             module, optimizer, sample_batch, loss, mesh, device=dev,
-            grad_accum=grad_accum, offload_optimizer=offload_optimizer)
+            grad_accum=grad_accum, offload_optimizer=offload_optimizer,
+            zero=spec.zero)
+        res.spec = spec
+        return res
     if sample_batch.shape[0] % grad_accum:
         raise ValueError(
             f"batch {sample_batch.shape[0]} not divisible by grad_accum "
@@ -495,6 +597,149 @@ def auto_accelerate(
         train_step=make_train_step(module, loss, grad_accum=grad_accum),
         module=module,
     )
+
+
+def _device_hbm(dev: torch.device) -> float:
+    """The card's memory; an H100 80GB's on a CPU rank."""
+    from dlrover_tpu_torch.accel.search import HBM_BYTES
+
+    if dev.type == "cuda":
+        return float(torch.cuda.get_device_properties(dev).total_memory)
+    return HBM_BYTES
+
+
+def _devices_per_host(n: int) -> int:
+    """Devices a host when the world spans hosts (``LOCAL_WORLD_SIZE``
+    processes a host, one device each), else 0."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", str(n)) or n)
+    hosts = -(-n // max(local, 1))
+    return -(-n // hosts) if hosts > 1 else 0
+
+
+def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
+          offload_optimizer, profile, profile_steps, allow_tensor,
+          search_top_k) -> AccelerateResult:
+    """The JAX package's ``"auto"`` branch: rank, then build the first
+    candidate the port places (after the dry runs, with ``profile``)."""
+    from dlrover_tpu_torch.accel import search
+
+    n = _world_size()
+    rows = sample_batch.shape[0]
+    cfg = getattr(module, "cfg", None)
+    params = sum(p.numel() for p in module.parameters())
+    if cfg is not None and dataclasses.is_dataclass(cfg) \
+            and hasattr(module, "logical_axes"):
+        mprofile = search.ModelProfile.from_config(cfg, param_count=params)
+        if allow_tensor is False:
+            mprofile = dataclasses.replace(mprofile, num_heads=0)
+    else:
+        if n > 1:
+            raise NotImplementedError(
+                "auto_accelerate(spec='auto') over several processes: the "
+                "strategy search places a model without logical_axes() "
+                "through " + _REGISTRY)
+        mprofile = search.ModelProfile.from_params(params)
+    hbm = _device_hbm(dev)
+    cache: Dict[Any, Any] = {}
+
+    def abstract_for(sp):
+        new = search.reconfigured_cfg(cfg, sp, rows)
+        key = (sp.pipe, getattr(new, "attn_impl", None))
+        if key not in cache:
+            mod = module if new is cfg else search._meta_model(module, new)
+            cache[key] = search.abstract_state(mod, optimizer)
+        return cache[key]
+
+    full = search.search_spec(
+        mprofile, n, batch_size=rows, hbm=hbm, abstract_fn=abstract_for,
+        top_k=1 << 30, devices_per_host=_devices_per_host(n))
+    ranked = full[:max(1, search_top_k)]
+    chosen, est = ranked[0]
+    logger.info("auto_accelerate: %.1fM params on %s devices -> search "
+                "chose %s", params / 1e6, n, chosen)
+    if not est.fits(hbm) and not offload_optimizer:
+        logger.warning(
+            "auto_accelerate: best strategy %s needs %.1f GB/device "
+            "(%.1f GB HBM); the optimizer state is %.0f%% of it — "
+            "consider offload_optimizer=True and/or the 8-bit adam",
+            chosen, est.total_bytes / 1e9, hbm / 1e9,
+            100 * max(0.0, 1 - 8.0 * params / max(est.state_bytes, 1)))
+
+    def placed(sp) -> bool:
+        new = search.reconfigured_cfg(cfg, sp, rows)
+        carries = {"stage": (getattr(new, "pipeline_stages", 0) or 0) > 1,
+                   "expert": (getattr(new, "num_experts", 0) or 0) > 0}
+        try:
+            _check_candidate(sp, new, carries, optimizer, offload_optimizer,
+                             rows)
+        except (NotImplementedError, ValueError, TypeError) as e:
+            logger.info("strategy search: skipping %s, which the port does "
+                        "not place: %s", sp, e)
+            return False
+        return True
+
+    best = None
+    if profile and len(ranked) > 1:
+        best = _dry_runs([sp for sp, _ in ranked if placed(sp)], module,
+                         optimizer, sample_batch, loss, dev, grad_accum,
+                         profile_steps)
+    if best is None:
+        best = next((sp for sp, _ in full if placed(sp)), None)
+    if best is None:
+        raise NotImplementedError(
+            f"the port places none of the {len(full)} candidates the "
+            "strategy search ranked (each refusal is logged); see "
+            "ROADMAP queue 1")
+    res = _build(search.reconfigure_module(module, best, rows), optimizer,
+                 sample_batch, loss, best, dev, grad_accum, offload_optimizer)
+    res.search_ranking = ranked
+    return res
+
+
+def _dry_runs(cands: List[ParallelSpec], module, optimizer, sample_batch,
+              loss, dev, grad_accum, steps: int) -> Optional[ParallelSpec]:
+    """``profile=True``: each candidate built on its own copy of the
+    pristine module with the optimizer bound afresh, one warm-up step and
+    ``steps`` timed; each rank's time (inf when it failed) all-reduced
+    with MAX, so every rank chooses the same fastest (None when all
+    failed). Every rank builds the candidates in the same order, so their
+    meshes make their groups alike. No dry-run step reaches the caller's
+    module."""
+    from dlrover_tpu_torch.accel import search
+
+    rows = sample_batch.shape[0]
+    best, best_t = None, math.inf
+    for sp in cands:
+        t = math.inf
+        try:
+            mod = search.reconfigure_module(copy.deepcopy(module), sp, rows)
+            res = _build(mod, optimizer, sample_batch, loss, sp, dev,
+                         grad_accum, False)
+            batch = torch.as_tensor(res.local_batch(sample_batch)).to(dev)
+            state = res.state
+            _, m = res.train_step(state, batch)  # warm-up
+            float(m["loss"])
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, m = res.train_step(state, batch)
+            float(m["loss"])
+            t = (time.perf_counter() - t0) / steps
+            del res, state, mod
+        except Exception as e:
+            # The one place a failure is caught: a candidate that fails
+            # is not chosen.
+            logger.warning("dry-run %s failed: %s", sp, e)
+        if _world_size() > 1:
+            failed = not math.isfinite(t)
+            agreed = torch.tensor([-1.0 if failed else t, float(failed)],
+                                  dtype=torch.float64, device=dev)
+            dist.all_reduce(agreed, op=dist.ReduceOp.MAX)
+            t = math.inf if agreed[1].item() else agreed[0].item()
+        logger.info("dry-run %s: %s ms/step", sp,
+                    "failed" if math.isinf(t) else f"{t * 1e3:.1f}")
+        if t < best_t:
+            best, best_t = sp, t
+    return best
 
 
 # ------------------------------------------------------------ on a mesh
@@ -655,7 +900,7 @@ def pipeline_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
     from dlrover_tpu_torch.accel.pipeline import PipeRanks
 
     size = axis_sizes(mesh)["pipe"]
-    _check_spec_axes_used(ParallelSpec(pipe=size), module)
+    _check_spec_axes_used(ParallelSpec(pipe=size), _carries(module))
     pipe = module.pipeline
     if pipe.num_stages % size:
         raise ValueError(f"pipeline_stages {pipe.num_stages} does not "
@@ -763,15 +1008,27 @@ class MeshOptimizer:
                                            self.layouts[n])
 
 
-def _bind_on_mesh(optimizer, module: nn.Module, layouts):
-    """A ``takes_named_parameters`` optimizer becomes a ``MeshOptimizer``;
-    a torch optimizer factory gets the DTensor parameters and the plain
-    ones as two param groups (a foreach step takes one kind at a time)."""
+def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
+                  zero_rules=None):
+    """Under ZeRO-1 (``zero_rules``: the spec's rules) the optimizer is a
+    ``ZeroOptimizer`` over ``mesh``'s data axis, unless no leaf can be
+    sliced; otherwise a ``takes_named_parameters`` optimizer becomes a
+    ``MeshOptimizer``, and a torch optimizer factory gets the DTensor
+    parameters and the plain ones as two param groups (a foreach step
+    takes one kind at a time)."""
     from torch.distributed.tensor import DTensor
 
     from dlrover_tpu_torch.models.convert import materialize_adam_state
 
     named = list(module.named_parameters())
+    if zero_rules is not None and not isinstance(
+            optimizer, torch.optim.Optimizer) and not hasattr(
+            optimizer, "update_and_apply"):
+        from dlrover_tpu_torch.accel.zero import zero_optimizer
+
+        opt = zero_optimizer(optimizer, module, layouts, mesh, zero_rules)
+        if opt is not None:
+            return opt
     if getattr(optimizer, "takes_named_parameters", False):
         if _pipeline(module) is not None:
             raise NotImplementedError(
@@ -801,38 +1058,31 @@ def accelerate_on_mesh(
     device: DeviceLike = None,
     grad_accum: int = 1,
     offload_optimizer: bool = False,
+    zero: bool = False,
 ) -> AccelerateResult:
     """``auto_accelerate``'s multi-device branch on ``mesh`` (a
     ``DeviceMesh`` whose axes are among ``data``, ``fsdp``, ``pipe``,
     ``seq``, ``expert`` and ``tensor``, of any sizes, 1 included;
     ``mesh.create_mesh``). Every process passes the same module,
-    initialized alike, and the same global ``sample_batch``."""
+    initialized alike, and the same global ``sample_batch``. ``zero``:
+    ZeRO-1 over the data axis (which the mesh must have; any other axis
+    of size above 1 raises)."""
     sizes = axis_sizes(mesh)
     other = [a for a in sizes if a not in MESH_AXES]
     if other:
         raise ValueError(f"unknown mesh axes {other}; the axes are "
                          f"{MESH_AXES}")
-    _check_axes(sizes)
+    _check_mesh(sizes, _carries(module), offload_optimizer)
+    if zero:
+        if "data" not in sizes:
+            raise ValueError(f"zero=True needs a data axis; the mesh has "
+                             f"{list(sizes)}")
+        _check_spec(ParallelSpec(zero=True, **{
+            a: n for a, n in sizes.items() if n > 1}), _carries(module))
     pipe = getattr(module, "pipeline", None)
-    if pipe is not None and set(sizes) & {"fsdp", "tensor", "seq",
-                                          "expert"}:
-        raise NotImplementedError(
-            "a pipelined model on an fsdp, tensor, seq or expert axis comes "
-            "with " + _PIPE_REST)
     moe = [m for m in module.modules() if isinstance(m, MoEMLP)]
-    if moe and ("fsdp" in sizes or "tensor" in sizes):
-        raise NotImplementedError(
-            "an MoE model on an fsdp or tensor axis comes with " + _ITEM6)
-    if "fsdp" in sizes and "tensor" in sizes:
-        raise NotImplementedError(
-            "fsdp and tensor degrees together (FSDP2 over tensor-parallel "
-            "DTensors) come with a later part of the multi-device slice "
-            "(ROADMAP queue 1, item 2)")
-    if offload_optimizer:
-        raise NotImplementedError(
-            "offload_optimizer on a mesh comes with a later part of the "
-            "multi-device slice (ROADMAP queue 1, item 2)")
-    spec = ParallelSpec(**{a: sizes.get(a, 1) for a in MESH_AXES})
+    spec = ParallelSpec(zero=zero,
+                        **{a: sizes.get(a, 1) for a in MESH_AXES})
     dev = resolve_device(device)
     rows = sample_batch.shape[0]
     shards = sizes.get("data", 1) * sizes.get("fsdp", 1)
@@ -875,7 +1125,8 @@ def accelerate_on_mesh(
     for name, p in module.named_parameters():
         layouts.setdefault(name, replicated)
         sharding.set_layout(p, layouts[name])
-    opt = _bind_on_mesh(optimizer, module, layouts)
+    opt = _bind_on_mesh(optimizer, module, layouts, mesh,
+                        rules if zero else None)
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
     logger.info("auto_accelerate: %.1fM params on mesh %s (%s), rows "

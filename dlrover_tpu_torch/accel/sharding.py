@@ -116,6 +116,27 @@ class Layout:
         return Layout(mesh, tuple(dims.get(n) for n in mesh.mesh_dim_names),
                       fused)
 
+    @staticmethod
+    def zero(param: "Layout", dim: Optional[int]) -> "Layout":
+        """The layout of a ZeRO-1 optimizer-state slice of a parameter
+        laid out as ``param`` (``accel/zero.py``): the data axis shards
+        tensor dim ``dim``, or, with ``dim`` None (the slice is some of
+        a stacked leaf's layers, whole), the leaf lies on one data
+        coordinate only. A parameter some other axis already shards
+        would make its slice a leaf over two mesh axes, which raises
+        ``NotImplementedError``."""
+        mesh = param.mesh
+        if param.sharded_axes() or param.placed:
+            raise NotImplementedError(
+                "a ZeRO-1 optimizer-state leaf sharded over two mesh axes "
+                "(data and the parameter's own) comes with a later part of "
+                "the multi-device slice (ROADMAP queue 1, item 2: fsdp x "
+                "tensor and zero's two-axis leaves)")
+        axis = mesh.mesh_dim_names.index("data")
+        if dim is None:
+            return Layout(mesh, (None,) * mesh.ndim, placed=(axis,))
+        return Layout.of(mesh, {"data": dim})
+
     @property
     def coord(self) -> Tuple[int, ...]:
         return tuple(self.mesh.get_coordinate())

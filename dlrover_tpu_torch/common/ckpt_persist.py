@@ -89,6 +89,36 @@ class TopologyMismatchError(Exception):
         self.restore_axes = restore_axes
 
 
+class ZeroDegreeMismatchError(Exception):
+    """A ZeRO-sharded checkpoint can't be re-sliced for the restoring
+    spec: the step on disk is intact, but it belongs to another
+    weight-update sharding degree (``accel/zero.py``) and the persisted
+    optimizer-state slices do not tile the requested template (the JAX
+    package's error, same message). Deliberately not a
+    :class:`StepCorruptionError`: the fallback chain must not skip to an
+    older step and load a wrong slice silently, so it propagates to the
+    caller, naming both degrees."""
+
+    def __init__(self, step: int, saved_degree: int, restore_degree: int,
+                 detail: str = ""):
+        msg = (
+            f"checkpoint step {step} was saved with zero_degree="
+            f"{saved_degree} but is being restored with zero_degree="
+            f"{restore_degree}, and the persisted optimizer-state slices "
+            "do not cover the requested template"
+        )
+        if detail:
+            msg += f" ({detail})"
+        msg += (
+            "; restore with the original parallel spec or re-save under "
+            "the new degree"
+        )
+        super().__init__(msg)
+        self.step = step
+        self.saved_degree = saved_degree
+        self.restore_degree = restore_degree
+
+
 def step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"{CheckpointConstant.STEP_DIR_PREFIX}{step}")
 

@@ -547,10 +547,18 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
     # The wrappers import this module's callers; import them here.
     from dlrover_tpu_torch.accel import sharding
     from dlrover_tpu_torch.accel.accelerate import MeshOptimizer
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer
     from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
     from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 
     leaves: List[StateLeaf] = []
+    if isinstance(opt, ZeroOptimizer):
+        # Its inner optimizer's state is over this data rank's slices
+        # (and the parameters no slice was cut of), each leaf laid out
+        # as its slice.
+        return [leaf._replace(layout=opt.state_layout(leaf.param_path))
+                for leaf in _opt_leaves(opt.inner, prefix, opt.bound,
+                                        opt.jax_groups, order)]
     if isinstance(opt, MeshOptimizer):
         # Its inner optimizer's state is whole, on every rank.
         whole = sharding.Layout.replicated(
@@ -632,7 +640,8 @@ def train_state_leaves(state, stacked: bool = True,
         members = tuple(params[n] for n in groups[path].names)
         leaves.append(StateLeaf(keystr("['params']", path),
                                 groups[path].shape, members[0].dtype,
-                                members, layout=sharding.layout_of(members[0]),
+                                members, param_path=path,
+                                layout=sharding.layout_of(members[0]),
                                 stacked=groups[path].index))
 
     def set_step(v: int):
@@ -659,7 +668,10 @@ def _blocks(leaves: List[StateLeaf]) -> List[StateLeaf]:
         if not leaf.members:
             out.append(leaf._replace(persist=persist, layout=lay))
             continue
-        member = tuple(leaf.members[0].shape)  # a DTensor's: global
+        # The member's global shape: the leaf's last dims (a DTensor's
+        # own shape is global, a ZeRO slice's is its slice).
+        ndim = leaf.members[0].dim()
+        member = tuple(leaf.shape[len(leaf.shape) - ndim:])
         # The stacked dims (layers, stages) before the member's own, and
         # the region of them the members cover.
         lead = leaf.stacked or tuple(

@@ -130,6 +130,11 @@ class GPTConfig:
         per_layer = 4 * d * d + mlp + 4 * d  # qkvo + ffn/moe + ln
         return v * d + self.max_seq_len * d + l * per_layer + d
 
+    def vocab_param_count(self) -> int:
+        """The params outside the layer stack: the embedding and the
+        position table (the head is tied to the embedding)."""
+        return self.vocab_size * self.d_model + self.max_seq_len * self.d_model
+
     @staticmethod
     def tiny():
         return GPTConfig(vocab_size=256, max_seq_len=64, num_layers=2,

@@ -70,12 +70,13 @@ class FlashCheckpointer(Checkpointer):
 
     def __init__(self, checkpoint_dir: str,
                  storage: Optional[CheckpointStorage] = None,
-                 keep_latest: int = 3):
+                 keep_latest: int = 3, zero_degree: int = 0):
         super().__init__(CheckpointEngine(
             checkpoint_dir, global_shard_id=0, global_shard_num=1,
             persist_shard=True, storage=storage, keep_latest=keep_latest,
             replica_rank=env_utils.PROCESS_ID.get(),
             replica_count=env_utils.NUM_PROCESSES.get(),
+            zero_degree=zero_degree,
         ))
 
 
@@ -84,15 +85,18 @@ class ShardedCheckpointer(Checkpointer):
     stages its blocks and persists those it is the first replica of, so
     the state is written once across the processes; a restore assembles
     the template's blocks from any mesh's (``mesh_axes``, the saving
-    mesh's ``{axis: size}``, names both topologies when it cannot)."""
+    mesh's ``{axis: size}``, names both topologies when it cannot).
+    ``zero_degree``: the data degree a ZeRO-1 state's optimizer slices
+    are cut to (``accel.zero.zero_degree_of``), stamped into every meta;
+    a restore that cannot re-slice them names both degrees."""
 
     def __init__(self, checkpoint_dir: str,
                  storage: Optional[CheckpointStorage] = None,
-                 keep_latest: int = 3, mesh_axes=None):
+                 keep_latest: int = 3, mesh_axes=None, zero_degree: int = 0):
         super().__init__(CheckpointEngine(
             checkpoint_dir,
             global_shard_id=env_utils.PROCESS_ID.get(),
             global_shard_num=env_utils.NUM_PROCESSES.get(),
             persist_shard=True, storage=storage, keep_latest=keep_latest,
-            mesh_axes=mesh_axes,
+            mesh_axes=mesh_axes, zero_degree=zero_degree,
         ))

@@ -48,9 +48,12 @@ slice, ROADMAP queue 1, item 3). A restore copies the blocks whose
 region the template's block has, and assembles any other from the
 saved blocks that overlap it (``_region_fill``): a checkpoint restores
 under another topology. Blocks that do not cover the template raise
-``TopologyMismatchError``. The chaos sites, ``ckpt.io`` events and the
-comms governor's staging deferral come with the chaos and observability
-slice (ROADMAP queue 1, item 5).
+``TopologyMismatchError``, or ``ZeroDegreeMismatchError`` when the step
+was saved under another ZeRO degree (``zero_degree``, stamped into every
+``ShardMeta``; a ZeRO-1 state's optimizer slices are blocks of their
+own on each data rank, ``accel/zero.py``). The chaos sites, ``ckpt.io``
+events and the comms governor's staging deferral come with the chaos
+and observability slice (ROADMAP queue 1, item 5).
 """
 
 import concurrent.futures
@@ -253,6 +256,7 @@ class CheckpointEngine:
         replica_rank: int = 0,
         replica_count: int = 1,
         mesh_axes: Optional[Dict[str, int]] = None,
+        zero_degree: int = 0,
     ):
         self.checkpoint_dir = checkpoint_dir
         self.global_shard_id = global_shard_id
@@ -263,6 +267,17 @@ class CheckpointEngine:
         self.replica_rank = int(replica_rank)
         self.replica_count = int(replica_count)
         self.mesh_axes = dict(mesh_axes) if mesh_axes else None
+        # The data degree the optimizer state is ZeRO-sliced over (0: not
+        # sliced), stamped into every ShardMeta. Data ranks are replicas
+        # of the parameters but not of their slices, so one shard written
+        # by the lowest replica would drop the others' slices.
+        self.zero_degree = int(zero_degree)
+        if self.zero_degree > 1 and global_shard_num == 1 \
+                and self.replica_count > 1:
+            raise ValueError(
+                f"a ZeRO state (zero_degree={self.zero_degree}) differs "
+                "across data ranks: give each process a shard of its own "
+                "(ShardedCheckpointer), not one shard its replicas share")
         self.storage = get_checkpoint_storage(storage)
         self.keep_latest = keep_latest
         self._job = job or env_utils.JOB_NAME.get()
@@ -607,6 +622,7 @@ class CheckpointEngine:
                     # meta says so: a replica that does not write says no.
                     persist=self._persist_owner(),
                     layout_version=self._layout_version,
+                    zero_degree=self.zero_degree,
                     mesh_axes=self.mesh_axes,
                 ))
                 with self._gen_lock:
@@ -780,6 +796,7 @@ class CheckpointEngine:
         """Rebuild the state from one persisted step, every shard's
         stripes (or legacy blocks) verified first. Raises
         ``StepCorruptionError`` when the step is broken, and
+        ``ZeroDegreeMismatchError`` (saved under another ZeRO degree) or
         ``TopologyMismatchError`` when its blocks do not cover the
         template's."""
         metas = ckpt_persist.load_step_metas(
@@ -797,6 +814,13 @@ class CheckpointEngine:
             copies, built = _match({g: m.tensors for g, m in metas.items()},
                                    plan)
         except _CoverGap as e:
+            saved_zero = max((getattr(m, "zero_degree", 0)
+                              for m in metas.values()), default=0)
+            if saved_zero != self.zero_degree:
+                # Optimizer slices saved under one data degree restored
+                # under another: not corruption, so no older step either.
+                raise ckpt_persist.ZeroDegreeMismatchError(
+                    step, saved_zero, self.zero_degree, str(e)) from e
             saved_axes = next((m.mesh_axes for m in metas.values()
                                if getattr(m, "mesh_axes", None)), None)
             raise ckpt_persist.TopologyMismatchError(

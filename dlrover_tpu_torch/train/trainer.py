@@ -165,13 +165,21 @@ class Trainer:
         self._persist_every = persist_every
         self._ckpt = None
         if checkpoint_dir:
+            from dlrover_tpu_torch.accel.zero import zero_degree_of
+
             mesh = self._result.mesh
+            # The ZeRO degree goes into every ShardMeta, so a restore under
+            # another data degree that cannot re-slice the optimizer state
+            # names both degrees instead of loading a wrong slice.
+            zero = zero_degree_of(self._result.spec)
             if env_utils.NUM_PROCESSES.get() > 1:
                 self._ckpt = ShardedCheckpointer(
                     checkpoint_dir,
-                    mesh_axes=axis_sizes(mesh) if mesh is not None else None)
+                    mesh_axes=axis_sizes(mesh) if mesh is not None else None,
+                    zero_degree=zero)
             else:
-                self._ckpt = FlashCheckpointer(checkpoint_dir)
+                self._ckpt = FlashCheckpointer(checkpoint_dir,
+                                               zero_degree=zero)
 
     @property
     def checkpointer(self):

@@ -196,7 +196,9 @@ def test_replica_index_counts_unsharded_axes():
 
 
 @pytest.mark.parametrize("spec,match", [
-    (ParallelSpec(data=2, zero=True), "ZeRO"),
+    # ZeRO-1 over data alone trains (tests/test_torch_zero.py); with
+    # another degree its leaves would lie over two mesh axes.
+    (ParallelSpec(data=2, fsdp=2, zero=True), "ZeRO"),
     (ParallelSpec(collectives=(("data", "lat"),)), "collectives"),
     # seq, expert and pipe degrees place a module
     # (tests/test_torch_seq_expert.py, tests/test_torch_pipeline.py);
@@ -213,10 +215,14 @@ def test_later_specs_raise_naming_their_slice(spec, match):
 
 
 def test_auto_over_several_processes_raises(monkeypatch):
+    """``"auto"`` over several processes searches a model with logical
+    axes (tests/test_torch_search.py); a plain module needs the sharding
+    registry, which a later part of the slice brings."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    plain = torch.nn.Sequential(torch.nn.Linear(8, 8))
     with pytest.raises(NotImplementedError, match="search"):
-        auto_accelerate(GPT(GPTConfig.tiny(), device="cpu"), adamw(1e-3),
-                        np.zeros((2, 8), np.int64), None, device="cpu")
+        auto_accelerate(plain, adamw(1e-3), np.zeros((2, 8), np.int64), None,
+                        device="cpu")
 
 
 def test_spec_must_match_the_world(monkeypatch):

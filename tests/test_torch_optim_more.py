@@ -384,7 +384,7 @@ def test_offload_through_trainer_kwargs():
 @pytest.mark.parametrize("kwargs,error", [
     (dict(precision="int8"), NotImplementedError),
     (dict(devices=[]), NotImplementedError),
-    (dict(search_top_k=2), NotImplementedError),
+    (dict(registry=object()), NotImplementedError),
     (dict(precision="fp8"), ValueError),
     (dict(rng=0), TypeError),
 ])
