@@ -107,8 +107,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (``[search]`` line): ``auto_accelerate(spec="auto")`` on the LLaMA
    preset chooses one device, and the cost model's step estimate over
    the measured step of each window above (GPT-2 124M, GPT-2 xl without
-   remat and "dots", LLaMA without remat and "dots", the LLaMA-MoE),
-   the LLaMA windows (which its derate is calibrated on) within 30%.
+   remat and "dots", LLaMA without remat and "dots", the LLaMA-MoE; a
+   policy of the remat rounds by the median of every step of its
+   rounds), the LLaMA windows (which its derate is calibrated on)
+   within 30%.
    Then pipelines on one card
    (``[pipe ...]`` lines): GPT-2 xl as above under GPipe (4 stages, 4
    microbatches of one row) and the circular schedule (4 stages x 2
@@ -332,6 +334,11 @@ def read_counts():
     return {**attn.LAUNCHES, **lowbit.LAUNCHES}
 
 
+# The highest SASS register of each kernel (build.kernel_label), filled
+# by build_kernels.
+SASS_REGISTERS = {}
+
+
 def build_kernels():
     """Both sources at once, one nvcc each; returns nvcc's seconds."""
     t0 = time.perf_counter()
@@ -348,8 +355,9 @@ def build_kernels():
                 log(f"[build]   {line.strip()}")
         # What a consumer thread really takes after setmaxnreg (ptxas -v
         # reports the launch's 168 a thread for every Hopper kernel).
-        log(f"[build]   SASS highest register: "
-            + json.dumps(build.sass_registers(path)))
+        regs = build.sass_registers(path)
+        SASS_REGISTERS.update(regs)
+        log(f"[build]   SASS highest register: " + json.dumps(regs))
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s with "
         "loading")
 
@@ -680,6 +688,7 @@ def train(label, cfg, optimizer, batch_size, steps, seed, model_cls=GPT,
         "step_ms": window_s / steps * 1e3, "tokens_per_s": tok_s,
         "mfu": mfu(tok_s, cfg.flops_per_token(), peak or PEAK_BF16),
         "median_step_gap_ms": statistics.median(rec.step_s) * 1e3,
+        "step_gaps_ms": [x * 1e3 for x in rec.step_s],
         "flops_per_token": cfg.flops_per_token(),
         "params": sum(p.numel() for p in model.parameters()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -882,8 +891,10 @@ def remat_rounds(label, base, policies, lr, b, seq, seed, windows, rounds,
     """Every policy's window in turns (``rounds`` rounds), the last
     round's traced (busy share). Checks each window's losses against no
     remat's of its round, bit for bit, and that "offload" peaks below
-    "dots"; prints each policy's median step ms, tokens/s, MFU, peak
-    memory, busy share and "offload"'s copies. Returns the summary."""
+    "dots"; prints each policy's median step ms (of its windows' means,
+    and of every step of its windows: a step the host stalls moves the
+    second only as one sample), tokens/s, MFU, peak memory, busy share
+    and "offload"'s copies. Returns the summary."""
     runs = {p: [] for p in policies}
     for r in range(rounds):
         for policy in (policies if r % 2 == 0 else policies[::-1]):
@@ -907,9 +918,12 @@ def remat_rounds(label, base, policies, lr, b, seq, seed, windows, rounds,
                   f"{label} {policy} round {r}: losses {st['losses']} "
                   f"differ from no remat's {runs['none'][r]['losses']}")
         step = statistics.median(st["step_ms"] for st in rs)
+        gaps = [g for st in rs for g in st["step_gaps_ms"]]
         tok_s = b * seq / (step / 1e3)
         summary[policy] = {
             "median_step_ms": step, "step_ms": [st["step_ms"] for st in rs],
+            "median_step_gap_ms": statistics.median(gaps),
+            "step_gaps_ms": gaps,
             "tokens_per_s": tok_s,
             "mfu": mfu(tok_s, base.flops_per_token(), peak_flops),
             "peak_mem_gib": max(st["peak_mem_gib"] for st in rs),
@@ -2428,9 +2442,11 @@ def zero_phases(seed, windows, xl_one):
 def search_phase(seed, measured):
     """``auto_accelerate(spec="auto")`` on the LLaMA preset chooses
     ``ParallelSpec()`` on the one card; then ``estimate(...).step_s`` of
-    each window ``measured`` holds (step ms by window, with its config
-    and batch) beside it. Only the LLaMA windows the derate is
-    calibrated on are held to +-30%."""
+    each window ``measured`` holds (step ms by window, with its config,
+    batch and every step's ms) beside it. Only the LLaMA windows the derate is
+    calibrated on are held to +-30%, each against the median of every
+    step of its policy's rounds: a stall of the host in one step is no
+    step the cost model describes."""
     from dlrover_tpu_torch.accel import search
 
     b, seq = LLAMA_RUNS[0][:2]
@@ -2449,12 +2465,12 @@ def search_phase(seed, measured):
     torch.cuda.empty_cache()
     hbm = torch.cuda.get_device_properties(0).total_memory
     out = {"chosen": ranking, "mfu_derate": search.MFU_DERATE, "windows": {}}
-    for label, (wcfg, rows, step_ms) in measured.items():
+    for label, (wcfg, rows, step_ms, gaps) in measured.items():
         est = search.estimate(search.ModelProfile.from_config(wcfg),
                               ParallelSpec(), rows, hbm)
         out["windows"][label] = {
             "measured_ms": step_ms, "estimate_ms": est.step_s * 1e3,
-            "ratio": est.step_s * 1e3 / step_ms,
+            "ratio": est.step_s * 1e3 / step_ms, "step_gaps_ms": gaps,
             "estimate_gib": est.total_bytes / 2**30,
             "mfu": wcfg.flops_per_token() * rows * wcfg.max_seq_len
             / (step_ms / 1e3) / PEAK_BF16}
@@ -2462,7 +2478,9 @@ def search_phase(seed, measured):
     for label in ("llama none", "llama dots"):
         ratio = out["windows"][label]["ratio"]
         check(0.7 < ratio < 1.3, f"search: {label} estimate over measured "
-              f"{ratio}, want within 30%")
+              f"{ratio} ({out['windows'][label]['estimate_ms']} ms over "
+              f"{out['windows'][label]['measured_ms']} ms, the median of "
+              f"{out['windows'][label]['step_gaps_ms']}), want within 30%")
 
 
 # ------------------------------------------------------- pipelines
@@ -2697,30 +2715,40 @@ def d128_kernels(gen, errs):
     timing = {}
     for label, (b, s) in shapes.items():
         x = qkv_do(gen, b, s, heads, 128)
-        repeat_dkv_bitwise(*x, label)
+        repeat_bwd_bitwise(*x, label)
         timing[label], yard = time_kernels(*x)
-        pair = timing[label]["flash_bwd_dq_d128"]["ms"] + \
-            timing[label]["flash_bwd_dkv_d128"]["ms"]
+        dq_ms = timing[label]["flash_bwd_dq_d128"]["ms"]
+        pair = dq_ms + timing[label]["flash_bwd_dkv_d128"]["ms"]
+        bound = bounds(b, s, heads, 128, True)
         log("[timing] " + json.dumps({
             "shape": f"{label} H{heads} D128", "kernels": timing[label],
-            "bounds": bounds(b, s, heads, 128, True),
-            "yardstick": yard, "dq_plus_dkv_ms": pair,
+            "bounds": bound, "yardstick": yard, "dq_plus_dkv_ms": pair,
             "dq_plus_dkv_over_aten_bwd": pair / yard["aten_flash_bwd_ms"]}))
+        log("[timing] d128 dQ " + json.dumps({
+            "shape": f"{label} H{heads}", "ms": dq_ms,
+            "bound_ms": bound["flash_bwd_dq_d128"]["bound_ms"],
+            "share_of_bound": bound["flash_bwd_dq_d128"]["bound_ms"] / dq_ms,
+            "dq_plus_dkv_over_aten_bwd": pair / yard["aten_flash_bwd_ms"],
+            "sass_highest_register": SASS_REGISTERS.get(
+                "bwd_dq_kernel<128>")}))
         del x
         torch.cuda.empty_cache()
     b, s, _ = LLAMA_RUNS[0]
     return timing[f"llama B{b} S{s}"], bounds(b, s, heads, 128, True)
 
 
-def repeat_dkv_bitwise(q, k, v, do, label):
-    """Two dK/dV launches on the same inputs give the same bits: the
-    kernel uses no atomics, which the bit-for-bit checks of remat
-    policies and pipelines rest on."""
-    _, lse, delta, _, dk, dv = run_kernels(q, k, v, do, True)
+def repeat_bwd_bitwise(q, k, v, do, label):
+    """Two dQ and two dK/dV launches on the same inputs give the same
+    bits: the kernels use no atomics, which the bit-for-bit checks of
+    remat policies and pipelines rest on."""
+    _, lse, delta, dq, dk, dv = run_kernels(q, k, v, do, True)
+    dq2 = attn.flash_bwd_dq(q, k, v, do, lse, delta, True)
     dk2, dv2 = attn.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    check(torch.equal(dq, dq2), f"dQ {label}: two launches differ")
     check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
           f"dK/dV {label}: two launches differ")
-    log(f"[kernels] d128 {label}: two dK/dV launches bit for bit equal")
+    log(f"[kernels] d128 {label}: two dQ and two dK/dV launches bit for "
+        "bit equal")
 
 
 def main():
@@ -2799,7 +2827,8 @@ def main():
     measured = {}
     windows["gpt2-124m"], trainer, batch, stats = train(
         "gpt2-124m", GPTConfig(**GPT2), adamw(3e-4), BATCH, STEPS, args.seed)
-    measured["gpt2-124m"] = (GPTConfig(**GPT2), BATCH, stats["step_ms"])
+    measured["gpt2-124m"] = (GPTConfig(**GPT2), BATCH, stats["step_ms"],
+                             stats["step_gaps_ms"])
     profile_window("gpt2-124m", trainer, batch, stats["step_ms"])
     del trainer
     torch.cuda.empty_cache()
@@ -2810,7 +2839,8 @@ def main():
     for policy in ("none", "dots"):
         measured[f"gpt2-xl {policy}"] = (
             with_policy(XL, policy), XL_BATCH,
-            rounds[policy]["median_step_ms"])
+            rounds[policy]["median_step_gap_ms"],
+            rounds[policy]["step_gaps_ms"])
     # The flagship as bench.py trains it (remat "dots"), then the
     # optax-style loop on the same trainer.
     windows["gpt2-xl"], trainer, batch, _ = train(
@@ -2838,7 +2868,8 @@ def main():
     for policy in ("none", "dots"):
         measured[f"llama {policy}"] = (
             with_policy(LlamaConfig.preset(seq), policy), b,
-            rounds[policy]["median_step_ms"])
+            rounds[policy]["median_step_gap_ms"],
+            rounds[policy]["step_gaps_ms"])
     phase(f"llama B{b} S{seq} remat rounds (" + ", ".join(LLAMA_POLICIES)
           + ")")
     for b, seq, steps in LLAMA_RUNS[1:]:
@@ -2856,7 +2887,8 @@ def main():
     zero_phases(args.seed, windows, xl_one)
     phase("zero: llama bf16 masters and gpt2-xl adam8bit on ('data', 1)")
     moe_stats, moe_launches, moe_batch = moe_train(args.seed, windows)
-    measured["llama-moe"] = (MOE, MOE_BATCH, moe_stats["step_ms"])
+    measured["llama-moe"] = (MOE, MOE_BATCH, moe_stats["step_ms"],
+                             moe_stats["step_gaps_ms"])
     phase("llama-moe (8 experts, top 2) at full width")
     moe_on_expert_axis(args.seed, windows, moe_stats["losses"], moe_launches,
                        moe_batch)

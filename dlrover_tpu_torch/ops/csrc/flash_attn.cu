@@ -82,8 +82,8 @@
 // P^T dO, dS^T Q, dS K) are m64n128k16 with the descriptor's leading
 // offset stepping between panels. Tiles and warpgroups stay as at D = 64;
 // what shrinks is the rings, to fit 227 KB of shared memory: the forward
-// keeps 2 K/V stages (192 KB), dQ 3 (225 KB), dK/dV one K/V buffer and 4
-// Q/dO stages (197 KB). The
+// keeps 2 K/V stages (192 KB), dQ one Q/dO buffer, 4 K/V stages and a dQ
+// buffer (225 KB), dK/dV one K/V buffer and 4 Q/dO stages (197 KB). The
 // accumulators double: the forward's O and dQ's hold 64 fp32 a thread,
 // dK/dV's dK and dV 64 each beside S^T and dP^T (32 each), within the
 // 240 registers setmaxnreg gives a consumer.
@@ -138,6 +138,39 @@
 // packing, which no product of its own warpgroup covers, the Q/dO waits,
 // and each item's K/V wait, first tile and epilogue, about a fifth of a
 // block's clocks.
+//   dQ at D = 128 runs the D = 64 loop (S_t and dP_t issued with dQ +=
+// dS_{t-1} K_{t-1}, dS_t computed under that product) and adds five
+// things to it (Dq<128>; each measured on the H100 with
+// ops/flash_probe.py, which keeps the forms that were dropped; PERF.md,
+// section 6), at 4 x 2048 / 1 x 8192 (16 heads, causal) 0.1706 / 0.6189
+// ms against the old form's 0.2010 / 0.7145 in one call, dQ bit for bit
+// the same: its waits trap out of line (TRAP_OUT_OF_LINE: the old loop
+// needed only 167 registers, and the inlined trap held it only once the
+// probe's clock marks were added; inlined in the new form it spills);
+// the items go in groups of (b, h) whose K and V fit in half the L2
+// cache (L2_GROUPS, 22 (b, h) at 4 x 2048, 4 at 1 x 8192: the 64 (b, h)
+// hold 64 MB of K and V, which the plain order read again for every
+// query tile; 6% at 4 x 2048); the ring is one Q/dO buffer and 4 K/V
+// stages (two buffers and 3 stages, the old ring, 11% / 13% slower); dQ
+// goes out through a buffer of its own, so that the Q/dO buffer goes
+// back to the producer once the item's last S and dP are in
+// (STORE_APART, 1-2%), and that buffer is two halves, a warpgroup's rows
+// each, freed and filled on their own (Q_HALVES, 2%: in a causal item
+// warpgroup 0 ends a tile sooner); the producer loads an item's first 2
+// K/V tiles between its halves (KV_LEAD; none 1% / 4% slower, 3 or 4
+// no better). Its consumers reach SASS R214, no spill. Measured and
+// dropped: lse and delta staged by the producer warp beside Q and dO
+// (3-6% slower), the next item's Q and dO prefetched into the L2 cache
+// (2-5% slower), dQ out by TMA stores (its epilogue's clocks fell from
+// about 2,000 to 1,200 an item, its time did not), and S_{t+1} / dP_{t+1}
+// issued before dS_t (a second S/dP set: ptxas serialises the wgmmas,
+// C7518, 30-36% slower). What bounds it (the probe's phase clocks): the
+// tile's products, which the two warpgroups take in turn (an issue of
+// S, dP and dQ waits about 930 clocks for the tensor cores), its dS
+// (about 620 clocks), which only the dQ product covers, the K/V waits
+// (about 330 clocks a tile: the blocks read K and V from the L2 cache
+// near its rate), and each item's Q/dO wait, first tile and epilogue,
+// about a sixth of a block's clocks.
 //
 // Inputs are bf16 [B, S, H, D], D 64 or 128, read through their strides
 // (head_dim stride 1, the others multiples of 8 elements, each at least
@@ -1204,21 +1237,49 @@ constexpr int kDqPanel = QBN * ROW_BYTES;      // a panel of K or V
 
 template <int D>
 struct Dq {
-  static constexpr int STAGES = D == 64 ? 4 : 3;  // K/V ring
+  // What the head_dim-128 form adds to the head_dim-64 one (bwd_dq_kernel;
+  // each measured on the H100 with ops/flash_probe.py): TRAP_OUT_OF_LINE,
+  // a wait that never ends traps through hopper::deadlock, which leaves the
+  // consumers setmaxnreg's registers; L2_GROUPS, the items of a group of
+  // (b, h) whose K and V fit in half the L2 cache come before the next
+  // group's; STORE_APART, dQ goes out through a buffer of its own, so that
+  // an item's Q/dO buffer goes back to the producer once its last S and
+  // dP are in, not after its dQ is stored; Q_HALVES, a Q/dO buffer is two
+  // halves, a warpgroup's 64 rows each, with barriers of their own, so
+  // that the warpgroup that ends an item first (in a causal item
+  // warpgroup 0, a tile sooner) frees and gets back its half without
+  // waiting for the other; KV_LEAD, the producer loads that many of an
+  // item's first K/V tiles while the item before still holds the Q/dO
+  // buffer (its second half); and a ring of one Q/dO buffer and 4 K/V
+  // stages in place of two buffers and 3 stages.
+  static constexpr bool TRAP_OUT_OF_LINE = D == 128;
+  static constexpr bool L2_GROUPS = D == 128;
+  static constexpr bool STORE_APART = D == 128;
+  static constexpr bool Q_HALVES = D == 128;
+  static constexpr int KV_LEAD = D == 64 ? 0 : 2;
+  static constexpr int Q_BUFS = D == 64 ? 2 : 1;  // Q/dO item buffers
+  static constexpr int STAGES = 4;                // K/V ring
   static constexpr int ROWS = tile_bytes<D>(QBM);  // Q or dO of an item
   static constexpr int TILE = tile_bytes<D>(QBN);  // K or V of a tile
-  static constexpr size_t SMEM = 1024 + 4 * ROWS + STAGES * 2 * TILE +
-                                 (4 + 2 * STAGES) * sizeof(uint64_t);
+  static constexpr int QBUF = 2 * ROWS;            // a Q/dO buffer
+  static constexpr int OUT = STORE_APART ? ROWS : 0;  // dQ's own buffer
+  // Q/dO buffers' full and empty barriers: one a buffer, or one a half.
+  static constexpr int QBARS = Q_HALVES ? 2 * Q_BUFS : Q_BUFS;
+  static constexpr size_t SMEM = 1024 + Q_BUFS * QBUF + STAGES * 2 * TILE +
+                                 OUT +
+                                 (2 * QBARS + 2 * STAGES) * sizeof(uint64_t);
   static_assert(SMEM <= kMaxSmem, "dQ shared memory");
 };
 
 // A persistent kernel: one block on each SM walks the work items (query
 // tile of 128 rows, batch*head) in snake_item's order, the last query
-// tiles (which see the most kv tiles) first. Q and dO of an item come in
-// once, into one of two buffers, so the next item's load overlaps this
-// one's end; each item loops over the 64-row K/V tiles up to the
-// diagonal. It is dK/dV with the roles of Q and K/V swapped: the query
-// rows are the M of every product, and dQ += dS K reads K MN-major.
+// tiles (which see the most kv tiles) first; with L2_GROUPS group by group
+// (grouped_item). Q and dO of an item come in once, into one of Q_BUFS
+// buffers (with two, the next item's load overlaps this one's end; with
+// one, STORE_APART and Q_HALVES free it early); each item loops over the
+// 64-row K/V tiles up to the diagonal. It is dK/dV
+// with the roles of Q and K/V swapped: the query rows are the M of every
+// product, and dQ += dS K reads K MN-major.
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1227,30 +1288,42 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int BH, int H, int Sq, int Sk,
-              Layout ldq, float scale, int causal) {
-  constexpr int DQ_STAGES = Dq<D>::STAGES, kDqRows = Dq<D>::ROWS;
-  constexpr int kDqTile = Dq<D>::TILE;
+              Layout ldq, float scale, int causal, int group) {
+  using C = Dq<D>;
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    hopper::mbar_wait<C::TRAP_OUT_OF_LINE>(bar, parity);
+  };
+  constexpr int DQ_STAGES = C::STAGES, Q_BUFS = C::Q_BUFS;
+  constexpr int kDqRows = C::ROWS, kDqTile = C::TILE, kDqBuf = C::QBUF;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sQ = align_1024(smem_raw);  // two buffers of Q then dO
-  unsigned char* sKV = sQ + 4 * kDqRows;     // stages of K then V
-  uint64_t* q_full =
-      reinterpret_cast<uint64_t*>(sKV + DQ_STAGES * 2 * kDqTile);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* full = q_empty + 2;
+  unsigned char* sQ = align_1024(smem_raw);  // buffers of Q then dO
+  unsigned char* sKV = sQ + Q_BUFS * kDqBuf;  // stages of K then V
+  unsigned char* sOut = sKV + DQ_STAGES * 2 * kDqTile;  // with STORE_APART
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sOut + C::OUT);
+  uint64_t* q_empty = q_full + C::QBARS;
+  uint64_t* full = q_empty + C::QBARS;
   uint64_t* empty = full + DQ_STAGES;
 
   const int n_q = (Sq + QBM - 1) / QBM, n_items = n_q * BH;
-  // Item i: query tile n_q - 1 - i / BH of (b, h) = i % BH.
-  auto q_start = [&](int item) { return (n_q - 1 - item / BH) * QBM; };
+  // Item i: query tile n_q - 1 - i / BH of (b, h) = i % BH, or
+  // grouped_item's.
+  auto item_at = [&](int item) -> FwdItem {
+    if constexpr (C::L2_GROUPS) {
+      return grouped_item(item, BH, n_q, group);
+    } else {
+      return {n_q - 1 - item / BH, item % BH};
+    }
+  };
   auto n_kv_of = [&](int q0) {
     const int n = (Sk + QBN - 1) / QBN;
     return causal ? min(n, (q0 + QBM - 1) / QBN + 1) : n;
   };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < C::QBARS; ++i) {
       hopper::mbar_init(q_full + i, 1);
-      hopper::mbar_init(q_empty + i, 2 * WG / 32);  // one arrival a warp
+      // one arrival a warp (of a half's warpgroup with Q_HALVES)
+      hopper::mbar_init(q_empty + i, (C::Q_HALVES ? 1 : 2) * WG / 32);
     }
     for (int s = 0; s < DQ_STAGES; ++s) {
       hopper::mbar_init(full + s, 1);
@@ -1270,24 +1343,46 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::tma_prefetch_map(&tm_do);
       int ring = 0;  // position in the K/V ring, across items
       for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-        const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
-        const int qb = j % 2;
-        unsigned char* q_buf = sQ + qb * 2 * kDqRows;
-        if (j >= 2) hopper::mbar_wait(q_empty + qb, (j / 2 - 1) & 1);
-        hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);
-        load_tile<D>(q_buf, &tm_q, q_full + qb, QBM, h, q0, b);
-        load_tile<D>(q_buf + kDqRows, &tm_do, q_full + qb, QBM, h, q0, b);
+        const FwdItem it = item_at(item);
+        const int q0 = it.q_tile * QBM, bh = it.bh, b = bh / H, h = bh % H;
+        const int qb = j % Q_BUFS;
+        unsigned char* q_buf = sQ + qb * kDqBuf;
         const int n_kv = n_kv_of(q0);
-        for (int t = 0; t < n_kv; ++t, ++ring) {
-          const int st = ring % DQ_STAGES;
+        // K/V tile t of the item into the ring.
+        auto load_kv = [&](int t) {
+          const int at = ring + t, st = at % DQ_STAGES;
           unsigned char* stage = sKV + st * 2 * kDqTile;
-          if (ring >= DQ_STAGES) {
-            hopper::mbar_wait(empty + st, (ring / DQ_STAGES - 1) & 1);
-          }
+          if (at >= DQ_STAGES) wait(empty + st, (at / DQ_STAGES - 1) & 1);
           hopper::mbar_arrive_tx(full + st, 2 * kDqTile);
           load_tile<D>(stage, &tm_k, full + st, QBN, h, t * QBN, b);
           load_tile<D>(stage + kDqTile, &tm_v, full + st, QBN, h, t * QBN, b);
+        };
+        const int lead = min(n_kv, C::KV_LEAD);
+        if constexpr (C::Q_HALVES) {
+          // Half w: Q then dO of query rows q0 + 64 w + [0, 64). The lead
+          // K/V tiles go out between the halves: the second waits for the
+          // warpgroup that ends the item before last.
+          for (int w = 0; w < 2; ++w) {
+            const int qi = 2 * qb + w;
+            unsigned char* half = q_buf + w * kDqRows;
+            if (j >= Q_BUFS) wait(q_empty + qi, (j / Q_BUFS - 1) & 1);
+            hopper::mbar_arrive_tx(q_full + qi, kDqRows);
+            load_tile<D>(half, &tm_q, q_full + qi, 64, h, q0 + 64 * w, b);
+            load_tile<D>(half + kDqRows / 2, &tm_do, q_full + qi, 64, h,
+                         q0 + 64 * w, b);
+            if (w == 0) {
+              for (int t = 0; t < lead; ++t) load_kv(t);
+            }
+          }
+        } else {
+          for (int t = 0; t < lead; ++t) load_kv(t);
+          if (j >= Q_BUFS) wait(q_empty + qb, (j / Q_BUFS - 1) & 1);
+          hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);
+          load_tile<D>(q_buf, &tm_q, q_full + qb, QBM, h, q0, b);
+          load_tile<D>(q_buf + kDqRows, &tm_do, q_full + qb, QBM, h, q0, b);
         }
+        for (int t = lead; t < n_kv; ++t) load_kv(t);
+        ring += n_kv;
       }
     }
   } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64)
@@ -1297,8 +1392,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float scale_log2 = scale * LOG2E;
     int ring = 0;
     for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {
-      const int q0 = q_start(item), bh = item % BH, b = bh / H, h = bh % H;
-      const int qb = j % 2;
+      const FwdItem it = item_at(item);
+      const int q0 = it.q_tile * QBM, bh = it.bh, b = bh / H, h = bh % H;
+      const int qb = j % Q_BUFS;
       // This thread holds pieces of query rows row0 and row0 + 8, at kv
       // columns 8 n + col_off + j of every accumulator; their lse (in
       // base 2) and delta stay in registers for the item.
@@ -1312,14 +1408,21 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         lse2[i] = row < Sq ? lse[at] * LOG2E : 0.0f;
         dl[i] = row < Sq ? delta[at] : 0.0f;
       }
-      unsigned char* q_rows = sQ + qb * 2 * kDqRows + wg * 64 * ROW_BYTES;
+      // This warpgroup's Q rows (its half with Q_HALVES: 64-row panels,
+      // dO after them), their panel stride and their Q/dO barriers.
+      unsigned char* q_rows =
+          C::Q_HALVES ? sQ + qb * kDqBuf + wg * kDqRows
+                      : sQ + qb * kDqBuf + wg * 64 * ROW_BYTES;
+      constexpr int q_panel = C::Q_HALVES ? 64 * ROW_BYTES : kDqRowsPanel;
+      const int qi = C::Q_HALVES ? 2 * qb + wg : qb;
       const uint32_t q_addr = hopper::smem_addr(q_rows);
-      const uint32_t do_addr = q_addr + kDqRows;
+      const uint32_t do_addr =
+          q_addr + (C::Q_HALVES ? kDqRows / 2 : kDqRows);
       float acc[D / 2], s[32], dp[32];
       uint32_t da[QBN / 16][4];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-      hopper::mbar_wait(q_full + qb, (j / 2) & 1);
+      wait(q_full + qi, (j / Q_BUFS) & 1);
 
       // The item's kv tiles, and this warpgroup's: those that see one of
       // its rows (in a causal item, warpgroup 0's rows see none of the
@@ -1330,8 +1433,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         return hopper::smem_addr(sKV + (ring + t) % DQ_STAGES * 2 * kDqTile);
       };
       auto wait_full = [&](int t) {
-        hopper::mbar_wait(full + (ring + t) % DQ_STAGES,
-                          ((ring + t) / DQ_STAGES) & 1);
+        wait(full + (ring + t) % DQ_STAGES, ((ring + t) / DQ_STAGES) & 1);
       };
       auto release = [&](int t) {
         if (lane == 0) hopper::mbar_arrive(empty + (ring + t) % DQ_STAGES);
@@ -1342,13 +1444,13 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           hopper::wgmma_m64n64k16_ss(
-              s, hopper::desc_k_major(k_step(q_addr, kk, kDqRowsPanel)),
+              s, hopper::desc_k_major(k_step(q_addr, kk, q_panel)),
               hopper::desc_k_major(k_step(ka, kk, kDqPanel)), kk);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           hopper::wgmma_m64n64k16_ss(
-              dp, hopper::desc_k_major(k_step(do_addr, kk, kDqRowsPanel)),
+              dp, hopper::desc_k_major(k_step(do_addr, kk, q_panel)),
               hopper::desc_k_major(k_step(va, kk, kDqPanel)), kk);
         }
         hopper::wgmma_commit();
@@ -1415,6 +1517,11 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         release(t - 1);
         pack_ds();
       }
+      if constexpr (C::STORE_APART) {
+        // Every S and dP of the item is in: its Q and dO are read.
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(q_empty + qi);
+      }
       hopper::wgmma_fence();
       issue_dq(n_mine - 1);
       hopper::wgmma_wait<0>();
@@ -1428,12 +1535,22 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       ring += n_kv;
 
-      // This warpgroup's Q rows are read; they stage its dQ, and the
-      // buffer goes back to the producer once both warpgroups stored.
-      store_rows<D>(acc, scale, scale, q_rows, kDqRowsPanel,
-                    dq + b * ldq.b + h * ldq.h, ldq.s, row_lo, Sq, wg);
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(q_empty + qb);
+      if constexpr (C::STORE_APART) {
+        // dQ through the warpgroup's rows of its own buffer. A warp reuses
+        // them only after this warpgroup's next wgmma, which none of its
+        // warps passes before all four have issued it, so after every
+        // warp's last read of them here.
+        store_rows<D>(acc, scale, scale, sOut + wg * 64 * ROW_BYTES,
+                      kDqRowsPanel, dq + b * ldq.b + h * ldq.h, ldq.s,
+                      row_lo, Sq, wg);
+      } else {
+        // This warpgroup's Q rows are read; they stage its dQ, and the
+        // buffer goes back to the producer once both warpgroups stored.
+        store_rows<D>(acc, scale, scale, q_rows, q_panel,
+                      dq + b * ldq.b + h * ldq.h, ldq.s, row_lo, Sq, wg);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(q_empty + qi);
+      }
     }
   }
 }
@@ -1548,6 +1665,23 @@ int fwd_l2_group(int BH, int Sq, int Sk, int D, int causal, int blocks) {
   });
 }
 
+// dQ's (b, h) a group (Dq<D>::L2_GROUPS): their K and V (bf16 [Sk, D]
+// each) within half the L2 cache, and an item costs its kv tiles plus two
+// for its Q/dO wait, first tile and epilogue, as the forward's walk.
+template <int D>
+int dq_l2_group(int BH, int Sq, int Sk, int causal, int blocks) {
+  const int cap = l2_cap(BH, 4LL * Sk * D);
+  if (cap == BH || !causal) return cap;
+  thread_local GroupMemo memo;
+  const long long want[5] = {BH, Sq, Sk, cap, blocks};
+  return memo.get(want, [&] {
+    const int n_q = (Sq + QBM - 1) / QBM, n_k = (Sk + QBN - 1) / QBN;
+    return even_group(BH, n_q, cap, blocks, [&](int qt) {
+      return std::min(n_k, (qt * QBM + QBM - 1) / QBN + 1) + 2;
+    });
+  });
+}
+
 // dK/dV's (b, h) a group (Dkv<D>::L2_GROUPS): their Q and dO (bf16 [Sq,
 // D] each) with lse and delta within half the L2 cache, and an item costs
 // the query tiles it visits.
@@ -1602,17 +1736,22 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaError_t err = prepare_hopper(bwd_dq_kernel<D>, Dq<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!input_map(&tq, q, B, Sq, H, D, strides, 0, QBM) ||
+  // Q and dO in boxes of an item's rows, or of a half's with Q_HALVES.
+  const int q_box = Dq<D>::Q_HALVES ? QBM / 2 : QBM;
+  if (!input_map(&tq, q, B, Sq, H, D, strides, 0, q_box) ||
       !input_map(&tk, k, B, Sk, H, D, strides, 1, QBN) ||
       !input_map(&tv, v, B, Sk, H, D, strides, 2, QBN) ||
-      !input_map(&tdo, dout, B, Sq, H, D, strides, 3, QBM)) {
+      !input_map(&tdo, dout, B, Sq, H, D, strides, 3, q_box)) {
     return (int)cudaErrorInvalidValue;
   }
   const int items = (Sq + QBM - 1) / QBM * B * H;
-  bwd_dq_kernel<D><<<resident_blocks(items), HOPPER_THREADS, Dq<D>::SMEM,
+  const int blocks = resident_blocks(items);
+  const int group =
+      Dq<D>::L2_GROUPS ? dq_l2_group<D>(B * H, Sq, Sk, causal, blocks) : 0;
+  bwd_dq_kernel<D><<<blocks, HOPPER_THREADS, Dq<D>::SMEM,
                      (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq,
-      B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal);
+      B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal, group);
   return (int)cudaGetLastError();
 }
 

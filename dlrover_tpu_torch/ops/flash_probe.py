@@ -37,9 +37,25 @@ before them, ``dkv128_inline_trap``, ``dkv128_snake`` and
 try other rings, and the dropped forms are ``dkv128_split`` and
 ``dkv128_together`` (more of each tile under the last tile's products:
 more registers than a consumer has) and ``dkv128_direct_store``;
-``dkv128_clocks`` marks its consumers' phases at head_dim 128. Each
-variant prints the highest register of every kernel in its SASS. A
-variant named again in one run is timed again, not built again.
+``dkv128_clocks`` marks its consumers' phases at head_dim 128. What the
+head_dim-128 dQ adds to the head_dim-64 one is five switches of
+``Dq<D>`` (TRAP_OUT_OF_LINE, L2_GROUPS, STORE_APART, Q_HALVES, KV_LEAD)
+and its ring (one Q/dO buffer, 4 K/V stages): ``dq128_before`` is the
+form before them, ``dq128_after`` the committed one, each timed as
+every ``dq128`` variant is, its dQ alone at the head_dim-128 shapes,
+with its bits held to ``dq128_before``'s once that has run (name it
+first); ``dq128_inline_trap``, ``dq128_snake``, ``dq128_store_in_q``,
+``dq128_whole_q`` and ``dq128_lead_0`` turn each switch off alone,
+``dq128_lead_3``, ``dq128_lead_4``, ``dq128_two_q`` (the old ring),
+``dq128_one_q_4`` and ``dq128_one_q_5`` try other leads and rings, the
+dropped forms are ``dq128_rows`` (lse and delta staged by the producer
+warp), ``dq128_prefetch`` (the next item's Q and dO prefetched into the
+L2 cache), ``dq128_tma_store`` (dQ out by TMA stores) and
+``dq128_ahead`` (S_{t+1} and dP_{t+1} before dS_t, a second register
+set), and ``dq128_clocks`` / ``dq128_before_clocks`` mark the new and
+old forms' consumer phases. Each variant prints the highest register of
+every kernel in its SASS. A variant named again in one run is timed
+again, not built again; one that nvcc refuses prints its error.
 
     python -m dlrover_tpu_torch.ops.flash_probe [variant ...]
 
@@ -87,6 +103,21 @@ def _dkv(name, value, committed="D == 128"):
     if isinstance(value, int):
         return _switch(name, committed, value, "Dkv", "int")
     return _switch(name, committed, value, "Dkv")
+
+
+# The committed switches and ring of ``Dq<D>``; each dq128 variant names
+# its departures from them.
+DQ = {"TRAP_OUT_OF_LINE": "D == 128", "L2_GROUPS": "D == 128",
+      "STORE_APART": "D == 128", "Q_HALVES": "D == 128",
+      "KV_LEAD": "D == 64 ? 0 : 2", "Q_BUFS": "D == 64 ? 2 : 1",
+      "STAGES": "4"}
+
+
+def _dq(name, value):
+    """A switch of ``Dq<D>`` set to ``value`` (keep D = 64's value in it:
+    "D == 128", or "D == 64 ? 4 : 5" for a ring)."""
+    kind = "int" if name in ("KV_LEAD", "Q_BUFS", "STAGES") else "bool"
+    return _switch(name, DQ[name], value, "Dq", kind)
 
 
 # PR 9's head_dim-128 forward loop: one product at a time inside a
@@ -467,7 +498,8 @@ _PV_FIRST = _TOGETHER + [
               "issue_pv<D>(o_acc, pa, v_base + prev * kFwdTile);")]
 
 # dQ's loop over its kv tiles: S_t and dP_t issued with dQ += dS_{t-1}
-# K_{t-1} (the committed kernel), and one after the other.
+# K_{t-1} (the committed kernel), then the last dQ += dS K; and the
+# products one after the other.
 _DQ_OVERLAP = (
     "      // S_t and dP_t go out with dQ += dS_{t-1} K_{t-1}, and dS_t is\n"
     "      // computed while the second product runs.\n"
@@ -493,7 +525,8 @@ _DQ_OVERLAP = (
     "        hopper::fence_regs(acc);\n"
     "        release(t - 1);\n"
     "        pack_ds();\n"
-    "      }\n"
+    "      }\n")
+_DQ_LAST = (
     "      hopper::wgmma_fence();\n"
     "      issue_dq(n_mine - 1);\n"
     "      hopper::wgmma_wait<0>();\n"
@@ -516,6 +549,336 @@ _DQ_SERIAL = (
     "        release(t);\n"
     "      }\n")
 
+# dQ's loop at head_dim 128 with S_{t+1} and dP_{t+1} issued before dS_t is
+# computed, into a second set of registers (copied back after each tile),
+# so that dS_t runs under the next tile's two products and not only under
+# dQ += dS_{t-1} K_{t-1}: 192 registers live beside the addresses.
+_DQ_AHEAD = (
+    "      if constexpr (D == 128) {\n"
+    "        // S_{t+1} and dP_{t+1} go out before dS_t is computed.\n"
+    "        float s_n[32], dp_n[32];\n"
+    "        auto issue_s_dp_n = [&](int t) {\n"
+    "          const uint32_t ka = k_addr(t), va = ka + kDqTile;\n"
+    "#pragma unroll\n"
+    "          for (int kk = 0; kk < D / 16; ++kk) {\n"
+    "            hopper::wgmma_m64n64k16_ss(\n"
+    "                s_n, hopper::desc_k_major(k_step(q_addr, kk, "
+    "q_panel)),\n"
+    "                hopper::desc_k_major(k_step(ka, kk, kDqPanel)), kk);\n"
+    "          }\n"
+    "#pragma unroll\n"
+    "          for (int kk = 0; kk < D / 16; ++kk) {\n"
+    "            hopper::wgmma_m64n64k16_ss(\n"
+    "                dp_n, hopper::desc_k_major(k_step(do_addr, kk, "
+    "q_panel)),\n"
+    "                hopper::desc_k_major(k_step(va, kk, kDqPanel)), kk);\n"
+    "          }\n"
+    "          hopper::wgmma_commit();\n"
+    "        };\n"
+    "        wait_full(0);\n"
+    "        hopper::wgmma_fence();\n"
+    "        issue_s_dp(0);\n"
+    "        for (int t = 0; t + 1 < n_mine; ++t) {\n"
+    "          wait_full(t + 1);\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_s_dp_n(t + 1);\n"
+    "          hopper::wgmma_wait<1>();  // S_t, dP_t and dQ_{t-1} are in\n"
+    "          hopper::fence_regs(s);\n"
+    "          hopper::fence_regs(dp);\n"
+    "          hopper::fence_regs(acc);\n"
+    "          if (t > 0) release(t - 1);\n"
+    "          ds(t);\n"
+    "          pack_ds();\n"
+    "          hopper::wgmma_fence();\n"
+    "          issue_dq(t);\n"
+    "          hopper::wgmma_wait<1>();  // S_{t+1} and dP_{t+1} are in\n"
+    "          hopper::fence_regs(s_n);\n"
+    "          hopper::fence_regs(dp_n);\n"
+    "#pragma unroll\n"
+    "          for (int i = 0; i < 32; ++i) {\n"
+    "            s[i] = s_n[i];\n"
+    "            dp[i] = dp_n[i];\n"
+    "          }\n"
+    "        }\n"
+    "        hopper::wgmma_wait<0>();\n"
+    "        hopper::fence_regs(s);\n"
+    "        hopper::fence_regs(dp);\n"
+    "        hopper::fence_regs(acc);\n"
+    "        if (n_mine > 1) release(n_mine - 2);\n"
+    "        ds(n_mine - 1);\n"
+    "        pack_ds();\n"
+    "      } else {\n" + _DQ_OVERLAP + "      }\n")
+
+# The dQ loop's tile, as committed (8-space indent).
+_DQ_TILE = (
+    "        wait_full(t);\n"
+    "        hopper::wgmma_fence();\n"
+    "        issue_s_dp(t);\n"
+    "        issue_dq(t - 1);\n"
+    "        hopper::wgmma_wait<1>();  // S_t and dP_t are in\n"
+    "        hopper::fence_regs(s);\n"
+    "        hopper::fence_regs(dp);\n"
+    "        ds(t);\n"
+    "        hopper::fence_regs(dp);  // dS is done before the wait\n"
+    "        hopper::wgmma_wait<0>();\n"
+    "        hopper::fence_regs(acc);\n"
+    "        release(t - 1);\n"
+    "        pack_ds();\n")
+
+
+def _marks_after(text, marks, indent):
+    """``text`` with ``mark(k)`` after each of its lines in ``marks``
+    ({line: k}; a line's first match only)."""
+    out, todo = [], dict(marks)
+    for line in text.splitlines(keepends=True):
+        out.append(line)
+        k = todo.pop(line.strip(), None)
+        if k is not None:
+            out.append(f"{indent}mark({k});\n")
+    return "".join(out)
+
+
+# Phase clocks of the dQ consumer warpgroups (read at head_dim 128): per
+# item and per kv tile of the loop.
+_DQ_CLOCKS = [
+    _CLOCK_SUMS,
+    ("    const float scale_log2 = scale * LOG2E;\n    int ring = 0;\n"
+     "    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {"
+     "\n      const FwdItem it",
+     "    const float scale_log2 = scale * LOG2E;\n" + _MARK +
+     "    int ring = 0;\n"
+     "    for (int j = 0, item; (item = snake_item(j, n_items)) >= 0; ++j) {"
+     "\n      const FwdItem it"),
+    ("      float lse2[2], dl[2];\n",
+     "      mark(0);\n      float lse2[2], dl[2];\n"),
+    ("\n      // The item's kv tiles, and this warpgroup's: those that see",
+     "      mark(1);\n\n"
+     "      // The item's kv tiles, and this warpgroup's: those that see"),
+    ("      pack_ds();\n      for (int t = 1; t < n_mine; ++t) {\n",
+     "      pack_ds();\n      mark(2);\n"
+     "      for (int t = 1; t < n_mine; ++t) {\n"),
+    (_DQ_TILE, _marks_after(_DQ_TILE, {
+        "wait_full(t);": 6, "issue_dq(t - 1);": 7,
+        "hopper::fence_regs(dp);": 8,
+        "hopper::fence_regs(dp);  // dS is done before the wait": 9,
+        "hopper::fence_regs(acc);": 10, "pack_ds();": 11}, " " * 8)
+     + "        P[15] += 1;\n"),
+    ("      release(n_mine - 1);\n      // Tiles past",
+     "      release(n_mine - 1);\n      mark(3);\n      // Tiles past"),
+    ("        release(t);\n      }\n      ring += n_kv;\n",
+     "        release(t);\n      }\n      ring += n_kv;\n      mark(4);\n"
+     "      P[14] += 1;\n"),
+    ("        if (lane == 0) hopper::mbar_arrive(q_empty + qi);\n      }\n"
+     "    }\n  }\n}\n",
+     "        if (lane == 0) hopper::mbar_arrive(q_empty + qi);\n      }\n"
+     "      mark(5);\n    }\n"
+     "    if (D == 128 && threadIdx.x % WG == 0) {\n"
+     "      for (int k = 0; k < 16; ++k) "
+     "atomicAdd(&g_clocks[16 * wg + k], (unsigned long long)P[k]);\n"
+     "    }\n  }\n}\n"),
+    _READ_CLOCKS,
+]
+
+
+def _dq_form(**want):
+    """``Dq<D>`` set to ``want`` where it departs from the committed form
+    (DQ)."""
+    return [_dq(k, v) for k, v in want.items() if DQ[k] != v]
+
+
+# The head_dim-128 dQ's old ring: two whole Q/dO buffers through which dQ
+# goes out, 3 K/V stages loaded after the item's Q and dO.
+_DQ128_TWO_Q = dict(STORE_APART="false", Q_HALVES="false", KV_LEAD="0",
+                    Q_BUFS="2", STAGES="D == 64 ? 4 : 3")
+# At head_dim 128 the producer warp loads an item's lse (times log2 e) and
+# delta beside its Q and dO (whole buffers: 1 KB after them), and the
+# consumers read theirs from there once the buffer is full, not from
+# global memory at the item's start.
+_DQ_ROWS = [("flash_attn.cu", old, new) for old, new in (
+    ("  static constexpr int QBUF = 2 * ROWS;            // a Q/dO buffer\n",
+     "  static constexpr int QBUF = 2 * ROWS + (D == 128 ? 8 * QBM : 0);\n"),
+    ("      hopper::mbar_init(q_full + i, 1);\n"
+     "      // one arrival a warp (of a half's",
+     "      hopper::mbar_init(q_full + i, D == 128 ? 32 : 1);\n"
+     "      // one arrival a warp (of a half's"),
+    ("    if (threadIdx.x == 2 * WG) {\n"
+     "      hopper::tma_prefetch_map(&tm_q);\n"
+     "      hopper::tma_prefetch_map(&tm_k);\n"
+     "      hopper::tma_prefetch_map(&tm_v);\n"
+     "      hopper::tma_prefetch_map(&tm_do);\n",
+     "    const int lane = threadIdx.x % 32;\n"
+     "    const bool issuer = D == 64 || lane == 0;  // of every TMA load\n"
+     "    if (D == 128 ? threadIdx.x / 32 == 2 * WG / 32\n"
+     "                 : threadIdx.x == 2 * WG) {\n"
+     "      if (issuer) {\n"
+     "        hopper::tma_prefetch_map(&tm_q);\n"
+     "        hopper::tma_prefetch_map(&tm_k);\n"
+     "        hopper::tma_prefetch_map(&tm_v);\n"
+     "        hopper::tma_prefetch_map(&tm_do);\n"
+     "      }\n"),
+    ("        auto load_kv = [&](int t) {\n",
+     "        auto load_kv = [&](int t) {\n          if (!issuer) return;\n"),
+    ("          if (j >= Q_BUFS) wait(q_empty + qb, (j / Q_BUFS - 1) & 1);\n"
+     "          hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);\n"
+     "          load_tile<D>(q_buf, &tm_q, q_full + qb, QBM, h, q0, b);\n"
+     "          load_tile<D>(q_buf + kDqRows, &tm_do, q_full + qb, QBM, h, q0,"
+     " b);\n",
+     "          if (j >= Q_BUFS) wait(q_empty + qb, (j / Q_BUFS - 1) & 1);\n"
+     "          if (D == 128) {\n"
+     "            float* rows = reinterpret_cast<float*>(q_buf + 2 * kDqRows);"
+     "\n"
+     "            for (int r = lane; r < QBM; r += 32) {\n"
+     "              const bool in = q0 + r < Sq;\n"
+     "              const long long at = (long long)bh * Sq + q0 + r;\n"
+     "              rows[r] = in ? lse[at] * LOG2E : 0.0f;\n"
+     "              rows[QBM + r] = in ? delta[at] : 0.0f;\n"
+     "            }\n"
+     "            __syncwarp();\n"
+     "            if (!issuer) hopper::mbar_arrive(q_full + qb);\n"
+     "          }\n"
+     "          if (issuer) {\n"
+     "            hopper::mbar_arrive_tx(q_full + qb, 2 * kDqRows);\n"
+     "            load_tile<D>(q_buf, &tm_q, q_full + qb, QBM, h, q0, b);\n"
+     "            load_tile<D>(q_buf + kDqRows, &tm_do, q_full + qb, QBM, h, "
+     "q0, b);\n"
+     "          }\n"),
+    ("      for (int i = 0; i < 2; ++i) {\n"
+     "        const int row = row0 + 8 * i;\n"
+     "        const long long at = (long long)bh * Sq + row;\n",
+     "      for (int i = 0; D == 64 && i < 2; ++i) {\n"
+     "        const int row = row0 + 8 * i;\n"
+     "        const long long at = (long long)bh * Sq + row;\n"),
+    ("      wait(q_full + qi, (j / Q_BUFS) & 1);\n",
+     "      wait(q_full + qi, (j / Q_BUFS) & 1);\n"
+     "      if (D == 128) {\n"
+     "        const float* rows = reinterpret_cast<const float*>(\n"
+     "            sQ + qb * kDqBuf + 2 * kDqRows);\n"
+     "        for (int i = 0; i < 2; ++i) {\n"
+     "          lse2[i] = rows[row0 + 8 * i - q0];\n"
+     "          dl[i] = rows[QBM + row0 + 8 * i - q0];\n"
+     "        }\n"
+     "      }\n"))]
+_TMA_MAP = "__device__ __forceinline__ void tma_prefetch_map("
+# At head_dim 128 the producer asks for the next item's Q and dO (both
+# halves) to be brought into the L2 cache once it has loaded this item's.
+_DQ_PREFETCH = [
+    ("hopper.cuh", _TMA_MAP,
+     "__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* "
+     "map, int c0,\n"
+     "                                                int c1, int c2, int c3)"
+     " {\n"
+     "  asm volatile(\n"
+     "      \"cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, "
+     "%4}];\\n\"\n"
+     "      :: \"l\"(reinterpret_cast<uint64_t>(map)), \"r\"(c0), \"r\"(c1),"
+     " \"r\"(c2),\n"
+     "         \"r\"(c3)\n"
+     "      : \"memory\");\n"
+     "}\n\n" + _TMA_MAP),
+    ("flash_attn.cu",
+     "        for (int t = lead; t < n_kv; ++t) load_kv(t);\n"
+     "        ring += n_kv;\n",
+     "        const int next = snake_item(j + 1, n_items);\n"
+     "        if (D == 128 && next >= 0) {\n"
+     "          const FwdItem nx = item_at(next);\n"
+     "          for (int w = 0; w < 2; ++w) {\n"
+     "            for (int p = 0; p < D / 64; ++p) {\n"
+     "              const int s0 = nx.q_tile * QBM + 64 * w;\n"
+     "              hopper::tma_prefetch_4d(&tm_q, 64 * p, nx.bh % H, s0, "
+     "nx.bh / H);\n"
+     "              hopper::tma_prefetch_4d(&tm_do, 64 * p, nx.bh % H, s0, "
+     "nx.bh / H);\n"
+     "            }\n"
+     "          }\n"
+     "        }\n"
+     "        for (int t = lead; t < n_kv; ++t) load_kv(t);\n"
+     "        ring += n_kv;\n")]
+# At head_dim 128 a warpgroup's dQ goes from its rows of dQ's own buffer
+# to the output by one TMA store a panel (rows past Sq are not written),
+# which runs on while the warpgroup takes its next item; the rows are
+# written again once the last store has read them.
+_DQ_TMA_STORE = [
+    ("hopper.cuh", _TMA_MAP,
+     "__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,\n"
+     "                                             const void* src, int c0, "
+     "int c1,\n"
+     "                                             int c2, int c3) {\n"
+     "  asm volatile(\n"
+     "      \"cp.async.bulk.tensor.4d.global.shared::cta.bulk_group\"\n"
+     "      \" [%0, {%2, %3, %4, %5}], [%1];\\n\"\n"
+     "      :: \"l\"(reinterpret_cast<uint64_t>(map)), "
+     "\"r\"(smem_addr(src)),\n"
+     "         \"r\"(c0), \"r\"(c1), \"r\"(c2), \"r\"(c3)\n"
+     "      : \"memory\");\n"
+     "}\n\n" + _TMA_MAP),
+    ("flash_attn.cu",
+     "              Layout ldq, float scale, int causal, int group) {\n",
+     "              Layout ldq, float scale, int causal, int group,\n"
+     "              const __grid_constant__ CUtensorMap tm_dq) {\n"),
+    ("flash_attn.cu",
+     "        store_rows<D>(acc, scale, scale, sOut + wg * 64 * ROW_BYTES,\n"
+     "                      kDqRowsPanel, dq + b * ldq.b + h * ldq.h, ldq.s,"
+     "\n"
+     "                      row_lo, Sq, wg);\n",
+     "        unsigned char* out_rows = sOut + wg * 64 * ROW_BYTES;\n"
+     "        if (tid == 0) {\n"
+     "          asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
+     "\"memory\");\n"
+     "        }\n"
+     "        hopper::named_sync(1 + wg, WG);\n"
+     "#pragma unroll\n"
+     "        for (int i = 0; i < 2; ++i) {\n"
+     "          const int r = warp * 16 + lane / 4 + 8 * i;\n"
+     "#pragma unroll\n"
+     "          for (int n = 0; n < D / 8; ++n) {\n"
+     "            *reinterpret_cast<uint32_t*>(\n"
+     "                out_rows + (n / 8) * kDqRowsPanel + swizzled(r, n % 8) +"
+     "\n"
+     "                (lane % 4) * 4) =\n"
+     "                hopper::pack_bf16(acc[4 * n + 2 * i] * scale,\n"
+     "                                  acc[4 * n + 2 * i + 1] * scale);\n"
+     "          }\n"
+     "        }\n"
+     "        asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
+     "\"memory\");\n"
+     "        hopper::named_sync(1 + wg, WG);\n"
+     "        if (tid == 0) {\n"
+     "          for (int p = 0; p < D / 64; ++p) {\n"
+     "            hopper::tma_store_4d(&tm_dq, out_rows + p * kDqRowsPanel, "
+     "64 * p,\n"
+     "                                 h, row_lo, b);\n"
+     "          }\n"
+     "          asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
+     "\"memory\");\n"
+     "        }\n"),
+    ("flash_attn.cu",
+     "        if (lane == 0) hopper::mbar_arrive(q_empty + qi);\n      }\n"
+     "    }\n  }\n}\n",
+     "        if (lane == 0) hopper::mbar_arrive(q_empty + qi);\n      }\n"
+     "    }\n"
+     "    if (tid == 0) {  // the last TMA stores are done\n"
+     "      asm volatile(\"cp.async.bulk.wait_group 0;\\n\" ::: \"memory\");"
+     "\n"
+     "    }\n  }\n}\n"),
+    ("flash_attn.cu",
+     "  CUtensorMap tq, tk, tv, tdo;\n"
+     "  // Q and dO in boxes of an item's rows, or of a half's with Q_HALVES."
+     "\n",
+     "  CUtensorMap tq, tk, tv, tdo, tdq = {};\n"
+     "  if (D == 128 && !input_map(&tdq, dq, B, Sq, H, D, strides, 4, 64)) {"
+     "\n"
+     "    return (int)cudaErrorInvalidValue;\n"
+     "  }\n"
+     "  // Q and dO in boxes of an item's rows, or of a half's with Q_HALVES."
+     "\n"),
+    ("flash_attn.cu",
+     "      B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal, group);\n",
+     "      B * H, H, Sq, Sk, layout_at(strides, 4), scale, causal, group, "
+     "tdq);\n")]
+# The head_dim-128 dQ before its redesign: the old ring, the plain item
+# order, the inlined trap.
+_DQ128_BEFORE = _dq_form(TRAP_OUT_OF_LINE="false", L2_GROUPS="false",
+                         **_DQ128_TWO_Q)
 
 
 def _dkv_ring(bufs, stages):
@@ -673,8 +1036,9 @@ VARIANTS = {
     "fwd_stages_2": [("flash_attn.cu",) + _stages(4, 2, "K/V", 2)],
     "fwd_stages_3": [("flash_attn.cu",) + _stages(4, 2, "K/V", 3)],
     "dkv_stages_2": [("flash_attn.cu",) + _stages(3, 4, "Q/dO", 2)],
-    "dq_stages_2": [("flash_attn.cu",) + _stages(4, 3, "K/V", 2)],
-    "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL)],
+    "dq_stages_2": [_dq("STAGES", "D == 64 ? 2 : 4")],
+    "dq_serial": [("flash_attn.cu", _DQ_OVERLAP, _DQ_SERIAL),
+                  ("flash_attn.cu", _DQ_LAST, "")],
     # PR 9's serial head_dim-128 loop, in the item order without groups
     "fwd128_serial": [_serial, _switch("L2_GROUPS", "D == 128", "false")],
     "fwd128_serial_l2": [_serial],
@@ -719,6 +1083,36 @@ VARIANTS = {
     "dkv128_split": [("flash_attn.cu", _DKV_AHEAD, _DKV_SPLIT)],
     "dkv128_together": [("flash_attn.cu", _DKV_AHEAD, _DKV_TOGETHER)],
     "dkv128_clocks": [("flash_attn.cu",) + r for r in _DKV_CLOCKS],
+    # The head_dim-128 dQ: the form before its redesign, its phase clocks
+    # and the committed form's; each switch of the redesign off alone; the
+    # rings (Q/dO item buffers, K/V stages) and lse / delta staged by the
+    # producer; S_{t+1} and dP_{t+1} issued before dS_t.
+    "dq128_before": _DQ128_BEFORE,
+    "dq128_before_clocks": _DQ128_BEFORE + [
+        ("flash_attn.cu",) + r for r in _DQ_CLOCKS],
+    "dq128_clocks": [("flash_attn.cu",) + r for r in _DQ_CLOCKS],
+    # the committed form, timed as the other dq128 variants are (its dQ
+    # alone; "committed" times the three kernels one after another)
+    "dq128_after": [],
+    "dq128_inline_trap": _dq_form(TRAP_OUT_OF_LINE="false"),
+    "dq128_snake": _dq_form(L2_GROUPS="false"),
+    "dq128_store_in_q": _dq_form(STORE_APART="false"),
+    "dq128_whole_q": _dq_form(Q_HALVES="false"),
+    "dq128_lead_0": _dq_form(KV_LEAD="0"),
+    "dq128_lead_3": _dq_form(KV_LEAD="D == 64 ? 0 : 3"),
+    "dq128_lead_4": _dq_form(KV_LEAD="D == 64 ? 0 : 4"),
+    "dq128_two_q": _dq_form(**_DQ128_TWO_Q),
+    "dq128_one_q_4": _dq_form(STORE_APART="false", Q_HALVES="false",
+                              KV_LEAD="0"),
+    "dq128_one_q_5": _dq_form(STORE_APART="false", Q_HALVES="false",
+                              KV_LEAD="0", STAGES="D == 64 ? 4 : 5"),
+    # The forms that were measured and dropped: lse and delta staged by the
+    # producer warp, the next item's Q and dO prefetched into the L2
+    # cache, dQ out by TMA stores, and S_{t+1} / dP_{t+1} before dS_t.
+    "dq128_rows": _dq_form(Q_HALVES="false") + _DQ_ROWS,
+    "dq128_prefetch": _DQ_PREFETCH,
+    "dq128_tma_store": _DQ_TMA_STORE,
+    "dq128_ahead": [("flash_attn.cu", _DQ_OVERLAP, _DQ_AHEAD)],
 }
 ITEM_PHASES = ["to the item", "Q/K/V waits", "issue, S wait",
                "softmax", "last P V wait", "epilogue", "zero O, pack P"]
@@ -728,6 +1122,10 @@ DKV_ITEM_PHASES = ["to the item", "K/V wait", "skipped tiles", "first tile",
                    "last dK/dV", "epilogue"]
 DKV_TILE_PHASES = ["Q/dO wait", "issue S^T, dV, dK", "S^T wait", "P^T",
                    "dV/dK wait", "dP^T", "dS^T", "pack"]
+DQ_ITEM_PHASES = ["to the item", "Q/dO wait, lse/delta", "first tile",
+                  "last dQ wait", "skipped tiles", "epilogue"]
+DQ_TILE_PHASES = ["K/V wait", "issue S, dP, dQ", "S/dP wait", "dS",
+                  "dQ wait", "pack"]
 
 
 def variant_source(name: str) -> str:
@@ -795,9 +1193,36 @@ def clocks(lib, launch, item_phases=ITEM_PHASES, tile_phases=TILE_PHASES):
     return out
 
 
-def probe(name, inputs):
+# dQ of ``dq128_before`` at each head_dim-128 shape, once it has run: the
+# bits every later variant's dQ is held to.
+_BEFORE_DQ = {}
+
+
+def plain_refs(inputs):
+    """The plain versions' outputs at a shape of ``inputs``, computed at
+    its first use and kept for the run: (o, lse, delta, dq, dk, dv)."""
+    memo = {}
+
+    def get(label):
+        if label not in memo:
+            q, k, v, do = inputs[label]
+            o_ref, lse_ref = attn._fwd_plain(q, k, v, True)
+            delta = attn.attention_delta(o_ref, do)
+            dq_ref = attn._bwd_dq_plain(q, k, v, do, lse_ref, delta, True)
+            dk_ref, dv_ref = attn._bwd_dkv_plain(q, k, v, do, lse_ref, delta,
+                                                 True)
+            memo[label] = (o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref)
+            torch.cuda.empty_cache()
+        return memo[label]
+
+    return get
+
+
+def probe(name, inputs, refs):
     """The variant built anew (so ``ptxas -v`` speaks for it), timed and
-    held to the plain versions at every shape of ``inputs``."""
+    held to the plain versions at every shape of ``inputs`` (a dq128
+    variant: its dQ alone at the head_dim-128 shapes, and its bits against
+    ``dq128_before``'s once that has run)."""
     build.CSRC = variant_source(name)
     root, build.BUILD_DIR = build.BUILD_DIR, os.path.join(build.CSRC,
                                                           "kernels")
@@ -811,9 +1236,12 @@ def probe(name, inputs):
                      if "spill" in ln or "registers" in ln or "C75" in ln
                      or "Compiling entry" in ln],
            "sass_highest_register": build.sass_registers(path)}
+    dq_only = name.startswith("dq128")
     for label, (q, k, v, do) in inputs.items():
-        o_ref, lse_ref = attn._fwd_plain(q, k, v, True)
-        delta = attn.attention_delta(o_ref, do)
+        d128 = q.shape[-1] == 128
+        if dq_only and not d128:
+            continue
+        o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref = refs(label)
         o = torch.empty_like(q)
         lse = torch.empty_like(lse_ref)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -826,21 +1254,28 @@ def probe(name, inputs):
         dq_ = attn._launcher(entry("flash_bwd_dq"), q, k, {
             "ptrs": (q, k, v, do, lse_ref, delta, dq),
             "strided": (q, k, v, do, dq)}, True)
-        row = {"flash_fwd_ms": time_ms(fwd), "flash_bwd_dq_ms": time_ms(dq_),
-               "flash_bwd_dkv_ms": time_ms(dkv)}
-        dq_ref = attn._bwd_dq_plain(q, k, v, do, lse_ref, delta, True)
-        dk_ref, dv_ref = attn._bwd_dkv_plain(q, k, v, do, lse_ref, delta,
-                                             True)
-        row["tile_rel_err"] = max(attn.tile_rel_err(a, r) for a, r in (
-            (o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
-        row["lse_err"] = (lse - lse_ref).abs().max().item()
-        del o_ref, dq_ref, dk_ref, dv_ref
-        torch.cuda.empty_cache()
+        if dq_only:
+            row = {"flash_bwd_dq_ms": time_ms(dq_),
+                   "tile_rel_err": attn.tile_rel_err(dq, dq_ref)}
+        else:
+            row = {"flash_fwd_ms": time_ms(fwd),
+                   "flash_bwd_dq_ms": time_ms(dq_),
+                   "flash_bwd_dkv_ms": time_ms(dkv)}
+            row["tile_rel_err"] = max(attn.tile_rel_err(a, r) for a, r in (
+                (o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
+            row["lse_err"] = (lse - lse_ref).abs().max().item()
+        if d128:
+            if name == "dq128_before":
+                _BEFORE_DQ[label] = dq.clone()
+            row["dq_equals_before"] = (torch.equal(dq, _BEFORE_DQ[label])
+                                       if label in _BEFORE_DQ else None)
         if name == "clocks":
             row["clocks"] = clocks(lib, fwd)
-        if name == "dkv128_clocks" and q.shape[-1] == 128:
+        if name == "dkv128_clocks" and d128:
             row["clocks"] = clocks(lib, dkv, DKV_ITEM_PHASES,
                                    DKV_TILE_PHASES)
+        if name.endswith("clocks") and name.startswith("dq128"):
+            row["clocks"] = clocks(lib, dq_, DQ_ITEM_PHASES, DQ_TILE_PHASES)
         res[label] = row
     return res
 
@@ -854,8 +1289,13 @@ def main(names):
         torch.randn((b, s, h, d), generator=gen,
                     device="cuda").to(torch.bfloat16) for _ in range(4))
         for label, (b, h, s, d) in SHAPES.items()}
+    refs = plain_refs(inputs)
     for name in names or list(VARIANTS):
-        print(name, json.dumps(probe(name, inputs)), flush=True)
+        try:
+            res = probe(name, inputs, refs)
+        except RuntimeError as e:  # a variant nvcc refuses
+            res = {"error": str(e)[-4000:]}
+        print(name, json.dumps(res), flush=True)
     return 0
 
 

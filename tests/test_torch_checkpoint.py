@@ -295,7 +295,13 @@ def test_port_saver_persists_and_flushes_a_jax_engine(opt, port_saver,
     jt = jax_trainer(opt, str(tmp_path), persist_every=2)
     engine = jt._ckpt.engine
     assert engine.agent_mode
-    jt.fit(iter(batches()[:3]), steps=3)
+    jt.fit(iter(batches()[:2]), steps=2)
+    # The JAX engine skips a memory snapshot asked for while an earlier
+    # one still stages (engine.py's save_to_memory_async): step 1's
+    # staging, which a loaded host can leave in flight past step 3, is
+    # joined before step 3 asks for the snapshot the flush persists.
+    engine.wait_staged()
+    jt.fit(iter(batches()[2:3]), steps=3, start_step=2)
     assert engine.wait_persisted(2, timeout=60)
     engine.wait_staged()
     want = jax_bytes(jt.state)

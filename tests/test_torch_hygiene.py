@@ -233,8 +233,9 @@ def test_flash_probe_variants_apply_to_the_source(tmp_path, monkeypatch):
         out = flash_probe.variant_source(name)
         with open(os.path.join(out, "flash_attn.cu")) as f:
             text = f.read()
-        assert ("g_clocks" in text) == (name in ("clocks",
-                                                 "dkv128_clocks")), name
+        assert ("g_clocks" in text) == (name in (
+            "clocks", "dkv128_clocks", "dq128_clocks",
+            "dq128_before_clocks")), name
 
 
 def test_adam8_probe_variants_apply_to_the_source(tmp_path, monkeypatch):

@@ -151,6 +151,39 @@ def test_cuda_d128_dkv_walk_writes_every_row(cuda_device, causal, s, b, h):
     assert port.tile_rel_err(dv, dv_ref) <= port.TILE_REL_TOL
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,s,b,h", [
+    (True, 2048, 1, 40),  # dQ's L2 groups of 24 and 16 (b, h)
+    (False, 2048, 1, 40),  # 25 and 15
+    (True, 8192, 1, 16),  # the preset's long row: groups of 4
+    (True, 1000, 2, 4),  # a ragged S
+    (False, 1000, 2, 4),
+    (True, 900, 2, 3),  # the last query tile's upper rows lie past S
+    (True, 2048, 1, 1),  # one (b, h): 16 items, fewer than the SMs
+])
+def test_cuda_d128_dq_walk_writes_every_row(cuda_device, causal, s, b, h):
+    """The head_dim-128 dQ kernel's walk over its items: dQ, filled with
+    NaN before each launch, holds none after it (a dropped item fails
+    even where the plain version's rows are zero), matches the plain
+    version, and comes out bit for bit the same from a second launch."""
+    q, k, v, g = (torch.tensor(x).to(cuda_device, torch.bfloat16)
+                  for x in inputs(s, seed=8, b=b, h=h, d=128))
+    o_ref, lse_ref = port._fwd_plain(q, k, v, causal)
+    delta = port.attention_delta(o_ref, g)
+    dq_ref = port._bwd_dq_plain(q, k, v, g, lse_ref, delta, causal)
+    outs = []
+    for _ in range(2):
+        dq = torch.full_like(q, float("nan"))
+        port._launcher(port.entry_name("flash_bwd_dq", 128), q, k, {
+            "ptrs": (q, k, v, g, lse_ref, delta, dq),
+            "strided": (q, k, v, g, dq)}, causal)()
+        torch.cuda.synchronize()
+        assert not dq.isnan().any()
+        outs.append(dq)
+    assert torch.equal(outs[0], outs[1])
+    assert port.tile_rel_err(dq, dq_ref) <= port.TILE_REL_TOL
+
+
 # ------------------------------------------- the check, on the CPU
 
 S_CHECK = 1024  # the main path's sequence length
@@ -504,6 +537,67 @@ def test_check_rejects_wrong_d128_dkv_schedule(check_case_d128, wrong,
     dk, dv = emulated_dkv_pipelined(q, k, v, do, lse, delta, wrong)
     got = {"dk": dk, "dv": dv}
     assert _err_over_limit(output, got[output], refs[output]) > 2
+
+
+DQ_ITEM, DQ_TILE = 128, 64  # dQ's query rows an item, kv rows a tile
+
+
+def emulated_dq_pipelined(q, k, v, do, lse, delta, fault=None):
+    """The head_dim-128 dQ kernel's loop as it runs, causal: each 128-row
+    query item of each (b, h) as two warpgroups of 64 rows, each with its
+    rows' lse and delta read once for the item, over the 64-row kv tiles
+    up to the last one its rows see; tile t's dS (fp32, rounded to bf16)
+    goes into dQ += dS K_t. Faults of a loop whose lse and delta come from
+    the item's buffer, or that runs a tile ahead: "rows_of_other_warpgroup"
+    forms the upper 64 rows' dS with the lower 64 rows' lse and delta;
+    "rows_of_previous_item" with the lse and delta of the query rows 128
+    before (a buffer's rows left from the item before; the first item
+    its own); "k_of_next_tile" adds dS_t K_{t+1} (the last tile's with its
+    own K). dQ in bf16."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt, dot = (_bhsd(x) for x in (q, k, v, do))
+    s_len = qt.shape[-2]
+    src = torch.arange(s_len)  # the row whose lse and delta a row reads
+    if fault == "rows_of_other_warpgroup":
+        src = torch.where(src % DQ_ITEM >= DQ_TILE, src - DQ_TILE, src)
+    if fault == "rows_of_previous_item":
+        src = torch.where(src >= DQ_ITEM, src - DQ_ITEM, src)
+    lse_r, delta_r = lse[..., src], delta[..., src]
+    dq = torch.zeros_like(qt)
+    tile = lambda x, t: x[..., t * DQ_TILE:(t + 1) * DQ_TILE, :]  # noqa
+    for lo in range(0, s_len, DQ_TILE):  # a warpgroup's query rows
+        rows = torch.arange(lo, min(lo + DQ_TILE, s_len))
+        n_mine = lo // DQ_TILE + 1
+        for t in range(n_mine):
+            cols = torch.arange(t * DQ_TILE, min((t + 1) * DQ_TILE, s_len))
+            seen = cols[None, :] <= rows[:, None]
+            s_t = qt[..., rows, :] @ tile(kt, t).transpose(-1, -2) * scale
+            p = torch.exp(s_t - lse_r[..., rows, None]).masked_fill(~seen,
+                                                                   0.0)
+            dp = dot[..., rows, :] @ tile(vt, t).transpose(-1, -2)
+            ds = (p * (dp - delta_r[..., rows, None])).bfloat16().float()
+            t_k = t + 1 if fault == "k_of_next_tile" and t + 1 < n_mine \
+                else t
+            dq[..., rows, :] += ds @ tile(kt, t_k)[..., :len(cols), :] * \
+                scale
+    return dq.transpose(1, 2).bfloat16()
+
+
+def test_check_passes_d128_pipelined_dq_rounding(check_case_d128):
+    """The dQ kernel's loop (a warpgroup's kv tiles in order, bf16 dS a
+    tile) stays as far inside the limit as the one-pass emulation."""
+    (q, k, v, do, lse, delta), refs = check_case_d128
+    dq = emulated_dq_pipelined(q, k, v, do, lse, delta)
+    assert _err_over_limit("dq", dq, refs["dq"]) <= 0.5
+
+
+@pytest.mark.parametrize("wrong", ["rows_of_other_warpgroup",
+                                   "rows_of_previous_item",
+                                   "k_of_next_tile"])
+def test_check_rejects_wrong_d128_dq_schedule(check_case_d128, wrong):
+    (q, k, v, do, lse, delta), refs = check_case_d128
+    dq = emulated_dq_pipelined(q, k, v, do, lse, delta, wrong)
+    assert _err_over_limit("dq", dq, refs["dq"]) > 2
 
 
 def test_tile_rel_err_ragged_and_tile_local():
