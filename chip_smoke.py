@@ -71,21 +71,29 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    that has its axis (size 1), beside the one-device path of the same
    seed and batch: GPT-2 xl ("dots", ``adam8bit``, 4 x 1024) under fsdp
    (FSDP2) and data, the LLaMA preset (4 x 2048, "dots") under tensor
-   (its kernels DTensors, the head vocab-parallel): 2 warm-up steps, a
-   window of 4 and 1 traced, each window's losses equal the one-device
-   path's bit for bit (fsdp's parameters too), the kernels' launches as
-   many, and a sharded snapshot of the fsdp run persisted and restored
-   into a fresh one-device trainer bit for bit, leaf by leaf; step ms,
-   peak GiB and busy share of each beside the one-device path's
-   (``[mesh]`` lines). Then ZeRO-1 (``[zero]`` lines) on a ("data", 1)
+   (its kernels DTensors, the embedding and the head vocab-parallel)
+   and under fsdp x tensor (FSDP2 over the DTensors; 2 steps, the
+   embedding's lookup vocab-parallel): 2 warm-up steps, a window of 4
+   and 1 traced, each window's losses equal the one-device path's bit
+   for bit (fsdp's parameters too), the kernels' launches as many, and
+   a sharded snapshot of the fsdp run persisted and restored into a
+   fresh one-device trainer bit for bit, leaf by leaf; step ms, peak
+   GiB and busy share of each beside the one-device path's (``[mesh]``
+   lines); then ``PlainGPT`` (GPT-2 124M's widths as a plain module of
+   ``nn.Linear`` / ``nn.Embedding`` / ``nn.LayerNorm``, bf16, its
+   attention the head_dim-64 flash kernels) at 16 x 1024 under AdamW
+   on one device and placed by ``plan_tp``'s registry on an ("fsdp",
+   1), ("tensor", 1) mesh: the planner's roles checked and printed
+   (``[registry]`` line), the losses bit for bit, the kernels as many. Then ZeRO-1 (``[zero]`` lines) on a ("data", 1)
    mesh of an NCCL world of one: the LLaMA preset (4 x 2048, "dots")
    under ``bf16_master_weights(adamw)`` with ``zero=True`` (the wrapper
    owns whole leaves and all-gathers them) beside the one-device run of
    the same seed and batch, each window's losses bit for bit and the
    head_dim-128 kernels 22 / 44 times a step; the sliced state's GiB,
    step ms, and its snapshot (stamped with ZeRO degree 0) persisted and
-   restored into a fresh one-device trainer bit for bit; GPT-2 xl's
-   8-bit Adam under ``zero=True``: the JAX package's warning (nothing
+   restored into a fresh one-device trainer bit for bit; the same
+   under ``zero=True`` on ("data", 1), ("fsdp", 1), ("tensor", 1) (2
+   steps, bit for bit); GPT-2 xl's 8-bit Adam under ``zero=True``: the JAX package's warning (nothing
    to slice), the fused kernel once a step, the one-device losses bit
    for bit. Then the LLaMA preset with 8 swiglu experts (top
    2, capacity factor 1.25; 6.36B parameters, 1.90B active) at full
@@ -173,6 +181,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from dlrover_tpu_torch.accel import (
     ParallelSpec,
@@ -189,6 +199,10 @@ from dlrover_tpu_torch.common.shared_memory import SharedMemory
 from dlrover_tpu_torch.models.convert import leaf_bytes, train_state_leaves
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn, moe_loss_fn
 from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
+from dlrover_tpu_torch.models.tensor_parallel import (
+    ParallelLinear,
+    VocabParallelEmbedding,
+)
 from dlrover_tpu_torch.ops import attention as attn
 from dlrover_tpu_torch.ops import build
 from dlrover_tpu_torch.optim import (
@@ -1888,6 +1902,9 @@ def crash_drill(seed, root):
 # TRACED traced steps (profile_window), as on the one-device path beside
 # it.
 MESH_STEPS = 4
+# The windows of the two-axis mesh, ZeRO-1 beside it and the plain
+# module (each after WARMUP steps, at most TRACED traced).
+TWO_AXIS_STEPS = 2
 
 
 class MeshLoop:
@@ -1999,22 +2016,22 @@ def _mesh_phases(seed, windows, dev, root):
         gen = torch.Generator(device="cuda").manual_seed(s)
         return model_cls(cfg, device="cuda", generator=gen)
 
-    def branch(label, cfg, model_cls, lr, batch, axis):
+    def branch(label, cfg, model_cls, lr, batch, axes, steps=MESH_STEPS):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        if axis is None:
+        if not axes:
             res = auto_accelerate(model(cfg, model_cls, seed), adam8bit(lr),
                                   batch, token_loss, spec=ParallelSpec(),
                                   device=dev)
         else:
-            mesh = create_mesh([(axis, 1)], dev)
+            mesh = create_mesh([(a, 1) for a in axes], dev)
             check(dist.get_backend() == "nccl", "the mesh is not on NCCL")
             res = accelerate_on_mesh(model(cfg, model_cls, seed),
                                      adam8bit(lr), batch, token_loss, mesh,
                                      device=dev)
             check(res.mesh is mesh, f"{label}: not on the mesh")
-        name = f"{label} {axis or 'one device'}"
-        stats, loop = mesh_window(name, res, batch, cfg, base)
+        name = f"{label} {' x '.join(axes) or 'one device'}"
+        stats, loop = mesh_window(name, res, batch, cfg, base, steps=steps)
         windows[f"mesh {name}"] = stats["launches"]
         summary[name] = {k: stats[k] for k in ("step_ms", "peak_mem_gib",
                                                 "busy_share", "kernel_ms")}
@@ -2022,9 +2039,9 @@ def _mesh_phases(seed, windows, dev, root):
 
     batch = np.random.default_rng(seed).integers(
         0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
-    one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, None)
+    one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ())
     xl_one = one["losses"]
-    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "fsdp")
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("fsdp",))
     check(got["losses"] == one["losses"],
           f"fsdp losses {got['losses']} differ from one device's "
           f"{one['losses']}")
@@ -2055,7 +2072,7 @@ def _mesh_phases(seed, windows, dev, root):
         "restored bit for bit on one device")
     del fresh
     torch.cuda.empty_cache()
-    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, "data")
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("data",))
     check(got["losses"] == one["losses"],
           f"data losses {got['losses']} differ from one device's "
           f"{one['losses']}")
@@ -2066,18 +2083,162 @@ def _mesh_phases(seed, windows, dev, root):
     batch = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, seq), dtype=np.int64)
     one, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
-                      None)
+                      ())
     del res
     torch.cuda.empty_cache()
     got, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
-                      "tensor")
+                      ("tensor",))
     check(got["losses"] == one["losses"],
           f"tensor losses {got['losses']} differ from one device's "
           f"{one['losses']}")
     del res
     torch.cuda.empty_cache()
+    # fsdp x tensor: FSDP2 over the tensor-parallel DTensors; the
+    # embedding's rows on the tensor axis, looked up vocab-parallel.
+    got, res = branch(f"llama B{b} S{seq}", cfg, Llama, LLAMA_LR, batch,
+                      ("fsdp", "tensor"), steps=TWO_AXIS_STEPS)
+    check(got["losses"] == one["losses"][:TWO_AXIS_STEPS],
+          f"fsdp x tensor losses {got['losses']} differ from one device's "
+          f"{one['losses'][:TWO_AXIS_STEPS]}")
+    lay = sharding.layout_of(res.state["params"]["embed.weight"])
+    check(res.module.vocab_mesh is not None
+          and lay.shard[lay.mesh.mesh_dim_names.index("tensor")] == 0,
+          "fsdp x tensor: the embedding is not vocab-parallel")
+    del res
+    torch.cuda.empty_cache()
+    registry_window(seed, windows, summary, dev)
     log("[mesh] " + json.dumps(summary))
     return xl_one
+
+
+class PlainBlock(nn.Module):
+    """A pre-LN block of plain torch modules (no ``logical_axes()``):
+    q, k, v, o and a GELU MLP (up, down) as ``nn.Linear``, two
+    ``nn.LayerNorm``; its attention the port's flash kernels over the
+    heads of the local width (``view(b, s, -1, head_dim)``)."""
+
+    def __init__(self, d, head_dim, dtype):
+        super().__init__()
+        kw = dict(device="cuda", dtype=dtype)
+        self.head_dim = head_dim
+        self.ln1 = nn.LayerNorm(d, **kw)
+        self.q_proj = nn.Linear(d, d, **kw)
+        self.k_proj = nn.Linear(d, d, **kw)
+        self.v_proj = nn.Linear(d, d, **kw)
+        self.o_proj = nn.Linear(d, d, **kw)
+        self.ln2 = nn.LayerNorm(d, **kw)
+        self.up = nn.Linear(d, 4 * d, **kw)
+        self.down = nn.Linear(4 * d, d, **kw)
+
+    def forward(self, x):
+        from dlrover_tpu_torch.ops.attention import flash_attention
+
+        b, s, _ = x.shape
+        y = self.ln1(x)
+        q, k, v = (proj(y).view(b, s, -1, self.head_dim)
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        x = x + self.o_proj(flash_attention(q, k, v, causal=True)
+                            .reshape(b, s, -1))
+        y = F.gelu(self.up(self.ln2(x)), approximate="tanh")
+        return x + self.down(y)
+
+
+class PlainGPT(nn.Module):
+    """GPT-2 124M's widths as a plain module, bf16: token and position
+    ``nn.Embedding``s, ``block_<i>``, a final ``nn.LayerNorm`` and an
+    untied ``nn.Linear`` head; torch's default init from the global
+    seed."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device="cuda", dtype=dtype)
+        self.layers = cfg.num_layers
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, **kw)
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", PlainBlock(cfg.d_model,
+                                                     cfg.head_dim, dtype))
+        self.ln_f = nn.LayerNorm(cfg.d_model, **kw)
+        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
+                                 **kw)
+
+    def forward(self, tokens):
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.wte(tokens) + self.wpe(pos)
+        for i in range(self.layers):
+            x = getattr(self, f"block_{i}")(x)
+        return self.lm_head(self.ln_f(x))
+
+
+def plain_loss(module, params, batch):
+    """Next-token cross entropy of the whole logits, in fp32."""
+    logits = module(batch)[:, :-1].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch[:, 1:, None])[..., 0]
+    return torch.mean(lse - tgt)
+
+
+def registry_window(seed, windows, summary, dev):
+    """``[registry]``: ``PlainGPT`` (GPT-2 124M's widths, 16 x 1024,
+    ``adamw``) on one device, then placed on an ("fsdp", 1), ("tensor",
+    1) mesh by ``plan_tp``'s registry: the planner's roles (q/k/v/up
+    column-, o/down row-parallel, the head column-parallel over the
+    vocab), the embeddings vocab-parallel, each window's losses bit for
+    bit the one device's and the head_dim-64 flash kernels as often."""
+    cfg = GPTConfig(**GPT2)
+    batch = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int64)
+
+    def plain():
+        torch.manual_seed(seed)
+        return PlainGPT(cfg)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    one = auto_accelerate(plain(), adamw(3e-4), batch, plain_loss,
+                          spec=ParallelSpec(), device=dev)
+    label = "plain gpt2-124m"
+    stats = mesh_window(f"{label} one device", one, batch, cfg, base,
+                        steps=TWO_AXIS_STEPS, fused=False)[0]
+    windows[f"registry {label} one device"] = stats["launches"]
+    summary[f"{label} one device"] = {
+        k: stats[k] for k in ("step_ms", "peak_mem_gib", "busy_share",
+                              "kernel_ms")}
+    want = stats["losses"]
+    del one
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mesh = create_mesh([("fsdp", 1), ("tensor", 1)], dev)
+    res = accelerate_on_mesh(plain(), adamw(3e-4), batch, plain_loss, mesh,
+                             device=dev, allow_tensor=True)
+    roles = {n: m.role for n, m in res.module.named_modules()
+             if isinstance(m, ParallelLinear)}
+    expect = {"lm_head": "col"}
+    for i in range(cfg.num_layers):
+        for proj, role in (("q_proj", "col"), ("k_proj", "col"),
+                           ("v_proj", "col"), ("up", "col"),
+                           ("o_proj", "row"), ("down", "row")):
+            expect[f"block_{i}.{proj}"] = role
+    check(roles == expect, f"registry: the planner's roles {roles}, want "
+          f"{expect}")
+    check(isinstance(res.module.wte, VocabParallelEmbedding),
+          "registry: the token embedding is not vocab-parallel")
+    stats = mesh_window(f"{label} fsdp x tensor", res, batch, cfg, base,
+                        steps=TWO_AXIS_STEPS, fused=False)[0]
+    windows[f"registry {label} fsdp x tensor"] = stats["launches"]
+    check(stats["losses"] == want, f"registry losses {stats['losses']} "
+          f"differ from one device's {want}")
+    summary[f"{label} fsdp x tensor"] = {
+        k: stats[k] for k in ("step_ms", "peak_mem_gib", "busy_share",
+                              "kernel_ms")}
+    log("[registry] " + json.dumps({
+        "roles": {k: roles[k] for k in sorted(roles)
+                  if k.startswith(("block_0.", "lm_head"))},
+        "planned": len(roles), "losses": stats["losses"],
+        "one_device_losses": want}))
+    del res
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- experts, sequence
@@ -2414,6 +2575,38 @@ def zero_phases(seed, windows, xl_one):
         log(f"[zero {label}] snapshot of step {step}: every leaf restored "
             "bit for bit on one device")
         del fresh, want_bytes
+        torch.cuda.empty_cache()
+        # ZeRO-1 beside fsdp and tensor: the slices cut from the
+        # FSDP2-over-tensor-parallel shards.
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        res = accelerate_on_mesh(
+            llama(seed), bf16_master_weights(adamw(LLAMA_LR)), batch,
+            token_loss, create_mesh([("data", 1), ("fsdp", 1),
+                                     ("tensor", 1)], dev),
+            device=dev, zero=True)
+        opt = res.state["opt"]
+        check(isinstance(opt, ZeroOptimizer) and opt.slices,
+              f"zero x fsdp x tensor: the optimizer is a "
+              f"{type(opt).__name__} of {len(getattr(opt, 'slices', ()))} "
+              "slices")
+        check(res.module.vocab_mesh is not None,
+              "zero x fsdp x tensor: the embedding is not vocab-parallel")
+        stats = mesh_window(f"{label} zero data x fsdp x tensor", res, batch,
+                            cfg, base, traced=0, steps=TWO_AXIS_STEPS,
+                            fused=False)[0]
+        windows[f"zero {label} data x fsdp x tensor"] = stats["launches"]
+        check(stats["losses"] == want[:TWO_AXIS_STEPS],
+              f"zero x fsdp x tensor losses {stats['losses']} differ from "
+              f"one device's {want[:TWO_AXIS_STEPS]}")
+        state_gib, buffers_gib = zero_state_gib(opt)
+        summary["zero data x fsdp x tensor"] = {
+            **{k: stats[k] for k in ("step_ms", "peak_mem_gib")},
+            "sliced_leaves": len(opt.slices), "state_gib": state_gib,
+            "slice_buffers_gib": buffers_gib,
+            "step_over_one_device": stats["step_ms"]
+            / summary["one device"]["step_ms"]}
+        del res, opt
         torch.cuda.empty_cache()
         gen = torch.Generator(device="cuda").manual_seed(seed)
         xl_batch = np.random.default_rng(seed).integers(

@@ -28,10 +28,19 @@ places the module on a ``DeviceMesh`` of those axes
 - ``tensor``: each ``Dense`` whose logical axes the rules map to the
   tensor axis becomes column- or row-parallel (``tensor_parallel``):
   its kernel a DTensor of its shard, the blocks computing on their
-  local heads and ``mlp`` columns; LLaMA's untied head is
-  vocab-parallel;
-- ``fsdp``: FSDP2's ``fully_shard`` on each block, then on the root
-  (every parameter sharded along dim 0, FSDP2's default);
+  local heads and ``mlp`` columns; when the vocab divides, the
+  embedding's rows are sharded (its lookup sums the ranks' rows) and
+  so is the head, LLaMA's untied one and GPT's tied ``wte`` (its
+  logits a DTensor sharded along the vocab);
+- ``fsdp``: FSDP2's ``fully_shard`` on each block, then on the root,
+  every parameter sharded along the dim its ``embed`` axis names, as
+  JAX's rules place it (FSDP2's ``shard_placement_fn``); a leaf
+  without one (a bias, whose JAX leaf lies whole on fsdp) along dim 0,
+  as FSDP2 shards every parameter it holds. With ``tensor`` too,
+  FSDP2's 2-D form shards the tensor-parallel DTensors: a kernel's or
+  the embedding's two axes take two dims, and where the tensor axis
+  already splits dim 0 (a column bias) a rank's rows are the fsdp chunk
+  of its tensor chunk (``_StridedShard``);
 - ``expert``: each MoE layer's stacks (and its router, along its expert
   columns) DTensors of this rank's experts (``ops/moe.py``); tokens are
   replicated over the axis, as JAX's ``batch`` rule names only data
@@ -49,6 +58,26 @@ places the module on a ``DeviceMesh`` of those axes
   takes this rank's rows (its ``(data, fsdp)`` coordinate) before they
   reach the device, and the step's loss is the mean over all ranks.
 
+A model without ``logical_axes()`` (a plain ``nn.Module``) is placed
+by a ``ShardingRegistry`` (``accel/registry.py``), as JAX's ``build``
+annotates one: the caller's ``registry=``, else under ``tensor`` (or
+``allow_tensor=True``) ``tp_planner.plan_tp``'s from one forward of the
+sample batch, else the defaults. Each ``nn.Linear`` the rules put on
+the tensor axis becomes a ``ParallelLinear`` (column biases sharded,
+row biases replicated; the head whose axis is ``vocab`` gathers its
+logits), an ``nn.Embedding`` whose vocab rows they put there a
+``VocabParallelEmbedding``, and FSDP2 shards every parameter as it
+shards an annotated model's, each block a unit (the items of its
+``nn.ModuleList``s, or else its direct children that hold layers).
+The rules are JAX's for a model without ``cfg.vocab_size``: the vocab
+rule has no divisibility guard, so the embedding's rows and the
+planned head's are sharded whatever the vocab (``torch.chunk``'s
+uneven split where the degree does not divide it, a split JAX's jit
+refuses for its parameters).
+Its blocks must take their head count from the local width
+(``view(b, s, -1, head_dim)``): a rank's tensors are local, not
+DTensors.
+
 An MoE layer on any mesh routes as JAX routes the global batch (capacity
 from the global token count, buffer positions offset by the earlier
 ranks' tokens). Not yet: ``seq`` or ``expert`` (or an MoE model) with
@@ -65,10 +94,11 @@ JAX package's 8-bit Adam does: ``MeshOptimizer`` gathers each sharded
 leaf's gradient and parameter, updates the whole leaf, and writes back
 this rank's shard. A torch optimizer (``adamw``, ``agd``) steps the
 DTensor shards themselves. ``ParallelSpec(data=N, zero=True)`` (ZeRO-1,
-``accel/zero.py``) slices the optimizer state over the data ranks
-instead: each steps its slice of every leaf and all-gathers the updated
-parameters; with another degree above 1 it raises
-``NotImplementedError`` (its leaves would lie over two mesh axes).
+``accel/zero.py``), alone or beside ``fsdp`` and ``tensor``, slices the
+optimizer state over the data ranks instead: each steps its slice of
+every leaf (cut from its fsdp or tensor shard) and all-gathers the
+updated parameters; beside ``seq``, ``expert`` or ``pipe`` it raises
+``NotImplementedError``.
 
 ``spec="auto"`` runs the JAX package's strategy search
 (``accel/search.py``) for the world's size and the batch: it ranks the
@@ -96,6 +126,7 @@ from torch import nn
 
 from dlrover_tpu_torch.accel import sharding
 from dlrover_tpu_torch.accel.mesh import axis_sizes, create_mesh
+from dlrover_tpu_torch.accel.registry import has_annotations
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.ops.moe import Axis, MoEMLP
@@ -105,12 +136,10 @@ from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 # The mesh axes this slice places a module on, in the JAX package's order.
 MESH_AXES = ("data", "fsdp", "pipe", "seq", "expert", "tensor")
 _ITEM2 = "a later part of the multi-device slice (ROADMAP queue 1, item 2"
-_TWO_AXES = _ITEM2 + ": fsdp x tensor and zero's two-axis leaves)"
-_REGISTRY = _ITEM2 + (": the sharding registry and tp_planner for plain "
-                      "modules, accel/registry.py and accel/tp_planner.py)")
+_ZERO_REST = _ITEM2 + ": ZeRO-1's leaves beside seq, expert or pipe)"
 _ITEM6 = ("a later part of ROADMAP queue 1, item 6 (sequence and expert "
-          "parallelism's rest: a leaf sharded over two mesh axes, as item "
-          "2's fsdp x tensor)")
+          "parallelism's rest: seq or expert beside fsdp or tensor, whose "
+          "leaves lie over two mesh axes as fsdp x tensor's do)")
 _PIPE_REST = ("a later part of ROADMAP queue 1, item 6 (pipeline "
               "parallelism's rest: pipe with fsdp, tensor, seq or expert, "
               "and the vocab over pipe)")
@@ -162,11 +191,15 @@ class ParallelSpec:
             if getattr(self, name) > 1
         ]
 
-    def rules(self, vocab_size: int = 0):
+    def rules(self, vocab_size: int = 0, present=()):
+        """The JAX package's rules for these degrees; the axes named in
+        ``present`` take their rules at size 1 too (a mesh that has
+        them)."""
         d = dataclasses.asdict(self)
         # Algorithm choice, not a mesh degree: no logical-axis rule.
         d.pop("collectives", None)
-        return sharding.logical_rules(**d, vocab_size=vocab_size)
+        return sharding.logical_rules(**d, vocab_size=vocab_size,
+                                      present=present)
 
 
 @dataclass
@@ -391,11 +424,12 @@ def _check_spec(spec: Any, carries: Dict[str, bool]) -> ParallelSpec:
             f"collectives={spec.collectives} (a per-axis all-reduce "
             "algorithm) comes with the comms governor (ROADMAP queue 1, "
             "item 5)")
-    if spec.zero and any(n > 1 for a, n in spec.axes() if a != "data"):
+    if spec.zero and any(n > 1 for a, n in spec.axes()
+                         if a in ("seq", "expert", "pipe")):
         raise NotImplementedError(
             f"ZeRO-1 (zero=True) with {dict(spec.axes())}: its optimizer-"
-            "state leaves would be sharded over two mesh axes; it comes "
-            "with " + _TWO_AXES)
+            "state leaves beside a seq, expert or pipe axis come with "
+            + _ZERO_REST)
     _check_axes(dict(spec.axes()))
     _check_spec_axes_used(spec, carries)
     if spec.total > 1 and spec.total != _world_size():
@@ -458,13 +492,10 @@ def _check_mesh(sizes: Dict[str, int], carries: Dict[str, bool],
     if carries["expert"] and ("fsdp" in sizes or "tensor" in sizes):
         raise NotImplementedError(
             "an MoE model on an fsdp or tensor axis comes with " + _ITEM6)
-    if "fsdp" in sizes and "tensor" in sizes:
-        raise NotImplementedError(
-            "fsdp and tensor degrees together (FSDP2 over tensor-parallel "
-            "DTensors) come with " + _TWO_AXES)
     if offload_optimizer:
         raise NotImplementedError(
-            "offload_optimizer on a mesh comes with " + _ITEM2 + ")")
+            "offload_optimizer on a mesh comes with " + _ITEM2
+            + ": the optimizer's host state on a mesh)")
 
 
 def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
@@ -480,7 +511,7 @@ def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
     if spec.total == 1:
         return
     _check_mesh(dict(spec.axes()), carries, offload_optimizer)
-    if spec.tensor > 1:
+    if spec.tensor > 1 and cfg is not None:
         counts = {"num_heads": cfg.num_heads, "mlp width": cfg.ff_dim}
         if hasattr(cfg, "kv_heads"):
             counts["num_kv_heads"] = cfg.kv_heads
@@ -532,8 +563,10 @@ def auto_accelerate(
     ``profile=True`` dry-runs the top ``search_top_k`` candidates for
     ``profile_steps`` steps each and keeps the fastest;
     ``allow_tensor=False`` strips tensor parallelism from the search.
-    ``allow_tensor=True`` and ``registry=`` on a model without
-    ``logical_axes()`` (and ``"auto"`` on one over several processes),
+    A model without ``logical_axes()`` is placed on a mesh by
+    ``registry`` (a ``ShardingRegistry``), or, with ``allow_tensor=True``
+    or a tensor degree, by the planner's; ``allow_tensor=True`` lets the
+    search of such a model try tensor degrees, as JAX's does.
     ``devices=`` and ``precision="int8"`` raise, naming the slice that
     brings them.
     """
@@ -541,12 +574,7 @@ def auto_accelerate(
         raise NotImplementedError(
             "auto_accelerate(devices=...): a process of the port drives one "
             "device (device=); choosing the world's devices comes with "
-            + _ITEM2 + ")")
-    plain = not hasattr(module, "logical_axes")
-    if registry is not None or (allow_tensor and plain):
-        raise NotImplementedError(
-            "a sharding registry, or tensor parallelism planned for a "
-            "model without logical_axes(), comes with " + _REGISTRY)
+            + _ITEM2 + ": devices=)")
     if precision == "int8":
         raise NotImplementedError(
             'precision="int8" comes with the int8 matmul slice of the port '
@@ -561,21 +589,24 @@ def auto_accelerate(
                              f"{spec!r}")
         return _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
                      offload_optimizer, profile, profile_steps, allow_tensor,
-                     search_top_k)
+                     search_top_k, registry)
     return _build(module, optimizer, sample_batch, loss,
                   _check_spec(spec, _carries(module)), dev, grad_accum,
-                  offload_optimizer)
+                  offload_optimizer, registry, allow_tensor)
 
 
 def _build(module, optimizer, sample_batch, loss, spec: ParallelSpec, dev,
-           grad_accum: int, offload_optimizer: bool) -> AccelerateResult:
-    """``spec`` (checked) built: on a mesh of its axes, or one device."""
+           grad_accum: int, offload_optimizer: bool, registry=None,
+           allow_tensor: Optional[bool] = None) -> AccelerateResult:
+    """``spec`` (checked) built: on a mesh of its axes, or one device (a
+    plain module's registry and planner apply on a mesh only, as in
+    JAX)."""
     if spec.total > 1:
         mesh = create_mesh(spec.axes(), dev)
         res = accelerate_on_mesh(
             module, optimizer, sample_batch, loss, mesh, device=dev,
             grad_accum=grad_accum, offload_optimizer=offload_optimizer,
-            zero=spec.zero)
+            zero=spec.zero, registry=registry, allow_tensor=allow_tensor)
         res.spec = spec
         return res
     if sample_batch.shape[0] % grad_accum:
@@ -618,7 +649,7 @@ def _devices_per_host(n: int) -> int:
 
 def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
           offload_optimizer, profile, profile_steps, allow_tensor,
-          search_top_k) -> AccelerateResult:
+          search_top_k, registry=None) -> AccelerateResult:
     """The JAX package's ``"auto"`` branch: rank, then build the first
     candidate the port places (after the dry runs, with ``profile``)."""
     from dlrover_tpu_torch.accel import search
@@ -633,12 +664,11 @@ def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
         if allow_tensor is False:
             mprofile = dataclasses.replace(mprofile, num_heads=0)
     else:
-        if n > 1:
-            raise NotImplementedError(
-                "auto_accelerate(spec='auto') over several processes: the "
-                "strategy search places a model without logical_axes() "
-                "through " + _REGISTRY)
         mprofile = search.ModelProfile.from_params(params)
+        if allow_tensor:
+            # A plain model the planner places can take tensor degrees:
+            # a head count every degree divides, as JAX advertises.
+            mprofile = dataclasses.replace(mprofile, num_heads=n)
     hbm = _device_hbm(dev)
     cache: Dict[Any, Any] = {}
 
@@ -682,7 +712,7 @@ def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
     if profile and len(ranked) > 1:
         best = _dry_runs([sp for sp, _ in ranked if placed(sp)], module,
                          optimizer, sample_batch, loss, dev, grad_accum,
-                         profile_steps)
+                         profile_steps, registry, allow_tensor)
     if best is None:
         best = next((sp for sp, _ in full if placed(sp)), None)
     if best is None:
@@ -691,13 +721,16 @@ def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
             "strategy search ranked (each refusal is logged); see "
             "ROADMAP queue 1")
     res = _build(search.reconfigure_module(module, best, rows), optimizer,
-                 sample_batch, loss, best, dev, grad_accum, offload_optimizer)
+                 sample_batch, loss, best, dev, grad_accum, offload_optimizer,
+                 registry, allow_tensor)
     res.search_ranking = ranked
     return res
 
 
 def _dry_runs(cands: List[ParallelSpec], module, optimizer, sample_batch,
-              loss, dev, grad_accum, steps: int) -> Optional[ParallelSpec]:
+              loss, dev, grad_accum, steps: int, registry=None,
+              allow_tensor: Optional[bool] = None
+              ) -> Optional[ParallelSpec]:
     """``profile=True``: each candidate built on its own copy of the
     pristine module with the optimizer bound afresh, one warm-up step and
     ``steps`` timed; each rank's time (inf when it failed) all-reduced
@@ -714,7 +747,7 @@ def _dry_runs(cands: List[ParallelSpec], module, optimizer, sample_batch,
         try:
             mod = search.reconfigure_module(copy.deepcopy(module), sp, rows)
             res = _build(mod, optimizer, sample_batch, loss, sp, dev,
-                         grad_accum, False)
+                         grad_accum, False, registry, allow_tensor)
             batch = torch.as_tensor(res.local_batch(sample_batch)).to(dev)
             state = res.state
             _, m = res.train_step(state, batch)  # warm-up
@@ -755,6 +788,25 @@ def _stack(module: nn.Module) -> nn.ModuleList:
                     "shard")
 
 
+def _shard_param(holder: nn.Module, leaf: str, mesh, dim: int,
+                 fused: int = 1):
+    """``holder.<leaf>`` becomes a DTensor of this rank's shard along
+    ``dim`` over ``mesh``'s tensor axis (``fused`` equal regions: GPT's
+    qkv); returns its layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tmesh = mesh["tensor"]
+    full = getattr(holder, leaf)
+    lay = sharding.Layout.of(mesh, {"tensor": dim}, fused)
+    loc = sharding.local_from_full(full.detach(), lay)
+    placements = [Shard(dim) if n == "tensor" else Replicate()
+                  for n in tmesh.mesh_dim_names]
+    dt = DTensor.from_local(loc, tmesh, placements, run_check=False,
+                            shape=full.shape, stride=full.stride())
+    setattr(holder, leaf, nn.Parameter(dt, requires_grad=full.requires_grad))
+    return lay
+
+
 def tensor_parallel(module: nn.Module, mesh, rules) -> Dict[str, Any]:
     """Shard ``module`` over ``mesh``'s tensor axis, in place: every
     ``Dense`` whose kernel's logical axes ``rules`` map to that axis
@@ -762,12 +814,13 @@ def tensor_parallel(module: nn.Module, mesh, rules) -> Dict[str, Any]:
     projections into heads and ``mlp``, LLaMA's vocab head) or
     row-parallel (its input dim: ``proj``, ``down``, ``o_proj``,
     ``down_proj``), its kernel (and a column-parallel bias) a DTensor of
-    this rank's shard; the blocks compute on their local heads. Returns
+    this rank's shard; the blocks compute on their local heads. An
+    embedding whose ``vocab`` the rules map there (it divides) has its
+    rows sharded and looked up vocab-parallel, and the model's
+    ``vocab_mesh`` is set (GPT's tied head, LLaMA's untied one). Returns
     the layouts of the sharded parameters by name. A head count (LLaMA:
     also the kv heads) or ``mlp`` width the degree does not divide
     raises ``ValueError``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
     from dlrover_tpu_torch.models.gpt import Block, Dense
     from dlrover_tpu_torch.models.llama import LlamaBlock
 
@@ -803,17 +856,95 @@ def tensor_parallel(module: nn.Module, mesh, rules) -> Dict[str, Any]:
         if m.bias is not None and m.tp[0] == "column":
             leaves.append(("bias", 0))
         for leaf, d in leaves:
-            full = getattr(m, leaf)
-            lay = sharding.Layout.of(mesh, {"tensor": d}, fused)
-            loc = sharding.local_from_full(full.detach(), lay)
-            placements = [Shard(d) if n == "tensor" else Replicate()
-                          for n in tmesh.mesh_dim_names]
-            dt = DTensor.from_local(loc, tmesh, placements, run_check=False,
-                                    shape=full.shape, stride=full.stride())
-            setattr(m, leaf, nn.Parameter(dt, requires_grad=full.requires_grad))
-            layouts[f"{mname}.{leaf}"] = lay
-    if "vocab_mesh" in vars(module) and "lm_head.kernel" in layouts:
-        module.vocab_mesh = tmesh
+            layouts[f"{mname}.{leaf}"] = _shard_param(m, leaf, mesh, d,
+                                                      fused)
+    axes = module.logical_axes()
+    for mname, m in module.named_modules():
+        name = f"{mname}.weight"
+        if isinstance(m, nn.Embedding) and sharding.mesh_dims(
+                axes[name], rules).get("tensor") == 0:
+            layouts[name] = _shard_param(m, "weight", mesh, 0)
+            module.vocab_mesh = tmesh
+    return layouts
+
+
+def _plain_axes(module: nn.Module, sample_batch, dev, registry, plan: bool):
+    """A plain module's logical axes by parameter name: ``registry``'s,
+    or with ``plan`` the planner's from one forward of the sample batch's
+    first row, or the defaults. The planner labels the top-level head
+    whose width is the largest ``nn.Embedding``'s rows ``vocab`` (JAX's
+    ``build`` passes no vocab, so its head is ``mlp``): both map to the
+    tensor axis under a plain module's rules, and the label tells
+    ``plain_tensor_parallel`` which column layer gathers its logits,
+    which GSPMD does for JAX."""
+    from dlrover_tpu_torch.accel.registry import default_registry
+    from dlrover_tpu_torch.accel.tp_planner import plan_tp
+
+    reg = registry
+    if reg is None and plan:
+        logger.info("planning tensor-parallel placement automatically")
+        vocab = max((m.num_embeddings for m in module.modules()
+                     if isinstance(m, nn.Embedding)), default=0)
+        reg = plan_tp(module, torch.as_tensor(sample_batch[:1]).to(dev),
+                      vocab_size=vocab or None)
+    logger.info("model carries no logical axes; annotating it with the "
+                "sharding registry")
+    return (reg or default_registry).axes_of(module)
+
+
+def plain_tensor_parallel(module: nn.Module, mesh, rules, axes
+                          ) -> Dict[str, Any]:
+    """Shard a plain ``module`` over ``mesh``'s tensor axis by its logical
+    ``axes`` (torch dim order), in place: an ``nn.Linear`` whose weight's
+    out dim the rules map there becomes a column-parallel
+    ``ParallelLinear`` (its bias sharded; all its logits gathered when
+    the axis is ``vocab``), one whose in dim they map there a
+    row-parallel one, an ``nn.Embedding`` whose rows they map there a
+    ``VocabParallelEmbedding``. Returns the sharded parameters' layouts
+    by name. A ``vocab`` dim may split unevenly (``torch.chunk``'s
+    parts); another dim the degree does not divide raises
+    ``ValueError``, and a parameter the rules put on the tensor axis
+    that is none of those layers ``NotImplementedError``."""
+    from dlrover_tpu_torch.models.tensor_parallel import (
+        ParallelLinear,
+        VocabParallelEmbedding,
+    )
+
+    tmesh = mesh["tensor"]
+    size = axis_sizes(mesh)["tensor"]
+    claimed = {n for n, a in axes.items()
+               if "tensor" in sharding.mesh_dims(a, rules)}
+    layouts: Dict[str, Any] = {}
+    for mname, m in list(module.named_modules()):
+        weight = f"{mname}.weight"
+        if weight not in claimed or not isinstance(m, (nn.Linear,
+                                                       nn.Embedding)):
+            continue
+        dim = sharding.mesh_dims(axes[weight], rules)["tensor"]
+        if isinstance(m, nn.Embedding) and dim != 0:
+            continue
+        if m.weight.shape[dim] % size and axes[weight][dim] != "vocab":
+            raise ValueError(f"{weight} of {tuple(m.weight.shape)}: dim "
+                             f"{dim} does not divide by the tensor degree "
+                             f"{size}")
+        layouts[weight] = _shard_param(m, "weight", mesh, dim)
+        if isinstance(m, nn.Embedding):
+            new = VocabParallelEmbedding(m, tmesh)
+        else:
+            role = "col" if dim == 0 else "row"
+            if role == "col" and m.bias is not None:
+                layouts[f"{mname}.bias"] = _shard_param(m, "bias", mesh, 0)
+            new = ParallelLinear(m, role, tmesh,
+                                 gather=axes[weight][0] == "vocab")
+        parent, _, leaf = mname.rpartition(".")
+        setattr(module.get_submodule(parent), leaf, new)
+    left = {n for n in claimed if n not in layouts and not (
+        n.endswith(".bias") and n[:-len(".bias")] + ".weight" in layouts)}
+    if left:
+        raise NotImplementedError(
+            f"{sorted(left)}: the rules shard them over the tensor axis, "
+            "but only an nn.Linear's or an nn.Embedding's rows are placed "
+            "there (" + _ITEM2 + ": other modules on the tensor axis)")
     return layouts
 
 
@@ -938,18 +1069,59 @@ def pipeline_parallel(module: nn.Module, mesh) -> Dict[str, Any]:
             for name, _ in module.named_parameters()}
 
 
-def fully_shard_model(module: nn.Module, mesh) -> Dict[str, Any]:
-    """FSDP2 over ``mesh``'s fsdp axis: ``fully_shard`` on each block,
-    then on the root. Every parameter is sharded along dim 0; returns
-    their layouts by name."""
-    from torch.distributed.fsdp import fully_shard
+def _fsdp_units(module: nn.Module) -> List[nn.Module]:
+    """The modules FSDP2 shards as units before the root: an annotated
+    model's blocks; a plain module's, the items of its outermost
+    ``nn.ModuleList``s that hold parameters, or without one its direct
+    children that hold parameters and modules of their own."""
+    if has_annotations(module):
+        return list(_stack(module))
+    items: List[nn.Module] = []
 
-    fmesh = mesh["fsdp"]
-    for block in _stack(module):
-        fully_shard(block, mesh=fmesh)
-    fully_shard(module, mesh=fmesh)
-    lay = sharding.Layout.of(mesh, {"fsdp": 0})
-    return {name: lay for name, _ in module.named_parameters()}
+    def walk(m):
+        for child in m.children():
+            if isinstance(child, nn.ModuleList):
+                items.extend(child)
+            else:
+                walk(child)
+
+    walk(module)
+    if not items:
+        items = [c for c in module.children()
+                 if next(c.children(), None) is not None]
+    return [m for m in items if next(m.parameters(), None) is not None]
+
+
+def fully_shard_model(module: nn.Module, mesh, rules, axes,
+                      layouts=None) -> Dict[str, Any]:
+    """FSDP2 over ``mesh``'s fsdp axis: ``fully_shard`` on each unit
+    (``_fsdp_units``), then on the root. Every parameter is sharded
+    along the dim ``rules`` map its logical ``axes`` to the fsdp axis
+    (its ``embed``; FSDP2's ``shard_placement_fn``), dim 0 without one;
+    a tensor-parallel DTensor is sharded over the fsdp axis of the same
+    mesh (FSDP2's 2-D form). Returns the layouts by name: ``layouts``'
+    (the tensor axis's) with the fsdp axis added."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    layouts = layouts or {}
+    named = dict(module.named_parameters())
+    dims = {n: sharding.mesh_dims(axes[n], rules).get("fsdp", 0)
+            for n in named}
+    by_param = {id(p): Shard(dims[n]) for n, p in named.items()}
+    kw = {"mesh": mesh["fsdp"],
+          "shard_placement_fn": lambda p: by_param[id(p)]}
+    for unit in _fsdp_units(module):
+        fully_shard(unit, **kw)
+    fully_shard(module, **kw)
+    axis = mesh.mesh_dim_names.index("fsdp")
+    out = {}
+    for name in named:
+        lay = layouts.get(name) or sharding.Layout.replicated(mesh)
+        shard = list(lay.shard)
+        shard[axis] = dims[name]
+        out[name] = dataclasses.replace(lay, shard=tuple(shard))
+    return out
 
 
 class MeshOptimizer:
@@ -1009,13 +1181,14 @@ class MeshOptimizer:
 
 
 def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
-                  zero_rules=None):
-    """Under ZeRO-1 (``zero_rules``: the spec's rules) the optimizer is a
-    ``ZeroOptimizer`` over ``mesh``'s data axis, unless no leaf can be
-    sliced; otherwise a ``takes_named_parameters`` optimizer becomes a
-    ``MeshOptimizer``, and a torch optimizer factory gets the DTensor
-    parameters and the plain ones as two param groups (a foreach step
-    takes one kind at a time)."""
+                  zero_rules=None, axes=None):
+    """Under ZeRO-1 (``zero_rules``: the spec's rules; ``axes``: a plain
+    module's logical axes) the optimizer is a ``ZeroOptimizer`` over
+    ``mesh``'s data axis, unless no leaf can be sliced; otherwise a
+    ``takes_named_parameters`` optimizer becomes a ``MeshOptimizer``,
+    and a torch optimizer factory gets a param group for the plain
+    parameters and one for the DTensors of each mesh (a foreach step
+    takes one kind, on one mesh, at a time)."""
     from torch.distributed.tensor import DTensor
 
     from dlrover_tpu_torch.models.convert import materialize_adam_state
@@ -1026,7 +1199,8 @@ def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
             optimizer, "update_and_apply"):
         from dlrover_tpu_torch.accel.zero import zero_optimizer
 
-        opt = zero_optimizer(optimizer, module, layouts, mesh, zero_rules)
+        opt = zero_optimizer(optimizer, module, layouts, mesh, zero_rules,
+                             axes)
         if opt is not None:
             return opt
     if getattr(optimizer, "takes_named_parameters", False):
@@ -1040,11 +1214,15 @@ def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
             optimizer, "update_and_apply"):
         raise TypeError("on a mesh, pass the optimizer unbound: its "
                         "parameters are the sharded ones")
-    dts = [p for _, p in named if isinstance(p, DTensor)]
-    plain = [p for _, p in named if not isinstance(p, DTensor)]
-    if not (dts and plain):
+    groups: Dict[Any, list] = {}
+    for _, p in named:
+        mesh_of = p.device_mesh if isinstance(p, DTensor) else None
+        key = None if mesh_of is None else (
+            mesh_of.mesh_dim_names, tuple(mesh_of.mesh.reshape(-1).tolist()))
+        groups.setdefault(key, []).append(p)
+    if len(groups) == 1:
         return bind(optimizer, named)
-    opt = optimizer([{"params": dts}, {"params": plain}])
+    opt = optimizer([{"params": ps} for ps in groups.values()])
     materialize_adam_state(opt)
     return opt
 
@@ -1059,14 +1237,19 @@ def accelerate_on_mesh(
     grad_accum: int = 1,
     offload_optimizer: bool = False,
     zero: bool = False,
+    registry=None,
+    allow_tensor: Optional[bool] = None,
 ) -> AccelerateResult:
     """``auto_accelerate``'s multi-device branch on ``mesh`` (a
     ``DeviceMesh`` whose axes are among ``data``, ``fsdp``, ``pipe``,
-    ``seq``, ``expert`` and ``tensor``, of any sizes, 1 included;
-    ``mesh.create_mesh``). Every process passes the same module,
+    ``seq``, ``expert`` and ``tensor``, of any sizes, 1 included: an
+    axis of size 1 takes its branch, its rules those of a degree above
+    1; ``mesh.create_mesh``). Every process passes the same module,
     initialized alike, and the same global ``sample_batch``. ``zero``:
-    ZeRO-1 over the data axis (which the mesh must have; any other axis
-    of size above 1 raises)."""
+    ZeRO-1 over the data axis (which the mesh must have; a seq, expert
+    or pipe axis of size above 1 raises). A model without
+    ``logical_axes()`` is placed by ``registry``, or the planner's (a
+    tensor axis, or ``allow_tensor=True``), or the defaults."""
     sizes = axis_sizes(mesh)
     other = [a for a in sizes if a not in MESH_AXES]
     if other:
@@ -1106,14 +1289,21 @@ def accelerate_on_mesh(
     shard = coord.get("data", 0) * sizes.get("fsdp", 1) + coord.get("fsdp", 0)
     width = rows // parts // shards
     module = module.to(dev)
-    rules = spec.rules(vocab_size=getattr(module.cfg, "vocab_size", 0))
+    plain = not has_annotations(module)
+    axes = (_plain_axes(module, sample_batch, dev, registry,
+                        allow_tensor or "tensor" in sizes) if plain
+            else module.logical_axes())
+    rules = spec.rules(vocab_size=getattr(getattr(module, "cfg", None),
+                                          "vocab_size", 0) or 0,
+                       present=tuple(sizes))
     layouts: Dict[str, Any] = {}
     if sizes.get("pipe", 1) > 1:
         layouts.update(pipeline_parallel(module, mesh))
     if "tensor" in sizes:
-        layouts.update(tensor_parallel(module, mesh, rules))
+        layouts.update(plain_tensor_parallel(module, mesh, rules, axes)
+                       if plain else tensor_parallel(module, mesh, rules))
     if "fsdp" in sizes:
-        layouts.update(fully_shard_model(module, mesh))
+        layouts = fully_shard_model(module, mesh, rules, axes, layouts)
     if "expert" in sizes:
         layouts.update(expert_parallel(module, mesh))
     if "seq" in sizes:
@@ -1126,7 +1316,7 @@ def accelerate_on_mesh(
         layouts.setdefault(name, replicated)
         sharding.set_layout(p, layouts[name])
     opt = _bind_on_mesh(optimizer, module, layouts, mesh,
-                        rules if zero else None)
+                        rules if zero else None, axes if plain else None)
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
     logger.info("auto_accelerate: %.1fM params on mesh %s (%s), rows "

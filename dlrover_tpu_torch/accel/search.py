@@ -236,17 +236,16 @@ def abstract_state(module, optimizer) -> Optional[List[AbstractLeaf]]:
     shapes and dtypes are read, nothing copied) under the unbound
     ``optimizer``, as ``AbstractLeaf``s in JAX's order: the optimizer
     bound to meta tensors of the parameters' shapes, its state laid out
-    by ``train_state_leaves``. None for a model without logical axes or
-    an optimizer without the JAX state's layout (AGD), or one already
-    bound."""
+    by ``train_state_leaves``; a model without logical axes (a plain
+    module) has no names on any leaf, as JAX's unannotated tree has
+    none. None for an optimizer without the JAX state's layout (AGD),
+    or one already bound."""
     from dlrover_tpu_torch.models.convert import (
         param_leaves,
         train_state_leaves,
     )
     from dlrover_tpu_torch.optim.base import bind
 
-    if not hasattr(module, "logical_axes"):
-        return None
     if isinstance(optimizer, torch.optim.Optimizer) or hasattr(
             optimizer, "update_and_apply"):
         return None
@@ -262,7 +261,8 @@ def abstract_state(module, optimizer) -> Optional[List[AbstractLeaf]]:
         # analytic estimate, as JAX's without an abstract tree.
         logger.info("strategy search: analytic state bytes (%s)", e)
         return None
-    names = param_names(module, groups)
+    names = (param_names(module, groups) if hasattr(module, "logical_axes")
+             else {})
     return [AbstractLeaf(leaf.path, tuple(leaf.shape), leaf.dtype.itemsize,
                          names.get(leaf.param_path)) for leaf in leaves]
 

@@ -3,26 +3,35 @@
 
 ``logical_rules`` is the JAX package's table from logical axis names
 (annotated on every parameter: ``GPT.logical_axes()``,
-``Llama.logical_axes()``) to mesh axes; ``mesh_dims`` maps one
-parameter's logical axes through it to the tensor dim each mesh axis
-shards, the DTensor placements the tensor axis gives a ``Dense``.
+``Llama.logical_axes()``, or a ``ShardingRegistry``'s axes for a plain
+module) to mesh axes; ``mesh_dims`` maps one parameter's logical axes
+through it to the tensor dim each mesh axis shards, the DTensor
+placements the tensor axis gives a ``Dense``.
 
 A ``Layout`` says where one parameter's values lie on the mesh: for
 each mesh axis, the tensor dim it shards (``torch.chunk``'s split, as
-DTensor and FSDP2 split) or None (replicated over that axis). GPT's
-fused ``qkv`` is sharded over ``tensor`` as ``fused=3`` equal regions
-(its q, its k and its v columns), so a rank's local columns are its
-heads of q, of k and of v, one region after another: three regions of
-the global leaf. Everything that moves values between a rank's local
-tensor and the global leaf goes through ``regions``: the checkpoint's
-blocks (``blocks``, in the JAX leaf's global coordinates), the 8-bit
-Adam's whole-leaf view (``gather_full``, ``scatter_local``) and the
-placement of full weights (``local_from_full``). A parameter without a
-layout lies whole on every rank.
+DTensor and FSDP2 split) or None (replicated over that axis). Two mesh
+axes may shard two dims (fsdp a kernel's ``embed`` dim, tensor the
+other) or one dim between them, nested: the later mesh axis splits the
+dim first and the earlier one splits the chunk it left, as FSDP2 shards
+a tensor-parallel DTensor's local rows where the leaf has no ``embed``
+dim (a column bias: ``_StridedShard``, a rank's rows the fsdp chunk of
+its tensor chunk) and as ZeRO-1 cuts a data rank's slice from its fsdp
+or tensor shard. GPT's fused ``qkv`` is sharded over
+``tensor`` as ``fused=3`` equal regions (its q, its k and its v
+columns), so a rank's local columns are its heads of q, of k and of v,
+one region after another: three regions of the global leaf. Everything
+that moves values between a rank's local tensor and the global leaf
+goes through ``regions``: the checkpoint's blocks (``blocks``, in the
+JAX leaf's global coordinates), the 8-bit Adam's whole-leaf view
+(``gather_full``, one all-gather over each axis that shards the leaf;
+``scatter_local``) and the placement of full weights
+(``local_from_full``). A parameter without a layout lies whole on every
+rank.
 """
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from itertools import product as cartesian
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -40,14 +49,19 @@ Region = Tuple[Tuple[int, int], ...]
 
 def logical_rules(data: int = 1, fsdp: int = 1, tensor: int = 1,
                   seq: int = 1, expert: int = 1, pipe: int = 1,
-                  vocab_size: int = 0, zero: bool = False
-                  ) -> List[Tuple[str, Any]]:
+                  vocab_size: int = 0, zero: bool = False,
+                  present: Sequence[str] = ()) -> List[Tuple[str, Any]]:
     """The JAX package's logical-axis rules for the given degrees: only
-    axes of degree > 1 appear; ``vocab_size`` guards the vocab rule's
-    divisibility (an indivisible vocab stays replicated, with JAX's
-    warning)."""
-    batch_axes = [a for a, n in (("data", data), ("fsdp", fsdp)) if n > 1]
-    vocab_axes = [a for a, n in (("tensor", tensor), ("pipe", pipe)) if n > 1]
+    axes of degree > 1 appear, and the mesh axes named in ``present``
+    (a mesh that has the axis at size 1 takes its branch);
+    ``vocab_size`` guards the vocab rule's divisibility (an indivisible
+    vocab stays replicated, with JAX's warning)."""
+    def on(axis: str, n: int) -> bool:
+        return n > 1 or axis in present
+
+    batch_axes = [a for a, n in (("data", data), ("fsdp", fsdp)) if on(a, n)]
+    vocab_axes = [a for a, n in (("tensor", tensor), ("pipe", pipe))
+                  if on(a, n)]
     vocab_shard = tensor * pipe
     if vocab_axes and vocab_size and vocab_size % vocab_shard:
         logger.warning(
@@ -60,14 +74,14 @@ def logical_rules(data: int = 1, fsdp: int = 1, tensor: int = 1,
     rules: List[Tuple[str, Any]] = [
         ("batch", tuple(batch_axes) if batch_axes else None),
         ("layers", None),
-        ("embed", "fsdp" if fsdp > 1 else None),
-        ("heads", "tensor" if tensor > 1 else None),
-        ("mlp", "tensor" if tensor > 1 else None),
+        ("embed", "fsdp" if on("fsdp", fsdp) else None),
+        ("heads", "tensor" if on("tensor", tensor) else None),
+        ("mlp", "tensor" if on("tensor", tensor) else None),
         ("vocab", tuple(vocab_axes) if vocab_axes else None),
         ("kv", None),
-        ("seq", "seq" if seq > 1 else None),
-        ("expert", "expert" if expert > 1 else None),
-        ("stage", "pipe" if pipe > 1 else None),
+        ("seq", "seq" if on("seq", seq) else None),
+        ("expert", "expert" if on("expert", expert) else None),
+        ("stage", "pipe" if on("pipe", pipe) else None),
     ]
     if zero and data > 1:
         rules.append((ZERO_AXIS, "data"))
@@ -120,22 +134,16 @@ class Layout:
     def zero(param: "Layout", dim: Optional[int]) -> "Layout":
         """The layout of a ZeRO-1 optimizer-state slice of a parameter
         laid out as ``param`` (``accel/zero.py``): the data axis shards
-        tensor dim ``dim``, or, with ``dim`` None (the slice is some of
-        a stacked leaf's layers, whole), the leaf lies on one data
-        coordinate only. A parameter some other axis already shards
-        would make its slice a leaf over two mesh axes, which raises
-        ``NotImplementedError``."""
-        mesh = param.mesh
-        if param.sharded_axes() or param.placed:
-            raise NotImplementedError(
-                "a ZeRO-1 optimizer-state leaf sharded over two mesh axes "
-                "(data and the parameter's own) comes with a later part of "
-                "the multi-device slice (ROADMAP queue 1, item 2: fsdp x "
-                "tensor and zero's two-axis leaves)")
-        axis = mesh.mesh_dim_names.index("data")
+        tensor dim ``dim`` of this rank's fsdp or tensor shard (nested
+        in another axis's split of the same dim), or, with ``dim`` None
+        (the slice is some of a stacked leaf's layers, whole), the shard
+        lies on one data coordinate only."""
+        axis = param.mesh.mesh_dim_names.index("data")
         if dim is None:
-            return Layout(mesh, (None,) * mesh.ndim, placed=(axis,))
-        return Layout.of(mesh, {"data": dim})
+            return replace(param, placed=param.placed + (axis,))
+        shard = list(param.shard)
+        shard[axis] = dim
+        return replace(param, shard=tuple(shard))
 
     @property
     def coord(self) -> Tuple[int, ...]:
@@ -161,32 +169,44 @@ class Layout:
     def _dims(self, shape: Sequence[int], coord: Optional[Sequence[int]]):
         """Per tensor dim, the ``(global range, local range)`` pairs of
         the rank at ``coord`` (this rank's by default); a rank past the
-        end of a ``torch.chunk`` split has an empty range."""
+        end of a ``torch.chunk`` split has an empty range. Mesh axes that
+        shard one dim nest from the last mesh axis to the first: each
+        splits what the later ones left of the dim (the ``fused`` regions
+        of the tensor axis, or ``torch.chunk``'s parts)."""
         coord = self.coord if coord is None else coord
-        per_dim = [[((0, s), (0, s))] for s in shape]
-        for i, d in enumerate(self.shard):
+        # Per dim: the (global start, global stop, local start) segments
+        # of what the axes split so far left, and its local length.
+        segs = [[(0, s, 0)] for s in shape]
+        lengths = list(shape)
+        names = self.mesh.mesh_dim_names
+        for i in reversed(range(len(self.shard))):
+            d = self.shard[i]
             if d is None:
                 continue
-            n, c, size = self.sizes[i], coord[i], shape[d]
-            if per_dim[d] != [((0, size), (0, size))]:
-                raise NotImplementedError(
-                    "a dim sharded over two mesh axes")
-            if self.fused > 1 and n > 1:
-                if size % (self.fused * n):
+            n, c, size = self.sizes[i], coord[i], lengths[d]
+            if self.fused > 1 and n > 1 and names[i] == "tensor":
+                if lengths[d] != shape[d] or size % (self.fused * n):
                     raise ValueError(
                         f"dim {d} of {tuple(shape)} does not split into "
                         f"{self.fused} x {n} regions")
                 w = size // (self.fused * n)
-                per_dim[d] = [((j * size // self.fused + c * w,
-                                j * size // self.fused + (c + 1) * w),
-                               (j * w, (j + 1) * w))
-                              for j in range(self.fused)]
-            else:
-                chunk = -(-size // n)
-                start = min(c * chunk, size)
-                stop = min(start + chunk, size)
-                per_dim[d] = [((start, stop), (0, stop - start))]
-        return per_dim
+                segs[d] = [(j * size // self.fused + c * w,
+                            j * size // self.fused + (c + 1) * w, j * w)
+                           for j in range(self.fused)]
+                lengths[d] = self.fused * w
+                continue
+            chunk = -(-size // n)
+            start = min(c * chunk, size)
+            stop = min(start + chunk, size)
+            kept = []
+            for g0, g1, l0 in segs[d]:
+                a, b = max(l0, start), min(l0 + g1 - g0, stop)
+                if b > a:
+                    kept.append((g0 + a - l0, g0 + b - l0, a - start))
+            segs[d] = kept
+            lengths[d] = stop - start
+        return [[((g0, g1), (l0, l0 + g1 - g0)) for g0, g1, l0 in dim_segs]
+                or [((0, 0), (0, 0))] for dim_segs in segs]
 
     def regions(self, shape: Sequence[int],
                 coord: Optional[Sequence[int]] = None
@@ -262,46 +282,44 @@ def local_from_full(full: torch.Tensor, layout: Layout) -> torch.Tensor:
     return out
 
 
-def _axis_group(layout: Layout) -> Tuple[Optional[int], Any]:
-    axes = layout.sharded_axes()
-    if not axes:
-        return None, None
-    if len(axes) > 1:
-        raise NotImplementedError("a parameter sharded over two mesh axes")
-    i = axes[0]
-    return i, layout.mesh.get_group(layout.mesh.mesh_dim_names[i])
-
-
 def gather_full(t: torch.Tensor, layout: Optional[Layout],
                 shape: Sequence[int], out: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """The whole tensor in the global leaf's order (``out`` when given),
-    from every rank's local one: one all-gather over the axis that
-    shards it. A tensor no axis shards is its local tensor, no copy."""
+    from every rank's local one: one all-gather over each mesh axis that
+    shards it, in turn (the second gathers what the first gathered). A
+    tensor no axis shards is its local tensor, no copy."""
     loc = local(t)
-    axis, group = (None, None) if layout is None else _axis_group(layout)
-    if axis is None:
+    axes = [] if layout is None else layout.sharded_axes()
+    if not axes:
         if out is not None and out.data_ptr() != loc.data_ptr():
             out.copy_(loc)
             return out
         return loc
     shape = tuple(shape)
-    n = layout.sizes[axis]
+    names = layout.mesh.mesh_dim_names
+    # The peers in the order the gathers stack them: the axis gathered
+    # last outermost.
     coords = []
-    for c in range(n):
+    for cs in cartesian(*(range(layout.sizes[i]) for i in reversed(axes))):
         coord = list(layout.coord)
-        coord[axis] = c
+        for i, c in zip(reversed(axes), cs):
+            coord[i] = c
         coords.append(coord)
     width = max(math.prod(layout.local_shape(shape, c)) for c in coords)
-    send = torch.zeros(width, dtype=loc.dtype, device=loc.device)
-    send[:loc.numel()].copy_(loc.reshape(-1))
-    recv = torch.empty(n * width, dtype=loc.dtype, device=loc.device)
-    dist.all_gather_into_tensor(recv, send, group=group)
+    buf = torch.zeros(width, dtype=loc.dtype, device=loc.device)
+    buf[:loc.numel()].copy_(loc.reshape(-1))
+    for i in axes:
+        recv = torch.empty(layout.sizes[i] * buf.numel(), dtype=loc.dtype,
+                           device=loc.device)
+        dist.all_gather_into_tensor(recv, buf,
+                                    group=layout.mesh.get_group(names[i]))
+        buf = recv
     if out is None:
         out = torch.empty(shape, dtype=loc.dtype, device=loc.device)
-    for c, coord in enumerate(coords):
+    for k, coord in enumerate(coords):
         lshape = layout.local_shape(shape, coord)
-        peer = recv[c * width:c * width + math.prod(lshape)].view(lshape)
+        peer = buf[k * width:k * width + math.prod(lshape)].view(lshape)
         for g, l in layout.regions(shape, coord):
             _view(out, g).copy_(_view(peer, l))
     return out

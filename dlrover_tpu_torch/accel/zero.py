@@ -26,11 +26,16 @@ rank's updated slices back into the whole parameters. Losses and
 parameters equal ``ParallelSpec(data=N)``'s bit for bit; the state each
 rank holds is about ``1/N`` of it.
 
-On a ``data`` axis of size 1 the wrapper still runs and owns whole
-leaves, while ``zero_degree_of`` is 0 there, as in JAX (what the
-checkpoint stamps). A parameter another mesh axis shards would make a
-leaf over two mesh axes (``sharding.Layout.zero`` raises,
-``accelerate`` refuses such specs first).
+Beside ``fsdp`` and ``tensor`` the same rule picks a dim that neither
+claims (a leaf without one the degree divides stays replicated over
+``data``), and a data rank's slice is cut from its local fsdp or tensor
+shard: its layout lies over two or three mesh axes
+(``sharding.Layout.zero``), in the JAX leaf's global coordinates, so
+the checkpoint's blocks need no new format. A leaf ZeRO leaves whole is
+stepped as the parameter's local shard. On a ``data`` axis of size 1
+the wrapper still runs and owns whole leaves, while ``zero_degree_of``
+is 0 there, as in JAX (what the checkpoint stamps). Beside ``seq``,
+``expert`` or ``pipe`` it is refused (``accelerate._check_spec``).
 """
 
 import math
@@ -114,10 +119,12 @@ def leaf_names(path: str, shape: Sequence[int], axes: Sequence) -> tuple:
     return (head + ("layers",) * lead)[:lead] + tuple(axes)
 
 
-def param_names(module, groups) -> Dict[str, tuple]:
+def param_names(module, groups, axes=None) -> Dict[str, tuple]:
     """``{JAX params leaf path: logical names}`` of ``module``'s
-    parameters grouped as ``groups`` (``convert.param_leaves``)."""
-    axes = module.logical_axes()
+    parameters grouped as ``groups`` (``convert.param_leaves``), their
+    axes ``module.logical_axes()`` or ``axes`` (a plain module's, by
+    parameter name)."""
+    axes = module.logical_axes() if axes is None else axes
     return {path: leaf_names(path, leaf.shape, axes[leaf.names[0]])
             for path, leaf in groups.items()}
 
@@ -194,10 +201,16 @@ class _Piece(NamedTuple):
 
 def _pieces(leaf, dim: int, data: int, coord: int,
             member: Tuple[int, ...]) -> List[_Piece]:
-    """Data rank ``coord``'s slices of a JAX leaf (``JaxLeaf``) cut
-    along its ``dim`` into ``data`` equal parts."""
+    """Data rank ``coord``'s slices of a JAX leaf (``JaxLeaf``) whose
+    parameters' local tensors (their fsdp or tensor shards) are
+    ``member``, cut along its ``dim`` into ``data`` equal parts."""
     lead = len(leaf.shape) - len(member)
-    n = leaf.shape[dim] // data
+    size = leaf.shape[dim] if dim < lead else member[dim - lead]
+    if size % data:
+        raise ValueError(
+            f"ZeRO-1 cuts dim {dim} of {leaf.names[0]} into {data} slices, "
+            f"but this rank's shard has {size} of it")
+    n = size // data
     if dim >= lead:
         d = dim - lead
         shape = member[:d] + (n,) + member[d + 1:]
@@ -206,7 +219,7 @@ def _pieces(leaf, dim: int, data: int, coord: int,
         raise NotImplementedError(
             "a ZeRO slice of a pipelined leaf's stage dims comes with a "
             "later part of the multi-device slice (ROADMAP queue 1, item 2: "
-            "zero's two-axis leaves)")
+            "ZeRO-1's leaves beside seq, expert or pipe)")
     return [_Piece(name, None, 0, 0, member)
             for name in leaf.names[coord * n:(coord + 1) * n]]
 
@@ -233,14 +246,16 @@ class ZeroOptimizer:
         #: rank, so each rank's buffer of a dtype has the same layout).
         self.pieces: List[List[_Piece]] = [[] for _ in range(self.size)]
         self._layouts: Dict[str, sharding.Layout] = {}
+        self._whole = sharding.Layout.replicated(mesh)
         self._groups = {}
         sliced = set()
         for path, leaf in groups.items():
             dim = dims.get(path)
             if dim is None:
                 self._groups[path] = leaf
+                self._layouts[path] = layouts[leaf.names[0]]
                 continue
-            member = tuple(self.params[leaf.names[0]].shape)
+            member = tuple(sharding.local(self.params[leaf.names[0]]).shape)
             for c in range(self.size):
                 self.pieces[c] += _pieces(leaf, dim, self.size, c, member)
             sliced.update(leaf.names)
@@ -255,7 +270,6 @@ class ZeroOptimizer:
                     ((coord * n, (coord + 1) * n),))
             else:
                 self._groups[path] = leaf
-        self._whole = sharding.Layout.replicated(mesh)
         # One buffer a dtype of this rank's slices, one of their grads.
         own = self.pieces[coord]
         self._dtypes: Dict[torch.dtype, List[int]] = {}
@@ -283,8 +297,10 @@ class ZeroOptimizer:
         self._own = own
         with torch.no_grad():
             self._refresh()
-        #: What the inner optimizer is bound to, by parameter name.
-        self.bound = {n: self.slices.get(n, p) for n, p in self.params.items()
+        #: What the inner optimizer is bound to, by parameter name: a
+        #: slice, or the local tensor of a parameter no slice was cut of.
+        self.bound = {n: self.slices.get(n, sharding.local(p))
+                      for n, p in self.params.items()
                       if n in self.slices or n not in sliced}
         self.inner = bind(optimizer, self.bound.items())
         logger.info("ZeRO-1 over data=%s: %s of %s parameters sliced, "
@@ -301,7 +317,7 @@ class ZeroOptimizer:
 
     def state_layout(self, param_path: Optional[str]) -> sharding.Layout:
         """The layout of the optimizer state of a params leaf: its ZeRO
-        slice's, or whole on every rank."""
+        slice's, or its parameter's (a scalar's: whole on every rank)."""
         return self._layouts.get(param_path, self._whole)
 
     def _refresh(self):
@@ -310,7 +326,8 @@ class ZeroOptimizer:
         if self._own:
             torch._foreach_copy_(
                 [self.slices[p.name] for p in self._own],
-                [p.of(self.params[p.name].detach()) for p in self._own])
+                [p.of(sharding.local(self.params[p.name]).detach())
+                 for p in self._own])
 
     def _take_grads(self, grads: Dict[str, Optional[torch.Tensor]]):
         """The gradients of this rank's slices into their buffers; the
@@ -318,7 +335,8 @@ class ZeroOptimizer:
         have = [p for p in self._own if grads.get(p.name) is not None]
         if have:
             torch._foreach_copy_([self._grad_views[p.name] for p in have],
-                                 [p.of(grads[p.name]) for p in have])
+                                 [p.of(sharding.local(grads[p.name]))
+                                  for p in have])
         return {p.name for p in self._own} - {p.name for p in have}
 
     def _gather(self):
@@ -336,7 +354,8 @@ class ZeroOptimizer:
                 for i in idx:
                     piece = self.pieces[c][i]
                     n = math.prod(piece.shape)
-                    dst.append(piece.of(self.params[piece.name].detach()))
+                    dst.append(piece.of(
+                        sharding.local(self.params[piece.name]).detach()))
                     src.append(seg[off:off + n].view(piece.shape))
                     off += n
             torch._foreach_copy_(dst, src)
@@ -348,6 +367,10 @@ class ZeroOptimizer:
                                     self.params.items()})
         for name, view in self.slices.items():
             view.grad = None if name in missing else self._grad_views[name]
+        for name, t in self.bound.items():
+            if name not in self.slices:
+                g = self.params[name].grad
+                t.grad = None if g is None else sharding.local(g)
         self.inner.step()
         self._gather()
 
@@ -364,8 +387,9 @@ class ZeroFusedOptimizer(ZeroOptimizer):
             names = [n for n in self.bound if n in named
                      and n not in missing]
             self.inner.update_and_apply(
-                [self._grad_views[n] if n in self.slices else named[n]
-                 for n in names], [self.bound[n] for n in names])
+                [self._grad_views[n] if n in self.slices
+                 else sharding.local(named[n]) for n in names],
+                [self.bound[n] for n in names])
             self._gather()
 
 
@@ -386,7 +410,8 @@ def _sliceable(optimizer) -> bool:
                 "zero=True with an 8-bit Adam under bf16_master_weights "
                 "(JAX slices the masters and keeps the 8-bit moments "
                 "whole) comes with a later part of the multi-device slice "
-                "(ROADMAP queue 1, item 2)")
+                "(ROADMAP queue 1, item 2: the 8-bit Adam under fp32 masters "
+                "with zero=True)")
         return True
     if getattr(optimizer, "takes_named_parameters", False):
         raise NotImplementedError(
@@ -395,11 +420,12 @@ def _sliceable(optimizer) -> bool:
     return True
 
 
-def zero_optimizer(optimizer, module, layouts, mesh, rules):
+def zero_optimizer(optimizer, module, layouts, mesh, rules, axes=None):
     """``optimizer`` (unbound) bound to ``module``'s parameters under
     ZeRO-1 over ``mesh``'s data axis: a ``ZeroOptimizer`` (or its fused
     form), or None when no leaf can be sliced (the 8-bit Adam, or no dim
-    the degree divides), after JAX's warning."""
+    the degree divides), after JAX's warning. ``axes``: a plain module's
+    logical axes by parameter name."""
     from dlrover_tpu_torch.models.convert import param_leaves
 
     data = int(mesh.mesh.shape[mesh.mesh_dim_names.index("data")])
@@ -407,7 +433,7 @@ def zero_optimizer(optimizer, module, layouts, mesh, rules):
     groups = param_leaves(dict(named))
     dims: Dict[str, Optional[int]] = {}
     if _sliceable(optimizer):
-        for path, names in param_names(module, groups).items():
+        for path, names in param_names(module, groups, axes).items():
             dims[path] = zero_dim(names, groups[path].shape, rules, data)
     if not any(d is not None for d in dims.values()):
         logger.warning(NOTHING_SHARDED, data)

@@ -1,4 +1,4 @@
-"""Carry GPT and LLaMA weights and 8-bit Adam state between the JAX package and the port.
+"""Carry GPT, LLaMA and plain-module weights and 8-bit Adam state between the JAX package and the port.
 
 The JAX model's params are a tree of arrays (numpy here). Each family
 has its naming table (``Naming``):
@@ -43,6 +43,12 @@ multiplies ``x @ kernel``), and flax's norm ``scale`` is the port's
 leaves; the port's ``adam8bit`` keeps its state per JAX leaf, so that
 state converts across with ``adam8bit_state_from_flax`` /
 ``adam8bit_state_to_flax``.
+
+A model the port does not define (a plain module of ``nn.Linear`` /
+``nn.Embedding`` / ``nn.LayerNorm``) carries its flax twin's ``Dense`` /
+``Embed`` / ``LayerNorm`` params at the same paths
+(``plain_from_flax``, ``flax_from_plain``): a Dense kernel is its
+Linear's weight transposed.
 
 ``train_state_leaves`` lays the port's whole train state (``{"params",
 "opt", "step"}``) out as the JAX train state's flattened leaves, keyed
@@ -293,6 +299,57 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor],
         flat[path] = (arrays[0] if arrays[0].shape == leaf.shape
                       else np.stack(arrays).reshape(leaf.shape))
     return _nest(flat)
+
+
+# ----------------------------------------------------- plain modules
+
+#: A plain module's leaves: (torch module type, torch leaf, flax leaf).
+_PLAIN = ((torch.nn.Linear, "weight", "kernel"),
+          (torch.nn.Linear, "bias", "bias"),
+          (torch.nn.Embedding, "weight", "embedding"),
+          (torch.nn.LayerNorm, "weight", "scale"),
+          (torch.nn.LayerNorm, "bias", "bias"))
+
+
+def _plain_leaves(module: torch.nn.Module):
+    """(port name, flax path, transposed) of each parameter of a plain
+    module made of ``nn.Linear`` / ``nn.Embedding`` / ``nn.LayerNorm``:
+    the flax path is the module's dotted path with ``/`` and the flax
+    leaf's name; a Linear's weight is its flax kernel transposed."""
+    out = []
+    for mname, m in module.named_modules():
+        for kind, port, leaf in _PLAIN:
+            if type(m) is kind and getattr(m, port, None) is not None:
+                prefix = mname.replace(".", "/")
+                out.append((f"{mname}.{port}" if mname else port,
+                            f"{prefix}/{leaf}" if prefix else leaf,
+                            port == "weight" and kind is torch.nn.Linear))
+    return out
+
+
+def plain_from_flax(tree: Mapping, module: torch.nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """A flax tree of ``Dense`` / ``Embed`` / ``LayerNorm`` params (arrays)
+    -> the ``state_dict`` of ``module``, its torch twin (``nn.Linear`` /
+    ``nn.Embedding`` / ``nn.LayerNorm`` at the same paths): each Dense
+    kernel transposed into its Linear's weight, every value bit for bit.
+    The counterpart of ``params_from_flax`` for a model the port does not
+    define."""
+    flat = dict(_flat(tree))
+    out = {}
+    for name, path, transposed in _plain_leaves(module):
+        t = _tensor(flat[path])
+        out[name] = t.t().contiguous() if transposed else t
+    return out
+
+
+def flax_from_plain(module: torch.nn.Module) -> Dict:
+    """The inverse of ``plain_from_flax``: ``module``'s parameters as the
+    flax tree of its twin (numpy arrays)."""
+    params = dict(module.named_parameters())
+    return _nest({path: _array(params[name].t() if transposed
+                               else params[name])
+                  for name, path, transposed in _plain_leaves(module)})
 
 
 # ----------------------------------------------------- JAX leaf grouping

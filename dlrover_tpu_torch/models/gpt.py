@@ -34,6 +34,11 @@ loss averaged over the layers; train it with ``moe_loss_fn``. On a
 ``seq`` mesh axis (``accel.accelerate``) the model keeps its shard of
 each row's sequence, its position rows are sharded over the axis, and
 its logits are a sequence-sharded DTensor (``models/sequence_parallel``).
+On a ``tensor`` axis the blocks compute on their local heads, and when
+the vocab divides by the degree the tied ``wte``'s rows are sharded
+over it: the lookup is vocab-parallel and the head's logits a DTensor
+sharded along the vocab (GPT-2's 50257 stays whole, with JAX's
+warning).
 
 ``pipeline_stages > 1`` splits the blocks into a GPipe schedule
 (``pipeline.stages.<p>.blocks.<j>``), or with ``pipeline_repeats > 1`` a
@@ -351,6 +356,10 @@ class GPT(nn.Module):
                 Block(cfg, device) for _ in range(cfg.num_layers)
             )
         self.ln_f = LayerNorm(cfg.d_model, cfg, device)
+        # The tensor-parallel group's mesh when wte's vocab rows are
+        # sharded (set by accel.accelerate): the lookup is vocab-parallel
+        # and the tied head's logits a DTensor sharded along the vocab.
+        self.vocab_mesh = None
         # The seq axis's 1-D mesh on a seq mesh (set by accel.accelerate).
         self.seq_mesh = None
         if generator is None:
@@ -395,7 +404,8 @@ class GPT(nn.Module):
         pipe = self.pipeline
         if pipe is None or pipe.first:
             wpe = sp.gather_rows(self.wpe, self.seq_mesh)
-            x = self.wte(tokens).to(cfg.dtype) + wpe[lo:lo + s].to(cfg.dtype)
+            x = tp.embed(self.wte, tokens, self.vocab_mesh).to(cfg.dtype) \
+                + wpe[lo:lo + s].to(cfg.dtype)
         else:  # a later pipe rank: the shape of what it receives
             x = torch.empty(b, s, cfg.d_model, dtype=cfg.dtype, device="meta")
         if pipe is None:
@@ -408,8 +418,16 @@ class GPT(nn.Module):
             x, aux = out
         x = self.ln_f(x)
         # Tied output head: logits via the embedding table, in dtype.
-        logits = sp.shard_logits(x @ self.wte.weight.to(cfg.dtype).t(),
-                                 self.seq_mesh)
+        if self.vocab_mesh is None:
+            logits = sp.shard_logits(x @ self.wte.weight.to(cfg.dtype).t(),
+                                     self.seq_mesh)
+        else:
+            from torch.distributed.tensor import DTensor, Shard
+
+            x = tp.enter(x, self.vocab_mesh.get_group())
+            logits = DTensor.from_local(
+                x @ self.wte.weight.to_local().to(cfg.dtype).t(),
+                self.vocab_mesh, [Shard(2)], run_check=False)
         if cfg.num_experts > 0:
             return logits, aux
         return logits

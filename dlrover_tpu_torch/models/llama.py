@@ -26,7 +26,10 @@ first, as in JAX); ``remat`` checkpoints each layer under
 layer's MLP an ``ops.moe.MoEMLP`` of swiglu experts (``layers.<i>.moe``:
 ``router``, ``w_up``, ``b_up``, ``w_gate``, ``w_down``, ``b_down``) and
 the model returns ``(logits, aux)``, as the port's GPT does. On a
-``seq`` mesh axis RoPE takes each shard's global positions.
+``tensor`` mesh axis the layers compute on their local heads, and the
+embedding's rows and the head's vocab columns are sharded over it (the
+lookup vocab-parallel, the logits a DTensor). On a ``seq`` mesh axis
+RoPE takes each shard's global positions.
 ``pipeline_stages > 1`` runs the layers as the port's GPT runs its
 blocks (``accel/pipeline.py``; ``pipeline.stages.<p>.blocks.<j>``, or
 ``pipeline.bank.<p>.<c>.blocks.<k>``, JAX's ``_LlamaStage`` names); on a
@@ -302,9 +305,10 @@ class Llama(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, device,
                              use_bias=False, axes=("embed", "vocab"))
-        # The tensor-parallel group's mesh when the head is vocab-parallel
-        # (set by accel.accelerate): the logits are then a DTensor
-        # sharded along the vocab.
+        # The tensor-parallel group's mesh when the embedding and the head
+        # are vocab-parallel (set by accel.accelerate): the lookup sums
+        # the ranks' rows, and the logits are a DTensor sharded along the
+        # vocab.
         self.vocab_mesh = None
         # The seq axis's 1-D mesh on a seq mesh (set by accel.accelerate).
         self.seq_mesh = None
@@ -344,7 +348,7 @@ class Llama(nn.Module):
         tokens, _ = sp.shard_tokens(tokens, self.seq_mesh)
         pipe = self.pipeline
         if pipe is None or pipe.first:
-            x = self.embed(tokens).to(cfg.dtype)
+            x = tp.embed(self.embed, tokens, self.vocab_mesh).to(cfg.dtype)
         else:  # a later pipe rank: the shape of what it receives
             x = torch.empty(*tokens.shape, cfg.d_model, dtype=cfg.dtype,
                             device="meta")

@@ -12,15 +12,26 @@ products' partial outputs. With no group both are the identity.
 
 ``vocab_parallel_lse`` / ``vocab_parallel_target`` compute the
 logsumexp and the target logit of logits whose vocab axis is sharded
-over the group (LLaMA's untied head): a max and a sum of exponentials
-all-reduced, the same operations ``torch.logsumexp`` runs on the whole
-vocab.
+over the group (LLaMA's untied head, GPT's tied one when its vocab
+divides): a max and a sum of exponentials all-reduced, the same
+operations ``torch.logsumexp`` runs on the whole vocab.
+
+``vocab_parallel_embed`` looks tokens up in an embedding whose rows (the
+vocab) are sharded over the group: each rank takes the rows it holds,
+zeros for the others, and the sum over the group is the row, exactly
+(one value and zeros). ``gather_last`` / ``split_last`` move a tensor
+between this rank's slice of its last dim and the whole of it
+(Megatron's gather and scatter), for a plain module's tensor-parallel
+``nn.Linear`` (``accel/tp_planner.py``) given the other kind of input
+than it takes, and for the logits of its vocab-parallel head.
 """
 
 from typing import Any
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
 
 
 class _Enter(torch.autograd.Function):
@@ -109,6 +120,115 @@ class _Target(torch.autograd.Function):
         return out, None, None, None
 
 
+def _chunk(total: int, n: int, r: int):
+    """``(start, width)`` of part ``r`` of ``n`` of a dim of ``total``,
+    as ``torch.chunk`` (and DTensor's ``Shard``) splits it: parts of
+    ``ceil(total / n)``, the last ones shorter or empty."""
+    size = -(-total // n)
+    start = min(r * size, total)
+    return start, min(size, total - start)
+
+
+def _cat_last(x: torch.Tensor, group: Any, total: int) -> torch.Tensor:
+    """Every rank's ``x``, its ``torch.chunk`` part of a last dim of
+    ``total``, in rank order along the last dim (each padded to the
+    first part's width for the all-gather)."""
+    n = dist.get_world_size(group)
+    size = -(-total // n)
+    x = x.contiguous()
+    if x.shape[-1] < size:
+        x = F.pad(x, (0, size - x.shape[-1]))
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim=-1)
+    return out if out.shape[-1] == total else out[..., :total].contiguous()
+
+
+class _GatherLast(torch.autograd.Function):
+    """This rank's part of the last dim (of ``total``) -> the whole
+    (every rank's in rank order); backward: this rank's part of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, total):
+        ctx.group, ctx.total = group, total
+        return _cat_last(x, group, total)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, width = _chunk(ctx.total, dist.get_world_size(ctx.group),
+                              dist.get_rank(ctx.group))
+        return g.narrow(-1, start, width).contiguous(), None, None
+
+
+class _SplitLast(torch.autograd.Function):
+    """A last dim every rank holds whole -> this rank's part; backward:
+    every rank's part of the gradient gathered into the whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.total = group, x.shape[-1]
+        start, width = _chunk(ctx.total, dist.get_world_size(group),
+                              dist.get_rank(group))
+        return x.narrow(-1, start, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat_last(g, ctx.group, ctx.total), None
+
+
+class _FirstRank(torch.autograd.Function):
+    """``x`` on the group's first rank, zeros on the others; backward:
+    the gradient on every rank (each rank's is the same: what reaches a
+    row-parallel product through ``reduce``)."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        return x.view_as(x) if first else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_last(x: torch.Tensor, group: Any, total: int) -> torch.Tensor:
+    """The whole last dim (of ``total``) from every rank's part
+    (autograd-aware)."""
+    return _GatherLast.apply(x, group, total)
+
+
+def split_last(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """This rank's part of a last dim every rank holds whole."""
+    return _SplitLast.apply(x, group)
+
+
+def vocab_parallel_embed(weight: torch.Tensor, tokens: torch.Tensor,
+                         lo: int, group: Any) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding whose rows ``[lo, lo + len(weight))``
+    this rank holds (``weight``, local): the rank's rows, zeros for the
+    tokens outside them, summed over ``group``. The gradient reaches the
+    local rows of the tokens this rank holds only."""
+    local = tokens - lo
+    mine = (local >= 0) & (local < weight.shape[0])
+    rows = torch.nn.functional.embedding(
+        torch.where(mine, local, torch.zeros_like(local)), weight)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return reduce(rows, group)
+
+
+def embed(embedding: torch.nn.Embedding, tokens: torch.Tensor,
+          mesh: Any = None) -> torch.Tensor:
+    """``embedding(tokens)``; with ``mesh`` (the tensor axis's 1-D mesh,
+    over which the embedding's rows are sharded, a DTensor) its
+    vocab-parallel lookup."""
+    if mesh is None:
+        return embedding(tokens)
+    weight = embedding.weight
+    lo, _ = _chunk(weight.shape[0], mesh.size(), mesh.get_local_rank())
+    return vocab_parallel_embed(weight.to_local(), tokens, lo,
+                                mesh.get_group())
+
+
 def vocab_parallel_lse(x: torch.Tensor, group: Any) -> torch.Tensor:
     return _LSE.apply(x, group)
 
@@ -116,3 +236,55 @@ def vocab_parallel_lse(x: torch.Tensor, group: Any) -> torch.Tensor:
 def vocab_parallel_target(x: torch.Tensor, targets: torch.Tensor, lo: int,
                           group: Any) -> torch.Tensor:
     return _Target.apply(x, targets, lo, group)
+
+
+class ParallelLinear(nn.Module):
+    """A plain module's ``nn.Linear`` over the tensor axis's 1-D ``mesh``
+    (``accel.accelerate`` swaps it in, under the layer's own name, with
+    the layer's parameters, already DTensors of this rank's shard): a
+    ``"col"`` layer's weight (``[out, in]``) and bias hold its rows (this
+    rank's out columns), a ``"row"`` layer's weight its in columns, its
+    bias replicated. A column layer takes the whole input (its gradient
+    summed over the group) and gives its out columns, all of them with
+    ``gather`` (a vocab-parallel head's logits, whose rows may split
+    unevenly, as ``torch.chunk`` splits); a row layer takes its in
+    columns and gives the sum of the ranks' products, the bias in the
+    first rank's (so on one rank it is ``nn.Linear``'s product, one
+    rounding). Given the other kind of input, a layer gathers or slices
+    it (Megatron's gather and scatter)."""
+
+    def __init__(self, linear: nn.Linear, role: str, mesh, gather: bool):
+        super().__init__()
+        self.role, self.mesh, self.gather = role, mesh, gather
+        self.in_features = linear.in_features
+        self.weight, self.bias = linear.weight, linear.bias
+
+    def forward(self, x):
+        group = self.mesh.get_group()
+        weight, bias = self.weight.to_local(), self.bias
+        if self.role == "col":
+            if bias is not None:
+                bias = bias.to_local()
+            if x.shape[-1] != self.in_features:
+                x = gather_last(x, group, self.in_features)
+            y = F.linear(enter(x, group), weight, bias)
+            return gather_last(y, group, self.weight.shape[0]) \
+                if self.gather else y
+        if x.shape[-1] != weight.shape[-1]:
+            x = split_last(x, group)
+        if bias is not None:
+            bias = _FirstRank.apply(bias, self.mesh.get_local_rank() == 0)
+        return reduce(F.linear(x, weight, bias), group)
+
+
+class VocabParallelEmbedding(nn.Module):
+    """A plain module's ``nn.Embedding`` whose rows (the vocab) are
+    sharded over the tensor axis's 1-D ``mesh``: its ``weight``, a
+    DTensor of this rank's rows, looked up by ``vocab_parallel_embed``."""
+
+    def __init__(self, embedding: nn.Embedding, mesh):
+        super().__init__()
+        self.mesh, self.weight = mesh, embedding.weight
+
+    def forward(self, tokens):
+        return embed(self, tokens, self.mesh)

@@ -196,9 +196,9 @@ def test_replica_index_counts_unsharded_axes():
 
 
 @pytest.mark.parametrize("spec,match", [
-    # ZeRO-1 over data alone trains (tests/test_torch_zero.py); with
-    # another degree its leaves would lie over two mesh axes.
-    (ParallelSpec(data=2, fsdp=2, zero=True), "ZeRO"),
+    # ZeRO-1 over data, alone or beside fsdp and tensor, trains
+    # (tests/test_torch_zero.py); beside seq, expert or pipe it raises.
+    (ParallelSpec(data=2, seq=2, zero=True), "ZeRO"),
     (ParallelSpec(collectives=(("data", "lat"),)), "collectives"),
     # seq, expert and pipe degrees place a module
     # (tests/test_torch_seq_expert.py, tests/test_torch_pipeline.py);
@@ -215,14 +215,29 @@ def test_later_specs_raise_naming_their_slice(spec, match):
 
 
 def test_auto_over_several_processes_raises(monkeypatch):
-    """``"auto"`` over several processes searches a model with logical
-    axes (tests/test_torch_search.py); a plain module needs the sharding
-    registry, which a later part of the slice brings."""
+    """``"auto"`` over several processes searches a plain module too (its
+    profile from its parameter count, as JAX's; tests/test_torch_search.py
+    trains one on a world of 4): the search ranks a spec of the world's
+    2 processes, and only joining the world, which this process is not
+    in, raises."""
+    from dlrover_tpu_torch.accel import search
+
     monkeypatch.setenv("WORLD_SIZE", "2")
+    for name in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    ranked = []
+    real = search.search_spec
+
+    def spy(*args, **kwargs):
+        ranked.extend(real(*args, **kwargs))
+        return ranked
+
+    monkeypatch.setattr(search, "search_spec", spy)
     plain = torch.nn.Sequential(torch.nn.Linear(8, 8))
-    with pytest.raises(NotImplementedError, match="search"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         auto_accelerate(plain, adamw(1e-3), np.zeros((2, 8), np.int64), None,
                         device="cpu")
+    assert ranked and all(sp.total == 2 for sp, _ in ranked)
 
 
 def test_spec_must_match_the_world(monkeypatch):
@@ -280,13 +295,16 @@ def _losses(res, batches):
 
 @pytest.mark.parametrize("axis,family", [
     ("fsdp", "gpt"), ("data", "gpt"), ("tensor", "llama"),
-    ("tensor", "gpt"), ("fsdp", "llama"),
+    ("tensor", "gpt"), ("fsdp", "llama"), ("fsdp+tensor", "llama"),
+    ("data+fsdp+tensor", "gpt"),
 ])
 def test_one_rank_mesh_equals_one_device(world_of_one, axis, family):
     """Each axis's branch on a mesh of one rank (a collective is a copy,
     the division is by 1) gives the one-device path's losses bit for
     bit, with remat "dots" and the fused 8-bit Adam, and its parameters
-    too."""
+    too. An axis of size 1 takes its branch: under tensor the
+    embedding's lookup is vocab-parallel; fsdp and tensor together are
+    FSDP2 over the tensor-parallel DTensors."""
     torch.manual_seed(0)
     if family == "gpt":
         cfg = dataclasses.replace(GPTConfig.tiny(), remat=True,
@@ -301,10 +319,12 @@ def test_one_rank_mesh_equals_one_device(world_of_one, axis, family):
     loss = lambda m, p, b: loss_fn(m(b), b)  # noqa: E731
     one = auto_accelerate(make(), adam8bit(1e-2), batches[0], loss,
                           spec=ParallelSpec(), device="cpu")
-    m = mesh.create_mesh([(axis, 1)], torch.device("cpu"))
+    m = mesh.create_mesh([(a, 1) for a in axis.split("+")],
+                         torch.device("cpu"))
     res = accelerate.accelerate_on_mesh(make(), adam8bit(1e-2), batches[0],
                                         loss, m, device="cpu")
     assert res.mesh is m and res.batch_rows == ((0, 4), 4)
+    assert (res.module.vocab_mesh is not None) == ("tensor" in axis)
     assert _losses(res, batches) == _losses(one, batches)
     for name, p in res.state["params"].items():
         assert torch.equal(sharding.local(p), one.state["params"][name]), name

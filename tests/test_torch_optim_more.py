@@ -49,6 +49,7 @@ from dlrover_tpu.optim import agd as jax_agd
 from dlrover_tpu.optim import bf16_master_weights as jax_bf16
 from dlrover_tpu.optim import offload as jax_offload
 from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
+from dlrover_tpu_torch.accel.registry import ShardingRegistry
 from dlrover_tpu_torch.models.convert import (
     params_from_flax,
     train_state_leaves,
@@ -384,14 +385,33 @@ def test_offload_through_trainer_kwargs():
 @pytest.mark.parametrize("kwargs,error", [
     (dict(precision="int8"), NotImplementedError),
     (dict(devices=[]), NotImplementedError),
-    (dict(registry=object()), NotImplementedError),
+    (dict(registry=ShardingRegistry()), None),
     (dict(precision="fp8"), ValueError),
     (dict(rng=0), TypeError),
 ])
-def test_other_accel_kwargs_raise(kwargs, error):
-    with pytest.raises(error, match="ROADMAP|precision|rng"):
-        Trainer(port_model(), adamw(1e-3), token_loss, batches(1)[0],
+def test_other_accel_kwargs_raise(kwargs, error, monkeypatch):
+    """The keyword arguments ``Trainer`` passes on to ``auto_accelerate``:
+    those of later slices raise, naming them; ``registry=`` reaches it
+    (a model that names its own axes trains as without it)."""
+    if error is not None:
+        with pytest.raises(error, match="ROADMAP|precision|rng"):
+            Trainer(port_model(), adamw(1e-3), token_loss, batches(1)[0],
+                    spec=ParallelSpec(), device="cpu", **kwargs)
+        return
+    import dlrover_tpu_torch.accel as accel
+
+    seen = []
+    real = accel.auto_accelerate
+
+    def spy(*args, **kw):
+        seen.append(kw.get("registry"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(accel, "auto_accelerate", spy)
+    t = Trainer(port_model(), adamw(1e-3), token_loss, batches(1)[0],
                 spec=ParallelSpec(), device="cpu", **kwargs)
+    assert seen == [kwargs["registry"]]
+    assert t.fit(iter(batches()), steps=STEPS)["step"] == STEPS
 
 
 @pytest.mark.parametrize("name", ["adamw", "adam8bit", "bf16_adamw"])

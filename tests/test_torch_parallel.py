@@ -5,7 +5,10 @@ Two worlds of processes, started as torchrun starts them (``RANK``,
 this file is also the worker (``python tests/test_torch_parallel.py
 <inputs>``). A world of 2 trains ``ParallelSpec(data=2)``, ``(fsdp=2)``
 and ``(tensor=2)`` and runs the checkpoint cases; a world of 4 trains
-``(data=2, fsdp=2)`` and ``(data=2, tensor=2)``. Each training case is
+``(data=2, fsdp=2)``, ``(data=2, tensor=2)`` and ``(fsdp=2, tensor=2)``
+(FSDP2 over the tensor-parallel DTensors) and saves and restores a
+two-axis checkpoint; a world of 8 trains ``(data=2, fsdp=2,
+tensor=2)`` under AdamW. Each training case is
 GPT tiny or LLaMA tiny (fp32, einsum attention) under ``adamw`` or
 ``adam8bit``, from the JAX package's initial weights, three steps of
 the same global batches on every rank; the JAX side runs as
@@ -28,12 +31,21 @@ flipped and scales 3.8e-3 apart after three steps (GPT tiny: 0.08%,
 4.9e-4), past the fit test's 1% and 1e-3. ``MESH_FLIP_SHARE`` and
 ``MESH_SCALE_REL`` are twice and about 2.6 times those.
 
+Plain modules (``tests/test_torch_registry.py``'s torch twins of the
+flax ``PlainLM`` and ``GQALM``, from the flax init) train three AdamW
+steps under ``tensor=2`` (planned with ``allow_tensor=True``, and
+placed by a ``registry=`` of one registered MLP pair), ``fsdp=2`` and
+``fsdp=2 x tensor=2`` (planned): losses within 2e-5 of the JAX package's
+``auto_accelerate`` of the flax model under the same spec and
+arguments (``tests/test_tp_planner.py``'s tolerance).
+
 Every world has a deadline: on expiry its ranks are killed and the test
 fails with their logs.
 """
 
 import dataclasses
 import glob
+import math
 import os
 import pickle
 import shutil
@@ -56,8 +68,25 @@ LR = {"adamw": 1e-3, "adam8bit": 1e-2}
 MESH_FLIP_SHARE, MESH_SCALE_REL = 2e-2, 1e-2
 JAX_PROCS = 5
 WORLD2 = ({"data": 2}, {"fsdp": 2}, {"tensor": 2})
-WORLD4 = ({"data": 2, "fsdp": 2}, {"data": 2, "tensor": 2})
+WORLD4 = ({"data": 2, "fsdp": 2}, {"data": 2, "tensor": 2},
+          {"fsdp": 2, "tensor": 2})
+TWO_AXES = {"fsdp": 2, "tensor": 2}
+# fsdp x tensor with data too: a world of 8, AdamW only.
+WORLD8 = ({"data": 2, "fsdp": 2, "tensor": 2},)
 REMAT_POLICIES = ("nothing", "dots", "dots_lite", "offload")
+# Plain modules (tests/test_torch_registry.py's twins): (model, spec,
+# placed by the registry rather than the planner).
+# "odd_vocab": a vocab (129) the tensor degree does not divide, whose
+# embedding and head JAX's rules shard all the same (no vocab guard
+# for a model without cfg.vocab_size).
+PLAIN_MODELS = ("mha", "gqa", "odd_vocab")
+PLAIN = ([(m, {"tensor": 2}, False) for m in PLAIN_MODELS]
+         + [("mha", {"tensor": 2}, True), ("mha", {"fsdp": 2}, False)]
+         + [(m, {"fsdp": 2, "tensor": 2}, False) for m in PLAIN_MODELS])
+
+
+def plain_name(model, spec, registry):
+    return f"plain-{model}{'-registry' if registry else ''}-{spec_id(spec)}"
 REMAT_CASES = (("gpt", {"fsdp": 2}), ("llama", {"tensor": 2}))
 
 
@@ -135,6 +164,56 @@ def port_train(family, opt, spec: dict, init=None):
             "local": local, "heads": heads,
             "global": {n: tuple(p.shape)
                        for n, p in res.state["params"].items()}}
+
+
+def plain_batches():
+    rng = np.random.default_rng(17)
+    return [rng.integers(0, 128, (ROWS, SEQ), dtype=np.int64)
+            for _ in range(STEPS)]
+
+
+def port_plain_train(model, spec: dict, init, registry: bool):
+    """A plain twin from the flax ``init``, placed by the planner
+    (``allow_tensor=True``) or by ``port_registry()``: three AdamW steps
+    of ``plain_batches``; the losses, what this rank holds and the
+    roles of its layers, and the whole bias of each row-parallel layer
+    (which the tensor ranks hold replicated)."""
+    from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
+    from dlrover_tpu_torch.accel import sharding
+    from dlrover_tpu_torch.models.convert import plain_from_flax
+    from test_torch_registry import port_registry, token_loss, torch_model
+
+    twin = torch_model(model)
+    twin.load_state_dict(plain_from_flax(init, twin))
+    batches = plain_batches()
+    res = auto_accelerate(twin, port_opt("adamw"), batches[0], token_loss,
+                          spec=ParallelSpec(**spec), device="cpu",
+                          allow_tensor=not registry,
+                          registry=port_registry() if registry else None)
+    losses = []
+    for b in batches:
+        _, metrics = res.train_step(res.state, torch.from_numpy(
+            res.local_batch(b)))
+        losses.append(float(metrics["loss"]))
+    params = res.state["params"]
+    with torch.no_grad():
+        row_bias = {
+            f"{n}.bias": sharding.gather_full(
+                params[f"{n}.bias"], sharding.layout_of(params[f"{n}.bias"]),
+                params[f"{n}.bias"].shape).numpy().copy()
+            for n, m in res.module.named_modules()
+            if getattr(m, "role", None) == "row" and m.bias is not None}
+    from torch.distributed.fsdp import FSDPModule
+
+    return {"losses": losses, "row_bias": row_bias,
+            "fsdp_units": sorted(n for n, m in res.module.named_modules()
+                                 if isinstance(m, FSDPModule)),
+            "local": {n: tuple(sharding.local(p).shape)
+                      for n, p in res.state["params"].items()},
+            "global": {n: tuple(p.shape)
+                       for n, p in res.state["params"].items()},
+            "roles": {n: m.role for n, m in res.module.named_modules()
+                      if hasattr(m, "role")}}
 
 
 def blocks_of(state):
@@ -250,8 +329,15 @@ def case_agent_save(case, inputs):
     return out
 
 
+def case_plain(case, inputs):
+    return port_plain_train(case["model"], case["spec"],
+                            inputs["plain_init"][case["model"]],
+                            case["registry"])
+
+
 CASES = {"train": case_train, "save": case_save, "restore": case_restore,
-         "remat": case_remat, "agent_save": case_agent_save}
+         "remat": case_remat, "agent_save": case_agent_save,
+         "plain": case_plain}
 
 
 def worker(path):
@@ -394,10 +480,13 @@ def jax_init(family):
 
 def jax_refs(path):
     """A process of JAX references: ``jax_train`` of each (family, opt,
-    spec) in the inputs, pickled beside them."""
+    spec) in the inputs, ``jax_plain_train`` of each plain case, pickled
+    beside them."""
     with open(path, "rb") as f:
         todo = pickle.load(f)
-    out = {key: jax_train(*key[:2], spec)[1:] for key, spec in todo}
+    out = {key: (jax_plain_ref(key[1], spec, key[2]) if key[0] == "plain"
+                 else jax_train(*key[:2], spec)[1:])
+           for key, spec in todo}
     with open(f"{path}.rank0", "wb") as f:
         pickle.dump(out, f)
 
@@ -428,6 +517,43 @@ def jax_train(family, opt, spec: dict):
         losses.append(float(m["loss"]))
     return init, losses, tree(np.asarray, state["params"]), \
         tree(np.asarray, state["opt"])
+
+
+def jax_plain_train(model, spec: dict, registry: bool):
+    """The JAX package's ``auto_accelerate`` of the flax plain model under
+    ``spec`` over the first N host devices, planned (``allow_tensor``)
+    or with ``jax_registry()``: the losses of three AdamW steps."""
+    J = _jax()
+    from dlrover_tpu.accel import auto_accelerate
+    from test_torch_registry import flax_models, jax_loss, jax_registry
+
+    s = J.ParallelSpec(**spec)
+    batches = [b.astype(np.int32) for b in plain_batches()]
+    res = auto_accelerate(
+        flax_models()[model](), J.optax.adamw(LR["adamw"]), batches[0],
+        jax_loss, spec=s, devices=J.jax.devices()[:s.total],
+        allow_tensor=not registry,
+        registry=jax_registry() if registry else None)
+    state, losses = res.state, []
+    for b in batches:
+        state, m = res.train_step(state, J.jax.device_put(
+            b, res.batch_sharding))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def jax_plain_ref(model, spec: dict, registry: bool):
+    """``jax_plain_train``'s losses under ``spec``; for ``odd_vocab``,
+    whose embedding and head JAX's rules shard over a tensor degree that
+    does not divide them, JAX's refusal (its message) and its losses on
+    one device."""
+    if model != "odd_vocab":
+        return jax_plain_train(model, spec, registry)
+    try:
+        jax_plain_train(model, spec, registry)
+    except ValueError as e:
+        return str(e), jax_plain_train(model, {}, registry)
+    raise AssertionError(f"JAX trained {model} under {spec}")
 
 
 def jax_ckpt_trainer(spec: dict, ckpt_dir: str):
@@ -474,8 +600,13 @@ def _runs(root, job, jax_bytes, port_bytes):
     out = {"jax": {}, "one": {}, "dirs": {}}
     # The JAX package's initial weights (the same under every spec).
     init = {f: jax_init(f) for f in FAMILIES}
+    from test_torch_registry import flax_init
+
+    plain_init = {m: flax_init(m, plain_batches()[0].astype(np.int32))[1]
+                  for m in PLAIN_MODELS}
     dirs = {k: str(root / k) for k in ("fsdp", "fsdp8", "one", "tensor",
-                                       "data", "jax_fsdp", "agent")}
+                                       "data", "jax_fsdp", "agent",
+                                       "fsdp_tensor", "jax_fsdp_tensor")}
     out["dirs"] = dirs
     # Checkpoints the worlds restore: one device (port) and fsdp=2 (JAX).
     t = ckpt_trainer("gpt", "adamw", {}, dirs["one"])
@@ -486,6 +617,11 @@ def _runs(root, job, jax_bytes, port_bytes):
     jt.fit(iter(b.astype(np.int32) for b in global_batches()[:2]), steps=2,
            start_step=0)
     out["jax_fsdp_ckpt"] = jax_bytes(jt.state)
+    jt.close()
+    jt = jax_ckpt_trainer(TWO_AXES, dirs["jax_fsdp_tensor"])
+    jt.fit(iter(b.astype(np.int32) for b in global_batches()[:2]), steps=2,
+           start_step=0)
+    out["jax_fsdp_tensor_ckpt"] = jax_bytes(jt.state)
     jt.close()
 
     def train_cases(specs):
@@ -508,14 +644,28 @@ def _runs(root, job, jax_bytes, port_bytes):
              opt="adamw", dir=dirs["jax_fsdp"]),
     ] + [dict(kind="remat", name=f"remat-{fam}-{spec_id(spec)}", family=fam,
               spec=spec) for fam, spec in REMAT_CASES]
+    def plain_cases(n):
+        return [dict(kind="plain", name=plain_name(m, spec, r), model=m,
+                     spec=spec, registry=r)
+                for m, spec, r in PLAIN if math.prod(spec.values()) == n]
+
+    w2_cases += plain_cases(2)
+    w4_cases = train_cases(WORLD4) + plain_cases(4) + [
+        dict(kind="save", name="save-fsdp-tensor", spec=TWO_AXES,
+             opt="adamw", dir=dirs["fsdp_tensor"]),
+        dict(kind="restore", name="jax-fsdp-tensor-to-fsdp-tensor",
+             spec=TWO_AXES, opt="adamw", dir=dirs["jax_fsdp_tensor"]),
+    ]
     agent_cases = [dict(kind="agent_save", name="agent-fsdp",
                         spec={"fsdp": 2}, dir=dirs["agent"])]
     worlds = []
-    for n, tag, cases in ((2, "w2", w2_cases), (4, "w4", train_cases(WORLD4)),
-                          (2, "agent", agent_cases)):
+    w8_cases = [c for c in train_cases(WORLD8) if c["opt"] == "adamw"]
+    for n, tag, cases in ((2, "w2", w2_cases), (4, "w4", w4_cases),
+                          (8, "w8", w8_cases), (2, "agent", agent_cases)):
         path = str(root / f"{tag}.pkl")
         with open(path, "wb") as f:
-            pickle.dump({"init": init, "cases": cases}, f)
+            pickle.dump({"init": init, "plain_init": plain_init,
+                         "cases": cases}, f)
         if tag == "agent":
             # The agent's saver of this world's node, in this process
             # (it reads the job's name when a registration comes).
@@ -528,6 +678,9 @@ def _runs(root, job, jax_bytes, port_bytes):
     # LLaMA compiles longest), dealt out in turns.
     todo = [((fam, opt, spec_id(spec)), spec) for opt in OPTS[::-1]
             for fam in FAMILIES[::-1] for spec in WORLD2 + WORLD4]
+    todo += [((fam, "adamw", spec_id(spec)), spec) for fam in FAMILIES
+             for spec in WORLD8]
+    todo += [(("plain", m, r, spec_id(spec)), spec) for m, spec, r in PLAIN]
     for k in range(JAX_PROCS):
         path = str(root / f"jax{k}.pkl")
         with open(path, "wb") as f:
@@ -543,10 +696,10 @@ def _runs(root, job, jax_bytes, port_bytes):
         finally:
             AsyncCheckpointSaver.stop()
             clear_job_sockets(f"{job}-agent")
-    out["agent"] = results[2]
-    for refs in results[3:]:
+    out["agent"] = results[3]
+    for refs in results[4:]:
         out["jax"].update(refs[0])
-    out["w2"], out["w4"] = results[:2]
+    out["w2"], out["w4"], out["w8"] = results[:3]
     return out
 
 
@@ -568,7 +721,8 @@ def _hold_params(got, want, opt, label):
 
 
 TRAIN = [(n, s, f, o) for n, specs in ((2, WORLD2), (4, WORLD4))
-         for s in specs for f in FAMILIES for o in OPTS]
+         for s in specs for f in FAMILIES for o in OPTS] + [
+    (8, s, f, "adamw") for s in WORLD8 for f in FAMILIES]
 
 
 @pytest.mark.parametrize("world,spec,family,opt", TRAIN, ids=[
@@ -598,21 +752,38 @@ def test_mesh_training_matches_jax_and_one_device(runs, world, spec, family,
         assert rank[name]["losses"] == got["losses"]
 
 
+def fsdp_dims(family: str, spec: dict) -> dict:
+    """The dim the fsdp axis shards, by parameter name: the one JAX's
+    rules give the leaf's ``embed`` axis, dim 0 without one."""
+    from dlrover_tpu_torch.accel import ParallelSpec
+    from dlrover_tpu_torch.accel.sharding import mesh_dims
+
+    rules = ParallelSpec(**spec).rules()
+    return {n: mesh_dims(a, rules).get("fsdp", 0)
+            for n, a in port_model(family).logical_axes().items()}
+
+
 @pytest.mark.parametrize("world,spec", [(2, {"fsdp": 2}),
                                         (4, {"data": 2, "fsdp": 2})])
 def test_fsdp_holds_half_of_each_leaf(runs, world, spec):
-    """Under fsdp=2 each rank holds half of every parameter (dim 0, as
-    FSDP2 splits; two ranks' halves make the leaf)."""
+    """Under fsdp=2 each rank holds half of every parameter, along the
+    dim JAX's rules give its ``embed`` axis (dim 0 without one, as FSDP2
+    splits); two ranks' halves make the leaf."""
     for family in FAMILIES:
         name = f"{family}-adamw-{spec_id(spec)}"
         ranks = [r[name] for r in runs[f"w{world}"]]
+        dims = fsdp_dims(family, spec)
+        assert any(d == 1 for d in dims.values())
         for n, shape in ranks[0]["global"].items():
-            rows = [r["local"][n][0] for r in ranks]
-            assert all(r["local"][n][1:] == shape[1:] for r in ranks), n
-            assert all(x == -(-shape[0] // 2) or x == shape[0] // 2
+            d = dims[n]
+            rows = [r["local"][n][d] for r in ranks]
+            for r in ranks:
+                assert r["local"][n][:d] + r["local"][n][d + 1:] == \
+                    shape[:d] + shape[d + 1:], n
+            assert all(x == -(-shape[d] // 2) or x == shape[d] // 2
                        for x in rows), (n, rows)
-            # Each fsdp pair of ranks splits the rows once.
-            assert sum(rows) == shape[0] * world // 2, (n, rows)
+            # Each fsdp pair of ranks splits the dim once.
+            assert sum(rows) == shape[d] * world // 2, (n, rows)
 
 
 @pytest.mark.parametrize("world,spec", [(2, {"tensor": 2}),
@@ -629,18 +800,52 @@ def test_tensor_computes_on_half_the_heads(runs, world, spec):
             assert r["heads"] == {"Block": (1, None)}
             assert r["attn_heads"] == [1]
             col, row = ("qkv", "up"), ("proj", "down")
+            # The tiny vocab (256) divides: the tied wte's rows too.
+            assert loc["wte.weight"] == (g["wte.weight"][0] // 2,
+                                         g["wte.weight"][1])
         else:
             assert r["heads"] == {"LlamaBlock": (2, 1)}
             assert r["attn_heads"] == [2]
             col = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
             row = ("o_proj", "down_proj")
             assert loc["lm_head.kernel"][1] == g["lm_head.kernel"][1] // 2
+            # The vocab-parallel embedding: half its rows.
+            assert loc["embed.weight"] == (g["embed.weight"][0] // 2,
+                                           g["embed.weight"][1])
         for n in g:
             m = n.split(".")[-2] if "." in n else ""
             if n.endswith(".kernel") and m in col:
                 assert loc[n] == (g[n][0], g[n][1] // 2), n
             elif n.endswith(".kernel") and m in row:
                 assert loc[n] == (g[n][0] // 2, g[n][1]), n
+
+
+def test_fsdp_and_tensor_hold_a_quarter_of_each_kernel(runs):
+    """Under fsdp=2 x tensor=2 a rank holds a quarter of every
+    column-parallel kernel (fsdp's half of its ``embed`` rows, tensor's
+    half of its columns), of every row-parallel one (tensor's half of its
+    rows, fsdp's half of its ``embed`` columns), and of the embedding
+    (tensor's half of the vocab, fsdp's of ``embed``), as JAX places
+    them; the blocks still see half the heads."""
+    for family in FAMILIES:
+        name = f"{family}-adamw-{spec_id(TWO_AXES)}"
+        for rank in runs["w4"]:
+            r = rank[name]
+            g, loc = r["global"], r["local"]
+            assert r["attn_heads"] == [1 if family == "gpt" else 2]
+            if family == "gpt":
+                col, row, table = ("qkv", "up"), ("proj", "down"), "wte"
+            else:
+                col = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+                row, table = ("o_proj", "down_proj"), "embed"
+            for n in g:
+                m = n.split(".")[-2] if "." in n else ""
+                if n.endswith(".kernel") and m in col:
+                    assert loc[n] == (g[n][0] // 2, g[n][1] // 2), n
+                elif n.endswith(".kernel") and m in row:
+                    assert loc[n] == (g[n][0] // 2, g[n][1] // 2), n
+            assert loc[f"{table}.weight"] == (g[f"{table}.weight"][0] // 2,
+                                              g[f"{table}.weight"][1] // 2)
 
 
 @pytest.mark.parametrize("family,spec", REMAT_CASES,
@@ -652,6 +857,58 @@ def test_remat_policies_equal_no_remat_on_a_mesh(runs, family, spec):
         got = rank[f"remat-{family}-{spec_id(spec)}"]
         for policy in REMAT_POLICIES:
             assert got[policy] == got["none"], policy
+
+
+@pytest.mark.parametrize("model,spec,registry", PLAIN, ids=[
+    plain_name(m, s, r) for m, s, r in PLAIN])
+def test_plain_models_train_as_jax(runs, model, spec, registry):
+    """A plain module planned (``allow_tensor=True``) or placed by a
+    ``registry=``: its losses are the JAX package's ``auto_accelerate``'s
+    of the flax model under the same spec within 2e-5, on every rank
+    alike; the planned layers are the Megatron pairs, and under tensor=2
+    a column-parallel kernel holds half its rows (torch's ``[out, in]``),
+    a row-parallel one half its columns, and fsdp halves the other dim
+    (its ``embed`` dim; under fsdp alone nothing is tensor-parallel).
+    The embedding's rows split over tensor whatever the vocab, as JAX's
+    do (rank 0 holds ``ceil(V / 2)`` of an odd vocab): where JAX refuses
+    that uneven split, the port's losses are JAX's on one device. A
+    row-parallel bias, which only the first tensor rank adds, is stepped
+    alike on every rank. Under fsdp each block is an FSDP2 unit."""
+    name = plain_name(model, spec, registry)
+    world = runs[f"w{math.prod(spec.values())}"]
+    got = world[0][name]
+    want = runs["jax"]["plain", model, registry, spec_id(spec)]
+    if model == "odd_vocab":
+        refused, want = want
+        assert "should be divisible by 2" in refused, refused
+    np.testing.assert_allclose(got["losses"], want, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    for rank in world[1:]:
+        assert rank[name]["losses"] == got["losses"]
+    g, loc = got["global"], got["local"]
+    f, t = spec.get("fsdp", 1), spec.get("tensor", 1)
+    assert bool(got["row_bias"]) == (t > 1)
+    # FSDP2 gathers one block at a time: each block a unit, then the root.
+    assert got["fsdp_units"] == ([] if f == 1 else
+                                 ["", "block_0", "block_1"])
+    for rank in world[1:]:
+        for n, bias in got["row_bias"].items():
+            np.testing.assert_array_equal(rank[name]["row_bias"][n], bias)
+    if t == 1:
+        assert got["roles"] == {}
+    elif registry:
+        assert got["roles"] == {"block_0.up": "col", "block_0.down": "row",
+                                "block_1.up": "col", "block_1.down": "row"}
+    else:
+        assert got["roles"]["block_0.q_proj"] == "col"
+        assert got["roles"]["block_0.k_proj"] == "col"
+        assert got["roles"]["block_0.o_proj"] == "row"
+        assert got["roles"]["lm_head"] == "col"
+    up, down = "block_0.up.weight", "block_0.down.weight"
+    assert loc[up] == (g[up][0] // t, g[up][1] // f), loc[up]
+    assert loc[down] == (g[down][0] // f, g[down][1] // t), loc[down]
+    assert loc["wte.weight"] == (-(-g["wte.weight"][0] // t),
+                                 g["wte.weight"][1] // f)
 
 
 # ------------------------------------------------------ checkpoints
@@ -673,14 +930,19 @@ def test_fsdp_checkpoint_restores_at_fsdp_bit_for_bit(runs):
             assert r["next"][0] == r["next"][1]
 
 
-@pytest.mark.parametrize("case", ["save-fsdp", "save-tensor"])
+@pytest.mark.parametrize("case", ["save-fsdp", "save-tensor",
+                                  "save-fsdp-tensor"])
 def test_sharded_checkpoint_restores_on_one_device(runs, case):
-    """fsdp=2 and tensor=2 (GPT's fused qkv as three regions a rank) ->
-    one device: each leaf equals the one the ranks held together."""
+    """fsdp=2, tensor=2 (GPT's fused qkv as three regions a rank) and
+    fsdp=2 x tensor=2 (blocks over two axes; a column bias's nested in
+    dim 0) -> one device: each leaf equals the one the ranks held
+    together."""
     from test_torch_checkpoint import port_bytes
 
-    want = assemble([r[case]["saved"] for r in runs["w2"]])
-    t = ckpt_trainer("gpt", "adamw", {}, runs["dirs"][case[5:]], seed=5)
+    world = runs["w4" if case == "save-fsdp-tensor" else "w2"]
+    want = assemble([r[case]["saved"] for r in world])
+    t = ckpt_trainer("gpt", "adamw", {},
+                     runs["dirs"][case[5:].replace("-", "_")], seed=5)
     assert t.restore() == 2
     assert port_bytes(t.state) == want
     t.close()
@@ -776,6 +1038,45 @@ def test_port_fsdp_checkpoint_restores_in_jax(runs, tmp_path):
     assert jt.restore() == 2
     assert jax_bytes(jt.state) == want
     jt.close()
+
+
+def test_two_axis_checkpoint_restores_bit_for_bit_at_its_topology(runs):
+    """fsdp=2 x tensor=2 -> the same: every rank's blocks (each leaf's
+    once a replica, in JAX's global coordinates) come back bit for bit,
+    and the next step's losses are the uninterrupted run's."""
+    for rank in runs["w4"]:
+        r = rank["save-fsdp-tensor"]
+        assert r["step"] == 2
+        assert _by_path(r["restored"]) == _by_path(r["saved"])
+        assert r["next"][0] == r["next"][1]
+
+
+def test_port_two_axis_checkpoint_restores_in_jax(runs):
+    """The port's fsdp=2 x tensor=2 step (four shard files) restores into
+    the JAX package on one device, bit for bit."""
+    from test_torch_checkpoint import jax_bytes, jax_trainer
+
+    want = assemble([r["save-fsdp-tensor"]["saved"] for r in runs["w4"]])
+    jt = jax_trainer("adamw", runs["dirs"]["fsdp_tensor"])
+    assert jt.restore() == 2
+    assert jax_bytes(jt.state) == want
+    jt.close()
+
+
+def test_jax_two_axis_checkpoint_restores_in_port(runs):
+    """The JAX package's fsdp=2 x tensor=2 step (4 host devices) restores
+    into the port at fsdp=2 x tensor=2 and on one device, bit for bit."""
+    from test_torch_checkpoint import port_bytes
+
+    name = "jax-fsdp-tensor-to-fsdp-tensor"
+    assert all(r[name]["step"] == 2 for r in runs["w4"])
+    got = assemble([r[name]["restored"] for r in runs["w4"]])
+    assert got == runs["jax_fsdp_tensor_ckpt"]
+    t = ckpt_trainer("gpt", "adamw", {}, runs["dirs"]["jax_fsdp_tensor"],
+                     seed=5)
+    assert t.restore() == 2
+    assert port_bytes(t.state) == runs["jax_fsdp_tensor_ckpt"]
+    t.close()
 
 
 if __name__ == "__main__":

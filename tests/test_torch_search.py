@@ -20,7 +20,14 @@ runs on a world of 4 gloo ranks (a file rendezvous; this file is the
 worker: ``python tests/test_torch_search.py <inputs>``): it chooses what
 JAX's ``search_spec`` chooses for 4 devices, and trains bit for bit as
 that spec given explicitly; with ``profile=True`` every rank builds the
-same winner and the caller's weights come back unstepped.
+same winner and the caller's weights come back unstepped. A plain
+module there (``tests/test_torch_registry.py``'s twin of the flax
+``PlainLM``, from its init) under ``"auto"`` with ``allow_tensor=True``
+ranks as JAX ranks it (its profile from the parameter count, a head
+count of the world's size, no names on its state), is planned and
+placed, and its losses are JAX's ``auto_accelerate`` of the flax model
+under the chosen spec within 2e-5 (``tests/test_tp_planner.py``'s
+tolerance).
 """
 
 import contextlib
@@ -39,6 +46,7 @@ import torch
 
 from dlrover_tpu_torch.accel import search
 from dlrover_tpu_torch.accel.accelerate import ParallelSpec, auto_accelerate
+from dlrover_tpu_torch.accel.registry import ShardingRegistry
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.models.gpt import GPT, GPTConfig, loss_fn
 from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
@@ -459,13 +467,27 @@ def test_a_candidate_the_port_refuses_is_skipped_and_logged(monkeypatch):
                for r in records)
 
 
-@pytest.mark.parametrize("kwargs", [dict(allow_tensor=True),
-                                    dict(registry=object())])
+@pytest.mark.parametrize("kwargs", [
+    dict(allow_tensor=True),
+    dict(registry=ShardingRegistry().register(r"0\.weight$",
+                                              ("mlp", "embed")))])
 def test_registry_and_planner_on_plain_models_raise(kwargs):
+    """A plain module with ``allow_tensor=True`` or ``registry=`` in a
+    one-process job: ``"auto"`` ranks one device, which needs neither
+    (JAX annotates a plain model only on a mesh), and it trains there;
+    nothing raises (the worlds of 4 below place one on a mesh)."""
     plain = torch.nn.Sequential(torch.nn.Linear(8, 8))
-    with pytest.raises(NotImplementedError, match="registry"):
-        auto_accelerate(plain, adamw(1e-3), np.zeros((2, 8), np.int64),
-                        None, device="cpu", **kwargs)
+
+    def loss(module, params, batch):
+        return module(batch.float()).square().mean()
+
+    res = auto_accelerate(plain, adamw(1e-3), np.ones((2, 8), np.int64),
+                          loss, device="cpu", **kwargs)
+    assert res.spec == ParallelSpec() and res.mesh is None
+    before = plain[0].weight.detach().clone()
+    _, m = res.train_step(res.state, torch.ones((2, 8), dtype=torch.long))
+    assert np.isfinite(float(m["loss"]))
+    assert not torch.equal(plain[0].weight, before)
 
 
 # ------------------------------------------------------ calibration
@@ -525,7 +547,64 @@ def jax_choice(n, rows):
     return [spec_key(s) for s, _ in ranked]
 
 
+def jax_plain_choice(n, rows):
+    """JAX's ranking for the flax ``PlainLM`` (``allow_tensor=True``: a
+    head count of ``n``) on ``n`` devices under the port's H100
+    constants, with its unannotated state, as its ``auto_accelerate``
+    ranks."""
+    import flax.linen as nn
+    import jax
+    import optax
+    from test_torch_registry import flax_models
+
+    c = CONSTANTS["h100"]
+    with pytest.MonkeyPatch.context() as mp:
+        jsearch = patch_jax(mp, c)
+        jm = flax_models()["mha"]()
+        params = jax_abstract(jm, optax.adamw(1e-3), rows)["params"]
+        count = sum(int(np.prod(x.shape))
+                    for x in jax.tree_util.tree_leaves(nn.meta.unbox(params)))
+        prof = dataclasses.replace(jsearch.ModelProfile.from_params(count),
+                                   num_heads=n)
+        ranked = jsearch.search_spec(
+            prof, n, rows, c["hbm"],
+            abstract_fn=lambda sp: jax_abstract(jm, optax.adamw(1e-3), rows),
+            peak_flops=c["peak_flops"], ici_bw=c["ici_bw"],
+            dcn_bw=c["dcn_bw"])
+    return [spec_key(s) for s, _ in ranked]
+
+
+def jax_plain_losses(spec_fields, batches):
+    """The JAX package's ``auto_accelerate`` of the flax ``PlainLM``
+    under the given spec (``allow_tensor=True``) over the first N host
+    devices: the losses of ``batches``."""
+    import jax
+    import optax
+
+    from dlrover_tpu.accel import ParallelSpec as JSpec
+    from dlrover_tpu.accel import auto_accelerate as jauto
+    from test_torch_registry import flax_models, jax_loss
+
+    spec = JSpec(**dict(zip(FIELDS, spec_fields)))
+    batches = [b.astype(np.int32) for b in batches]
+    res = jauto(flax_models()["mha"](), optax.adamw(1e-3), batches[0],
+                jax_loss, spec=spec, allow_tensor=True,
+                devices=jax.devices()[:spec.total])
+    state, losses = res.state, []
+    for b in batches:
+        state, m = res.train_step(state, jax.device_put(b,
+                                                        res.batch_sharding))
+        losses.append(float(m["loss"]))
+    return losses
+
+
 ROWS, SEQ, STEPS = 8, 16, 3
+
+
+def plain_batches():
+    rng = np.random.default_rng(23)
+    return [rng.integers(0, 128, (ROWS, SEQ), dtype=np.int64)
+            for _ in range(STEPS)]
 
 
 def global_batches():
@@ -554,6 +633,8 @@ def worker(path):
     torch.set_num_threads(1)
     join_world()
     rank = int(os.environ["RANK"])
+    with open(path, "rb") as f:
+        inputs = pickle.load(f)
     batches = global_batches()
     out = {}
     # "auto": the search's choice, trained; the same spec given.
@@ -584,6 +665,17 @@ def worker(path):
     res = auto_accelerate(tiny_gpt(), adamw(1e-3), batches[0], token_loss,
                           device="cpu", allow_tensor=False)
     out["no_tensor"] = [spec_key(s) for s, _ in res.search_ranking]
+    # A plain module: "auto" with allow_tensor=True.
+    from dlrover_tpu_torch.models.convert import plain_from_flax
+    from test_torch_registry import token_loss as plain_loss, torch_model
+
+    twin = torch_model("mha")
+    twin.load_state_dict(plain_from_flax(inputs["plain_init"], twin))
+    res = auto_accelerate(twin, adamw(1e-3), plain_batches()[0], plain_loss,
+                          device="cpu", allow_tensor=True)
+    out["plain"] = {"spec": spec_key(res.spec),
+                    "ranking": [spec_key(s) for s, _ in res.search_ranking],
+                    "losses": _train(res, plain_batches())}
     with open(f"{path}.rank{rank}", "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
@@ -594,10 +686,13 @@ def worker(path):
 def world4(tmp_path_factory):
     from test_torch_parallel import World
 
+    from test_torch_registry import flax_init
+
     root = tmp_path_factory.mktemp("search")
     path = str(root / "w4.pkl")
+    init = flax_init("mha", plain_batches()[0].astype(np.int32))[1]
     with open(path, "wb") as f:
-        pickle.dump({}, f)
+        pickle.dump({"plain_init": init}, f)
     w = World(4, path, f"search-{uuid.uuid4().hex[:8]}", script=__file__)
     return w.join()
 
@@ -620,6 +715,20 @@ def test_profiled_auto_agrees_across_ranks_and_leaves_weights(world4):
     for rank in world4:
         assert rank["profile"]["unstepped"]
         assert rank["profile"]["losses"][-1] < rank["profile"]["losses"][0]
+
+
+def test_auto_on_a_plain_module_chooses_as_jax_and_trains(world4):
+    """A plain module under ``"auto"`` with ``allow_tensor=True`` over 4
+    ranks: JAX's ranking, JAX's first choice built, and JAX's losses of
+    that spec within 2e-5, every rank alike."""
+    want = jax_plain_choice(4, ROWS)
+    for rank in world4:
+        assert rank["plain"]["ranking"] == want
+        assert rank["plain"]["spec"] == want[0]
+        assert rank["plain"]["losses"] == world4[0]["plain"]["losses"]
+    np.testing.assert_allclose(
+        world4[0]["plain"]["losses"],
+        jax_plain_losses(want[0], plain_batches()), rtol=2e-5, atol=2e-5)
 
 
 def test_allow_tensor_false_strips_tensor_candidates(world4):

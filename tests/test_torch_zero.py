@@ -16,7 +16,12 @@ zero=True)`` trains GPT and LLaMA tiny three steps under AdamW, AGD and
 fp32 masters: losses and parameters equal ``ParallelSpec(data=N)``'s
 bit for bit, each rank's optimizer state is more than ``0.75 N`` times
 smaller, and the losses are JAX's ``data=N, zero=True`` losses within
-``tests/test_torch_parallel.py``'s data-axis tolerance (2e-5). A
+``tests/test_torch_parallel.py``'s data-axis tolerance (2e-5). On 4
+ranks ``(data=2, fsdp=2, zero=True)`` and ``(data=2, tensor=2,
+zero=True)`` (a slice cut from the rank's fsdp or tensor shard) train
+bit for bit as the same spec without ``zero`` under AdamW and fp32
+masters, and the optimizer state a rank holds is the bytes JAX's
+estimate (``state_bytes_per_device``) gives a device. A
 ``data=2`` ZeRO checkpoint (one shard a rank, every slice written by its
 owner) restores at degree 2 bit for bit, reslices into degree 4, one
 device and the JAX package at degrees 2 and 4; JAX's ``data=2`` ZeRO
@@ -29,6 +34,7 @@ import contextlib
 import dataclasses
 import glob
 import logging
+import math
 import os
 import pickle
 import re
@@ -62,6 +68,9 @@ LR = 1e-3
 # The JAX references: (family, optimizer, data degree), fp32.
 JAX_RUNS = [(f, o, n) for n in (2, 4) for f in FAMILIES
             for o in ("adamw", "agd")]
+# ZeRO-1 beside another axis on 4 ranks: (axis, family, optimizer).
+BESIDE = [(a, f, o) for a in ("fsdp", "tensor") for f in FAMILIES
+          for o in ("adamw", "bf16")]
 
 
 @contextlib.contextmanager
@@ -138,8 +147,29 @@ def opt_state_bytes(opt) -> int:
         return sum(t.numel() * t.element_size()
                    for moment in (opt.state.m, opt.state.v)
                    for qt in moment.values() for t in qt)
-    return sum(t.numel() * t.element_size() for st in opt.state.values()
+    # A DTensor's bytes are this rank's shard's.
+    return sum(sharding.local(t).numel() * t.element_size()
+               for st in opt.state.values()
                for t in st.values() if torch.is_tensor(t))
+
+
+def opt_array_bytes(opt) -> int:
+    """``opt_state_bytes`` without the scalars (step counts)."""
+    from dlrover_tpu_torch.accel.accelerate import MeshOptimizer
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer
+    from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
+    from dlrover_tpu_torch.optim.low_bit import Adam8bitOptimizer
+
+    if isinstance(opt, (ZeroOptimizer, MeshOptimizer)):
+        return opt_array_bytes(opt.inner)
+    if isinstance(opt, Adam8bitOptimizer):
+        return opt_state_bytes(opt)
+    if isinstance(opt, Bf16MasterOptimizer):
+        return sum(sharding.local(t).numel() * t.element_size()
+                   for t in opt.master.values()) + opt_array_bytes(opt.inner)
+    return sum(sharding.local(t).numel() * t.element_size()
+               for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t) and t.dim())
 
 
 def port_train(family, opt, spec, init=None):
@@ -155,10 +185,13 @@ def port_train(family, opt, spec, init=None):
         _, m = res.train_step(res.state, torch.from_numpy(
             res.local_batch(b)))
         losses.append(float(m["loss"]))
-    return {"losses": losses,
-            "params": {n: p.detach().float().numpy().copy()
-                       for n, p in res.state["params"].items()},
+    with torch.no_grad():
+        params = {n: sharding.gather_full(p, sharding.layout_of(p), p.shape)
+                  .float().numpy().copy()
+                  for n, p in res.state["params"].items()}
+    return {"losses": losses, "params": params,
             "opt_bytes": opt_state_bytes(res.state["opt"]),
+            "opt_array_bytes": opt_array_bytes(res.state["opt"]),
             "opt": type(res.state["opt"]).__name__,
             "log": [r.getMessage() for r in records]}
 
@@ -401,7 +434,10 @@ def _runs(root, job):
             dict(kind="save", name="save-deep", family="deep",
                  spec=dict(data=2, zero=True), dir=dirs["deep2"])]
     half = len(JAX_RUNS) // 2
-    first = _worlds({2: at(2) + save, 4: at(4),
+    beside = [dict(kind="train", name=f"{f}-{o}-{z}-{a}", family=f, opt=o,
+                   spec={"data": 2, a: 2, "zero": z})
+              for a, f, o in BESIDE for z in (False, True)]
+    first = _worlds({2: at(2) + save, 4: at(4) + beside,
                      "a": {"train": JAX_RUNS[:half],
                            "ckpt": [("jax-save", 2, dirs["jax2"], True)]},
                      "b": {"train": JAX_RUNS[half:]}},
@@ -469,7 +505,8 @@ def _jax_opt_names(abstract):
 
 
 DEGREES = [dict(data=2), dict(data=4), dict(data=7), dict(data=8),
-           dict(data=2, fsdp=4)]
+           dict(data=2, fsdp=4), dict(data=2, tensor=2),
+           dict(data=2, fsdp=2, tensor=2)]
 
 
 @pytest.mark.parametrize("spec", DEGREES,
@@ -552,14 +589,35 @@ def test_zero_degree_of_is_jax():
 @pytest.mark.parametrize("spec", [dict(fsdp=2), dict(tensor=2),
                                   dict(seq=2), dict(expert=2), dict(pipe=2)],
                          ids=["fsdp", "tensor", "seq", "expert", "pipe"])
-def test_zero_with_another_axis_raises_naming_the_item(spec):
-    from dlrover_tpu_torch.accel import auto_accelerate
+def test_zero_with_another_axis_raises_naming_the_item(world_of_one, spec):
+    """Beside seq, expert or pipe ZeRO-1 raises, naming what is left of
+    item 2; beside fsdp or tensor it is placed (4 ranks train it below):
+    on a one-rank mesh of data and that axis, the optimizer is a
+    ``ZeroOptimizer`` and the losses the one device's bit for bit."""
+    from dlrover_tpu_torch.accel import accelerate, auto_accelerate, mesh
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer
 
-    with pytest.raises(NotImplementedError, match="two mesh axes.*item 2"):
-        auto_accelerate(port_model("gpt"), port_opt("adamw"),
-                        global_batches()[0], token_loss,
-                        spec=ParallelSpec(data=2, zero=True, **spec),
-                        device="cpu")
+    (axis,) = spec
+    if axis in ("seq", "expert", "pipe"):
+        with pytest.raises(NotImplementedError,
+                           match="seq, expert or pipe.*item 2"):
+            auto_accelerate(port_model("gpt"), port_opt("adamw"),
+                            global_batches()[0], token_loss,
+                            spec=ParallelSpec(data=2, zero=True, **spec),
+                            device="cpu")
+        return
+    batches = global_batches()
+    one = auto_accelerate(port_model("gpt"), port_opt("adamw"), batches[0],
+                          token_loss, spec=ParallelSpec(), device="cpu")
+    m = mesh.create_mesh([("data", 1), (axis, 1)], torch.device("cpu"))
+    res = accelerate.accelerate_on_mesh(
+        port_model("gpt"), port_opt("adamw"), batches[0], token_loss, m,
+        device="cpu", zero=True)
+    assert isinstance(res.state["opt"], ZeroOptimizer)
+    for b in batches:
+        _, a = res.train_step(res.state, torch.from_numpy(b))
+        _, w = one.train_step(one.state, torch.from_numpy(b))
+        assert float(a["loss"]) == float(w["loss"])
 
 
 def test_a_shared_shard_refuses_a_zero_state():
@@ -587,6 +645,39 @@ def world_of_one(tmp_path_factory):
                             rank=0, world_size=1)
     yield
     dist.destroy_process_group()
+
+
+def test_zero_on_a_plain_module_beside_fsdp_and_tensor(world_of_one):
+    """A plain module (``tests/test_torch_registry.py``'s MHA twin) with
+    ``zero=True`` on ("data", 1), ("fsdp", 1), ("tensor", 1): planned
+    (its q/k/v/up ``ParallelLinear``s column-parallel), its optimizer a
+    ``ZeroOptimizer`` over the registry's axes, its losses the one
+    device's bit for bit."""
+    from dlrover_tpu_torch.accel import accelerate, auto_accelerate, mesh
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer
+    from dlrover_tpu_torch.models.tensor_parallel import ParallelLinear
+    from test_torch_registry import token_loss as plain_loss, torch_model
+
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 128, (ROWS, SEQ)) for _ in range(STEPS)]
+
+    def twin():
+        torch.manual_seed(3)
+        return torch_model("mha")
+
+    one = auto_accelerate(twin(), port_opt("adamw"), batches[0], plain_loss,
+                          spec=ParallelSpec(), device="cpu")
+    m = mesh.create_mesh([("data", 1), ("fsdp", 1), ("tensor", 1)],
+                         torch.device("cpu"))
+    res = accelerate.accelerate_on_mesh(
+        twin(), port_opt("adamw"), batches[0], plain_loss, m, device="cpu",
+        zero=True, allow_tensor=True)
+    assert isinstance(res.state["opt"], ZeroOptimizer)
+    assert isinstance(res.module.block_0.q_proj, ParallelLinear)
+    for b in batches:
+        _, a = res.train_step(res.state, torch.from_numpy(b))
+        _, w = one.train_step(one.state, torch.from_numpy(b))
+        assert float(a["loss"]) == float(w["loss"])
 
 
 @pytest.mark.parametrize("opt", ["adamw", "bf16", "adam8bit"])
@@ -676,6 +767,73 @@ def test_zero_trains_bit_for_bit_as_data(runs, world, family, opt):
             d["opt_bytes"], z["opt_bytes"])
     assert len({tuple(r[f"{family}-{opt}-True"]["losses"])
                 for r in runs[f"w{world}"]}) == 1
+
+
+def _jax_opt_bytes(family, opt, spec, fsdp_everywhere=False):
+    """JAX's estimate of the optimizer state's bytes a device holds under
+    ``spec`` (``state_bytes_per_device``'s arithmetic over the abstract
+    opt subtree, ZeRO's relabelling first), without its scalars. With
+    ``fsdp_everywhere`` a leaf no logical axis puts on fsdp is split
+    along dim 0 over it too, as FSDP2 shards every parameter."""
+    import jax
+
+    from dlrover_tpu.accel import ParallelSpec as JSpec
+    from dlrover_tpu.accel import zero as jzero
+
+    jspec = JSpec(**spec)
+    rules = dict(jspec.rules())
+    tree = jzero.apply_zero(_jax_abstract(family, opt, opt == "bf16"),
+                            jspec, jspec.rules(), warn=False)["opt"]
+    sizes = {"data": jspec.data, "fsdp": jspec.fsdp, "tensor": jspec.tensor}
+    total = 0
+    for leaf in jax.tree_util.tree_leaves(
+            tree, is_leaf=lambda x: hasattr(x, "names")):
+        value = getattr(leaf, "value", leaf)
+        if not value.shape:
+            continue
+        names = getattr(leaf, "names", (None,) * len(value.shape))
+        divs = []
+        for name in names:
+            axes = rules.get(name) if name else None
+            axes = (axes,) if isinstance(axes, str) else (axes or ())
+            divs.append(math.prod(sizes.get(a, 1) for a in axes))
+        if fsdp_everywhere and not any(
+                "fsdp" in ((rules.get(n),) if isinstance(rules.get(n), str)
+                           else (rules.get(n) or ())) for n in names if n):
+            divs[0] *= jspec.fsdp
+        total += math.prod(-(-d // v) for d, v in zip(value.shape, divs)) \
+            * value.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("axis,family,opt", BESIDE,
+                         ids=[f"{f}-{o}-data2-{a}2" for a, f, o in BESIDE])
+def test_zero_beside_another_axis_trains_bit_for_bit(runs, axis, family, opt):
+    """ZeRO-1 beside fsdp or tensor on 4 ranks: losses and parameters the
+    same spec's without ``zero`` bit for bit, every rank alike; the
+    optimizer state a rank holds falls to JAX's estimate of a device's,
+    exactly (without ``zero``, AdamW's moments are the shards' and equal
+    JAX's too; ``bf16_master_weights`` keeps its state whole there, as
+    every ``update_and_apply`` optimizer does on a mesh). Under fsdp the
+    estimate also splits over fsdp the leaves JAX's rules leave whole on
+    it (the biases of the column-parallel layers), which FSDP2 shards."""
+    spec = {"data": 2, axis: 2}
+    everywhere = axis == "fsdp"
+    want = _jax_opt_bytes(family, opt, dict(spec, zero=True), everywhere)
+    assert want < _jax_opt_bytes(family, opt, spec, everywhere)
+    for rank in runs["w4"]:
+        z = rank[f"{family}-{opt}-True-{axis}"]
+        d = rank[f"{family}-{opt}-False-{axis}"]
+        assert z["opt"].startswith("Zero") and not d["opt"].startswith("Zero")
+        assert z["losses"] == d["losses"]
+        for n in d["params"]:
+            assert np.array_equal(z["params"][n], d["params"][n]), n
+        assert z["opt_array_bytes"] == want
+        if opt == "adamw":
+            assert d["opt_array_bytes"] == _jax_opt_bytes(family, opt, spec,
+                                                          everywhere)
+    assert len({tuple(r[f"{family}-{opt}-True-{axis}"]["losses"])
+                for r in runs["w4"]}) == 1
 
 
 @pytest.mark.parametrize("world", [2, 4])
