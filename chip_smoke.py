@@ -74,28 +74,43 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (its kernels DTensors, the embedding and the head vocab-parallel)
    and under fsdp x tensor (FSDP2 over the DTensors; 2 steps, the
    embedding's lookup vocab-parallel): 2 warm-up steps, a window of 4
-   and 1 traced, each window's losses equal the one-device path's bit
+   and 1 traced (GPT-2 xl's windows untraced since PR 16), each
+   window's losses equal the one-device path's bit
    for bit (fsdp's parameters too), the kernels' launches as many, and
    a sharded snapshot of the fsdp run persisted and restored into a
    fresh one-device trainer bit for bit, leaf by leaf; step ms, peak
    GiB and busy share of each beside the one-device path's (``[mesh]``
-   lines); then ``PlainGPT`` (GPT-2 124M's widths as a plain module of
+   lines); GPT-2 xl on ("fsdp", 1) again with ``offload_optimizer=True``
+   (``[offload]`` line: 2 steps, losses bit for bit the fsdp window's,
+   the peak below its, the 8-bit moments' GB each way a step and the
+   copies' GB/s); then ``PlainGPT`` (GPT-2 124M's widths as a plain module of
    ``nn.Linear`` / ``nn.Embedding`` / ``nn.LayerNorm``, bf16, its
    attention the head_dim-64 flash kernels) at 16 x 1024 under AdamW
    on one device and placed by ``plan_tp``'s registry on an ("fsdp",
    1), ("tensor", 1) mesh: the planner's roles checked and printed
-   (``[registry]`` line), the losses bit for bit, the kernels as many. Then ZeRO-1 (``[zero]`` lines) on a ("data", 1)
+   (``[registry]`` line), the losses bit for bit, the kernels as many;
+   and ``ConvPlainGPT`` (the same with a causal ``Conv1d`` and a bare
+   ``gain`` after the embeddings) on one device and on ("tensor", 1),
+   the conv's weight, bias and ``gain`` tensor shards gathered whole in
+   the forward (``[registry conv]`` line, 2 steps, losses bit for bit).
+   Then ZeRO-1 (``[zero]`` lines) on a ("data", 1)
    mesh of an NCCL world of one: the LLaMA preset (4 x 2048, "dots")
    under ``bf16_master_weights(adamw)`` with ``zero=True`` (the wrapper
    owns whole leaves and all-gathers them) beside the one-device run of
-   the same seed and batch, each window's losses bit for bit and the
-   head_dim-128 kernels 22 / 44 times a step; the sliced state's GiB,
+   the same seed and batch (2 steps each since PR 16), each window's
+   losses bit for bit and the head_dim-128 kernels 22 / 44 times a
+   step; the sliced state's GiB,
    step ms, and its snapshot (stamped with ZeRO degree 0) persisted and
    restored into a fresh one-device trainer bit for bit; the same
    under ``zero=True`` on ("data", 1), ("fsdp", 1), ("tensor", 1) (2
-   steps, bit for bit); GPT-2 xl's 8-bit Adam under ``zero=True``: the JAX package's warning (nothing
-   to slice), the fused kernel once a step, the one-device losses bit
-   for bit. Then the LLaMA preset with 8 swiglu experts (top
+   steps, bit for bit); the LLaMA preset under
+   ``bf16_master_weights(adam8bit)`` with ``zero=True`` beside one
+   device (2 steps each): losses bit for bit, the masters sliced and the
+   8-bit moments whole, the unfused kernel once a step (the fused one
+   on one device), their GiB, its snapshot restored on one device bit
+   for bit; GPT-2 xl's 8-bit Adam under ``zero=True``: the JAX
+   package's warning (nothing to slice), the fused kernel once a step,
+   the one-device losses bit for bit. Then the LLaMA preset with 8 swiglu experts (top
    2, capacity factor 1.25; 6.36B parameters, 1.90B active) at full
    width through ``Trainer.fit`` with ``moe_loss_fn`` and
    ``adam8bit(2e-4)``, batch 4 x 2048, remat "dots": 2 warm-up steps, a
@@ -129,7 +144,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    layer a step, the ticks the JAX package's formula, the loss falling)
    and a traced step, beside the unpipelined "dots" step of the same
    call; then the GPipe run on an NCCL world of one with a ("pipe", 1)
-   mesh, its losses bit for bit the one-device run's;
+   mesh, its losses bit for bit the one-device run's; then the fused
+   8-bit Adam launch a pipe rank issues (``[pipe rank adam8]`` line):
+   pipe rank 0 of 2 of GPT-2 xl under GPipe 4 x 4, its optimizer over
+   stages [0, 2) and its ends, its state those stages' rows of a whole
+   random state: one launch held to the plain version leaf by leaf, the
+   rows of stages [2, 4) untouched, 10 launches timed beside the bound;
 6. over the bound 1.5B optimizer's 16 leaves, hold each kernel's one
    launch a step (``update_and_apply`` with one gradient missing, and
    ``update``) to the plain version leaf by leaf; time one whole 8-bit
@@ -1905,6 +1925,8 @@ MESH_STEPS = 4
 # The windows of the two-axis mesh, ZeRO-1 beside it and the plain
 # module (each after WARMUP steps, at most TRACED traced).
 TWO_AXIS_STEPS = 2
+# The causal kernel of [registry]'s conv.
+CONV_K = 4
 
 
 class MeshLoop:
@@ -1926,10 +1948,11 @@ class MeshLoop:
 
 def mesh_window(label, res, batch, cfg, base, traced=TRACED,
                 steps=MESH_STEPS,
-                fused=True):
+                fused=True, unfused=False):
     """WARMUP steps, a timed window of ``steps`` (each flash kernel of the
     model's head_dim once a layer a step, the forward twice under remat,
-    the fused 8-bit Adam once a step, or never without ``fused``), then
+    the fused 8-bit Adam once a step, or never without ``fused``, the
+    unfused one once a step with ``unfused``, else never), then
     ``traced`` steps (none: no trace). The peak is the window's above
     ``base`` (the bytes allocated before the branch was built: the
     reference kept beside it)."""
@@ -1946,7 +1969,8 @@ def mesh_window(label, res, batch, cfg, base, traced=TRACED,
     launches = read_counts()
     losses = [float(x) for x in loop.losses]
     want = flash_want(cfg, steps)
-    want.update(adam8=0, adam8_fused=steps if fused else 0)
+    want.update(adam8=steps if unfused else 0,
+                adam8_fused=steps if fused else 0)
     for name, count in launches.items():
         check(count == want[name],
               f"{label}: {name} launched {count} times, want {want[name]}")
@@ -2016,7 +2040,8 @@ def _mesh_phases(seed, windows, dev, root):
         gen = torch.Generator(device="cuda").manual_seed(s)
         return model_cls(cfg, device="cuda", generator=gen)
 
-    def branch(label, cfg, model_cls, lr, batch, axes, steps=MESH_STEPS):
+    def branch(label, cfg, model_cls, lr, batch, axes, steps=MESH_STEPS,
+               traced=TRACED):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         if not axes:
@@ -2031,17 +2056,22 @@ def _mesh_phases(seed, windows, dev, root):
                                      device=dev)
             check(res.mesh is mesh, f"{label}: not on the mesh")
         name = f"{label} {' x '.join(axes) or 'one device'}"
-        stats, loop = mesh_window(name, res, batch, cfg, base, steps=steps)
+        stats, loop = mesh_window(name, res, batch, cfg, base, steps=steps,
+                                  traced=traced)
         windows[f"mesh {name}"] = stats["launches"]
         summary[name] = {k: stats[k] for k in ("step_ms", "peak_mem_gib",
-                                                "busy_share", "kernel_ms")}
+                                                "busy_share", "kernel_ms")
+                         if k in stats}
         return stats, res
 
     batch = np.random.default_rng(seed).integers(
         0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
-    one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ())
+    # (GPT-2 xl's windows are not traced, so each branch stops at the
+    # same step: the script's time went to the offload window.)
+    one, one_res = branch("gpt2-xl", XL, GPT, XL_LR, batch, (), traced=0)
     xl_one = one["losses"]
-    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("fsdp",))
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("fsdp",),
+                      traced=0)
     check(got["losses"] == one["losses"],
           f"fsdp losses {got['losses']} differ from one device's "
           f"{one['losses']}")
@@ -2072,7 +2102,9 @@ def _mesh_phases(seed, windows, dev, root):
         "restored bit for bit on one device")
     del fresh
     torch.cuda.empty_cache()
-    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("data",))
+    mesh_offload(seed, windows, dev, batch, got, summary)
+    got, res = branch("gpt2-xl", XL, GPT, XL_LR, batch, ("data",),
+                      traced=0)
     check(got["losses"] == one["losses"],
           f"data losses {got['losses']} differ from one device's "
           f"{one['losses']}")
@@ -2109,6 +2141,57 @@ def _mesh_phases(seed, windows, dev, root):
     registry_window(seed, windows, summary, dev)
     log("[mesh] " + json.dumps(summary))
     return xl_one
+
+
+def mesh_offload(seed, windows, dev, batch, fsdp, summary):
+    """``[offload]``: GPT-2 xl ("dots", ``adam8bit``) on ("fsdp", 1) with
+    ``offload_optimizer=True``: WARMUP steps and a window of
+    ``TWO_AXIS_STEPS``, the 8-bit moments ``MeshOptimizer`` keeps whole
+    in pinned host memory between steps; the losses bit for bit the
+    ("fsdp", 1) window's first ones (``fsdp``: its stats), the peak below
+    its, the GB each way a step and the copies' GB/s, step ms."""
+    from dlrover_tpu_torch.accel.accelerate import MeshOptimizer
+    from dlrover_tpu_torch.optim.offload import OffloadOptimizer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res = accelerate_on_mesh(GPT(XL, device="cuda", generator=gen),
+                             adam8bit(XL_LR), batch, token_loss,
+                             create_mesh([("fsdp", 1)], dev), device=dev,
+                             offload_optimizer=True)
+    opt = res.state["opt"]
+    check(isinstance(opt, OffloadOptimizer)
+          and isinstance(opt.inner, MeshOptimizer),
+          f"offload on fsdp: the optimizer is a {type(opt).__name__}")
+    check(bool(opt.moved) and all(t.device.type == "cpu" and t.is_pinned()
+                                  for t in opt.moved),
+          "offload on fsdp: a moved leaf is not in pinned host memory")
+    opt.take_copy_stats()
+    stats = mesh_window("gpt2-xl fsdp offload", res, batch, XL, base,
+                        traced=0, steps=TWO_AXIS_STEPS)[0]
+    windows["mesh gpt2-xl fsdp offload"] = stats["launches"]
+    copies = opt.take_copy_stats()
+    steps = WARMUP + TWO_AXIS_STEPS
+    check(stats["losses"] == fsdp["losses"][:TWO_AXIS_STEPS],
+          f"offload on fsdp: losses {stats['losses']} differ from the "
+          f"fsdp window's {fsdp['losses'][:TWO_AXIS_STEPS]}")
+    check(stats["peak_mem_gib"] < fsdp["peak_mem_gib"],
+          f"offload on fsdp: peak {stats['peak_mem_gib']:.2f} GiB not below "
+          f"the fsdp window's {fsdp['peak_mem_gib']:.2f}")
+    out = {"step_ms": stats["step_ms"], "fsdp_step_ms": fsdp["step_ms"],
+           "peak_mem_gib": stats["peak_mem_gib"],
+           "fsdp_peak_mem_gib": fsdp["peak_mem_gib"],
+           "state_gb": opt.nbytes / 1e9}
+    for way in ("in", "out"):
+        out[f"{way}_gb_a_step"] = copies[f"{way}_bytes"] / steps / 1e9
+        out[f"{way}_gb_s"] = (copies[f"{way}_bytes"] / 1e9
+                              / (copies[f"{way}_ms"] / 1e3)
+                              if copies[f"{way}_ms"] else None)
+    summary["gpt2-xl fsdp offload"] = out
+    log("[offload] " + json.dumps(out))
+    del res, opt
+    torch.cuda.empty_cache()
 
 
 class PlainBlock(nn.Module):
@@ -2168,6 +2251,49 @@ class PlainGPT(nn.Module):
         for i in range(self.layers):
             x = getattr(self, f"block_{i}")(x)
         return self.lm_head(self.ln_f(x))
+
+
+class ConvMix(nn.Module):
+    """A causal conv over the sequence (kernel ``CONV_K``, left-padded)
+    and a bare per-channel ``gain``, residual: ``x + conv(x) * gain``."""
+
+    def __init__(self, d, dtype):
+        super().__init__()
+        self.conv = nn.Conv1d(d, d, CONV_K, device="cuda", dtype=dtype)
+        self.gain = nn.Parameter(torch.full((d,), 0.5, device="cuda",
+                                            dtype=dtype))
+
+    def forward(self, x):
+        y = self.conv(F.pad(x.transpose(1, 2), (CONV_K - 1, 0)))
+        return x + y.transpose(1, 2) * self.gain
+
+
+class ConvPlainGPT(PlainGPT):
+    """``PlainGPT`` with a ``ConvMix`` after the embeddings: a conv weight
+    and a bare parameter that a registry puts on the tensor axis."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16):
+        super().__init__(cfg, dtype)
+        self.mix = ConvMix(cfg.d_model, dtype)
+
+    def forward(self, tokens):
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.mix(self.wte(tokens) + self.wpe(pos))
+        for i in range(self.layers):
+            x = getattr(self, f"block_{i}")(x)
+        return self.lm_head(self.ln_f(x))
+
+
+def conv_registry():
+    """The conv's out channels, its bias and ``gain`` on ``mlp`` (the
+    tensor axis); the defaults elsewhere (the embeddings' vocab rows on
+    tensor too)."""
+    from dlrover_tpu_torch.accel.registry import ShardingRegistry
+
+    return (ShardingRegistry()
+            .register(r"mix\.conv\.weight$", ("mlp", None, None))
+            .register(r"mix\.conv\.bias$", ("mlp",))
+            .register(r"mix\.gain$", ("mlp",)))
 
 
 def plain_loss(module, params, batch):
@@ -2237,6 +2363,65 @@ def registry_window(seed, windows, summary, dev):
                   if k.startswith(("block_0.", "lm_head"))},
         "planned": len(roles), "losses": stats["losses"],
         "one_device_losses": want}))
+    del res
+    torch.cuda.empty_cache()
+    registry_conv_window(seed, windows, summary, dev, cfg, batch)
+
+
+def registry_conv_window(seed, windows, summary, dev, cfg, batch):
+    """``[registry]``'s conv: ``ConvPlainGPT`` (AdamW, 16 x 1024) on one
+    device, then on a ("tensor", 1) mesh placed by ``conv_registry``:
+    the conv's weight, its bias and ``gain`` stored as tensor shards
+    (DTensors) and gathered whole before the conv's forward
+    (``gather_in_forward``); the losses bit for bit the one device's,
+    the D-64 flash kernels as many. cuDNN runs deterministic
+    algorithms meanwhile (its weight-gradient kernels may otherwise add
+    in another order each run)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _registry_conv(seed, windows, summary, dev, cfg, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _registry_conv(seed, windows, summary, dev, cfg, batch):
+    from torch.distributed.tensor import DTensor
+
+    def plain():
+        torch.manual_seed(seed)
+        return ConvPlainGPT(cfg)
+
+    label = "plain gpt2-124m conv"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    one = auto_accelerate(plain(), adamw(3e-4), batch, plain_loss,
+                          spec=ParallelSpec(), device=dev)
+    stats = mesh_window(f"{label} one device", one, batch, cfg, base,
+                        traced=0, steps=TWO_AXIS_STEPS, fused=False)[0]
+    windows[f"registry {label} one device"] = stats["launches"]
+    want = stats["losses"]
+    del one
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res = accelerate_on_mesh(plain(), adamw(3e-4), batch, plain_loss,
+                             create_mesh([("tensor", 1)], dev), device=dev,
+                             registry=conv_registry())
+    sharded = sorted(n for n, p in res.state["params"].items()
+                     if n.startswith("mix.") and isinstance(p, DTensor))
+    check(sharded == ["mix.conv.bias", "mix.conv.weight", "mix.gain"],
+          f"registry conv: the tensor shards are {sharded}")
+    stats = mesh_window(f"{label} tensor", res, batch, cfg, base,
+                        traced=0, steps=TWO_AXIS_STEPS, fused=False)[0]
+    windows[f"registry {label} tensor"] = stats["launches"]
+    check(stats["losses"] == want, f"registry conv losses "
+          f"{stats['losses']} differ from one device's {want}")
+    summary[f"{label} tensor"] = {k: stats[k] for k in ("step_ms",
+                                                       "peak_mem_gib")}
+    log("[registry conv] " + json.dumps({
+        "sharded": sharded, "losses": stats["losses"],
+        "one_device_losses": want, "step_ms": stats["step_ms"]}))
     del res
     torch.cuda.empty_cache()
 
@@ -2512,7 +2697,7 @@ def zero_phases(seed, windows, xl_one):
                               token_loss, spec=ParallelSpec(), device=dev)
         label = f"llama B{b} S{seq} bf16 adamw"
         stats = mesh_window(f"{label} one device", one, batch, cfg, base,
-                            traced=0, fused=False)[0]
+                            traced=0, steps=TWO_AXIS_STEPS, fused=False)[0]
         windows[f"zero {label} one device"] = stats["launches"]
         summary["one device"] = {k: stats[k] for k in ("step_ms",
                                                        "peak_mem_gib")}
@@ -2530,7 +2715,7 @@ def zero_phases(seed, windows, xl_one):
         check(set(opt.slices) == set(res.state["params"]),
               "zero: a leaf was not sliced on a data axis of one")
         stats = mesh_window(f"{label} zero", res, batch, cfg, base,
-                            traced=0, fused=False)[0]
+                            traced=0, steps=TWO_AXIS_STEPS, fused=False)[0]
         windows[f"zero {label}"] = stats["launches"]
         check(stats["losses"] == want, f"zero losses {stats['losses']} "
               f"differ from one device's {want}")
@@ -2596,9 +2781,9 @@ def zero_phases(seed, windows, xl_one):
                             cfg, base, traced=0, steps=TWO_AXIS_STEPS,
                             fused=False)[0]
         windows[f"zero {label} data x fsdp x tensor"] = stats["launches"]
-        check(stats["losses"] == want[:TWO_AXIS_STEPS],
+        check(stats["losses"] == want,
               f"zero x fsdp x tensor losses {stats['losses']} differ from "
-              f"one device's {want[:TWO_AXIS_STEPS]}")
+              f"one device's {want}")
         state_gib, buffers_gib = zero_state_gib(opt)
         summary["zero data x fsdp x tensor"] = {
             **{k: stats[k] for k in ("step_ms", "peak_mem_gib")},
@@ -2608,6 +2793,8 @@ def zero_phases(seed, windows, xl_one):
             / summary["one device"]["step_ms"]}
         del res, opt
         torch.cuda.empty_cache()
+        zero_adam8_masters(seed, windows, summary, dev, root, llama, cfg,
+                           batch)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         xl_batch = np.random.default_rng(seed).integers(
             0, XL.vocab_size, (XL_BATCH, SEQ), dtype=np.int64)
@@ -2630,6 +2817,85 @@ def zero_phases(seed, windows, xl_one):
         del res
         torch.cuda.empty_cache()
     log("[zero] " + json.dumps(summary))
+
+
+def zero_adam8_masters(seed, windows, summary, dev, root, llama, cfg,
+                       batch):
+    """``[zero]``'s 8-bit Adam under sliced masters: the LLaMA preset
+    (4 x 2048, "dots") under ``bf16_master_weights(adam8bit)`` with
+    ``zero=True`` on ("data", 1) beside one device, WARMUP steps and a
+    window of ``TWO_AXIS_STEPS`` each: the losses bit for bit; one
+    device launches the fused kernel once a step over the masters, ZeRO
+    the unfused one once a step over every whole leaf (the moments
+    whole, the masters sliced); the sliced masters' and the whole
+    moments' GiB; the snapshot persisted (degree 0) and restored into a
+    fresh one-device trainer bit for bit."""
+    from dlrover_tpu_torch.accel.zero import ZeroAdam8Optimizer
+
+    label = f"llama B{batch.shape[0]} S{batch.shape[1]} bf16 adam8bit"
+
+    def make():
+        return bf16_master_weights(adam8bit(LLAMA_LR))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    one = auto_accelerate(llama(seed), make(), batch, token_loss,
+                          spec=ParallelSpec(), device=dev)
+    stats = mesh_window(f"{label} one device", one, batch, cfg, base,
+                        traced=0, steps=TWO_AXIS_STEPS)[0]
+    windows[f"zero {label} one device"] = stats["launches"]
+    want, one_ms = stats["losses"], stats["step_ms"]
+    del one
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res = accelerate_on_mesh(llama(seed), make(), batch, token_loss,
+                             create_mesh([("data", 1)], dev), device=dev,
+                             zero=True)
+    opt = res.state["opt"]
+    check(isinstance(opt, ZeroAdam8Optimizer),
+          f"zero adam8bit masters: the optimizer is a {type(opt).__name__}")
+    stats = mesh_window(f"{label} zero", res, batch, cfg, base, traced=0,
+                        steps=TWO_AXIS_STEPS, fused=False, unfused=True)[0]
+    windows[f"zero {label}"] = stats["launches"]
+    check(stats["losses"] == want, f"zero adam8bit masters: losses "
+          f"{stats['losses']} differ from one device's {want}")
+    gib = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                         for t in ts) / 2**30
+    moments = opt.inner.inner.state
+    out = {"step_ms": stats["step_ms"], "one_device_step_ms": one_ms,
+           "peak_mem_gib": stats["peak_mem_gib"],
+           "sliced_masters_gib": gib(opt.inner.master.values()),
+           "whole_moments_gib": gib(t for m in (moments.m, moments.v)
+                                    for qt in m.values() for t in qt),
+           "adam8_launches": stats["launches"].get("adam8", 0)}
+    step = res.state["step"]
+    ck = ShardedCheckpointer(root, mesh_axes={"data": 1}, zero_degree=0)
+    t0 = time.perf_counter()
+    check(ck.save_checkpoint(step, res.state, StorageType.DISK),
+          "zero adam8bit masters: the sharded save failed")
+    ck.close()
+    out["persist_s"] = time.perf_counter() - t0
+    unlink_segments(os.environ["DLROVER_TPU_JOB_NAME"])
+    want_bytes = state_bytes(res)
+    del res, opt, moments
+    torch.cuda.empty_cache()
+    fresh = auto_accelerate(llama(seed + 1), make(), batch, token_loss,
+                            spec=ParallelSpec(), device=dev)
+    ck = FlashCheckpointer(root)
+    t0 = time.perf_counter()
+    restored = ck.load_checkpoint(fresh.state)[0]
+    ck.close()
+    out["restore_s"] = time.perf_counter() - t0
+    check(restored == step, f"zero adam8bit masters: restored step "
+          f"{restored}, want {step}")
+    bad = differing(state_bytes(fresh), want_bytes)
+    check(not bad, f"the zero adam8bit masters snapshot restored with "
+          f"leaves {bad} differing")
+    summary[label] = out
+    log(f"[zero {label}] " + json.dumps(out))
+    del fresh, want_bytes
+    torch.cuda.empty_cache()
 
 
 def search_phase(seed, measured):
@@ -2726,6 +2992,110 @@ def pipe_first_step(label, cfg, model_cls, batch, seed, want=None):
     del got
     torch.cuda.empty_cache()
     return got_loss, want
+
+
+def pipe_rank_adam8(seed, errs):
+    """``[pipe]``: the fused 8-bit Adam launch that pipe rank 0 of 2
+    issues for GPT-2 xl under GPipe 4 x 4 (``XL_GPIPE``, bf16). Its
+    optimizer binds stages [0, 2)'s parameters (laid out as a pipe
+    rank's stages, ``Layout.stages`` 4) and the ends the first rank
+    holds (``wte``, ``wpe``): its leaves are ``StageBlock``s of the
+    global ones, its table the stages' rows. Its state is made rows
+    [0, 2) of a whole model's random state (views), so one launch from
+    random gradients is held to the plain version leaf by leaf
+    (``adam8_errors`` / ``adam8_failures``; its largest |err| into
+    ``errs``), and the rows of stages [2, 4) are checked untouched, bit
+    for bit. Then 10 launches timed, beside the bound of the bytes the
+    rank's rows move."""
+    from dlrover_tpu_torch.accel.sharding import Layout, set_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = GPT(XL_GPIPE, device="cuda", generator=gen)
+    whole = {n: p.detach() for n, p in model.named_parameters()}
+    mine = {n: p for n, p in whole.items() if n in ("wte.weight", "wpe")
+            or n.startswith(("pipeline.stages.0.", "pipeline.stages.1."))}
+    stage = Layout(None, (None,), placed=(0,), stages=XL_GPIPE.pipeline_stages)
+    for n, p in mine.items():
+        if n.startswith("pipeline."):
+            set_layout(p, stage)
+    tx = adam8bit(XL_LR)
+    opt = tx(mine.items())
+    full = tx.init(whole)
+    for qt in list(full.m.values()) + list(full.v.values()):
+        qt.q.copy_(torch.randint(-127, 128, qt.q.shape, generator=gen,
+                                 device="cuda", dtype=torch.int8))
+        qt.scale.copy_(torch.rand(qt.scale.shape, generator=gen,
+                                  device="cuda") * 1e-3)
+    rows = {}
+    for path, leaf in opt._leaves.items():
+        pair = (full.m[path], full.v[path])
+        if leaf.index is not None:
+            lo, hi = leaf.index[0]
+            check((lo, hi) == (0, 2), f"[pipe] {path} holds stages {lo, hi}")
+            pair = tuple(lowbit.QTensor(qt.q[lo:hi], qt.scale[lo:hi])
+                         for qt in pair)
+        rows[path] = pair
+    check(set(rows) == set(opt.state.m), "[pipe] the rank's leaves")
+    opt.state = lowbit.Adam8bitState(opt.state.step,
+                                     {k: r[0] for k, r in rows.items()},
+                                     {k: r[1] for k, r in rows.items()})
+    staged = [k for k, leaf in opt._leaves.items() if leaf.index]
+    rest = {k: [t[2:].clone() for qt in (full.m[k], full.v[k]) for t in qt]
+            for k in staged}
+    grads = {n: (torch.randn(p.shape, generator=gen, device="cuda")
+                 * 1e-2).to(p.dtype) for n, p in mine.items()}
+    before = {n: p.clone() for n, p in mine.items()}
+    prior = {k: tuple(lowbit.QTensor(qt.q.clone(), qt.scale.clone())
+                      for qt in r) for k, r in rows.items()}
+    names = list(mine)
+    reset_counts()
+    opt.update_and_apply([grads[n] for n in names], [mine[n] for n in names])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["adam8_fused"] == 1 and launches["adam8"] == 0,
+          f"[pipe] launches {launches}")
+    bc = 1 - tx._betas[opt.state.step.device] ** opt.state.step
+    worst = 0.0
+    for path, leaf in opt._leaves.items():
+        shape = leaf.local_shape
+        ref = lowbit._plain_blocks([grads[n] for n in leaf.names],
+                                   *prior[path], bc, shape, tx.hp,
+                                   p=[before[n] for n in leaf.names])
+        # The random moments reach the padding: its outputs are not kept.
+        ref = (lowbit._blocks_of(lowbit._unblocks(ref[0], shape, 256),
+                                 256),) + ref[1:]
+        got = (lowbit._blocks_of(lowbit._leaf(
+            [mine[n] for n in leaf.names], shape), 256),) + tuple(
+            t.reshape(-1, 256) if t.dtype == torch.int8 else t.reshape(-1)
+            for qt in rows[path] for t in qt)
+        e = lowbit.adam8_errors(got, ref)
+        bad = lowbit.adam8_failures(e)
+        check(not bad, f"[pipe] adam8_fused {path}: {bad}")
+        worst = max(worst, e["max_abs_err"])
+        del ref, got
+    errs["adam8_fused"] = max(errs["adam8_fused"], worst)
+    for k in staged:
+        now = [t[2:] for qt in (full.m[k], full.v[k]) for t in qt]
+        check(all(torch.equal(a, b) for a, b in zip(now, rest[k])),
+              f"[pipe] stages [2, 4) of {k} moved")
+    del before, prior, rest
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: opt.update_and_apply(
+        [grads[n] for n in names], [mine[n] for n in names]), iters=10)
+    values = sum(p.numel() for p in mine.values())
+    blocks = sum(qt.scale.numel() for qt in opt.state.m.values())
+    nbytes = values * 2 * 3 + 2 * (blocks * 256 + blocks * 4) * 2
+    bound = nbytes / HBM_BYTES_S * 1e3
+    out = {"stages": [0, 2], "of": XL_GPIPE.pipeline_stages,
+           "values": values, "whole_values": sum(p.numel()
+                                                 for p in whole.values()),
+           "leaves": len(opt._leaves), "stage_leaves": len(staged),
+           "launches": launches, "max_abs_err": worst, "ms": ms,
+           "bound_ms": bound, "bound_by": "bytes"}
+    log("[pipe rank adam8] " + json.dumps(out))
+    del opt, full, model, whole, mine, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def pipeline_phases(seed, windows, unpiped, errs):
@@ -3090,6 +3460,8 @@ def main():
     phase("search: auto on the llama preset; estimates against the windows")
     pipeline_phases(args.seed, windows, unpiped, errs)
     phase("pipelines: gpt2-xl gpipe and circular, llama gpipe, ('pipe', 1)")
+    pipe_rank_adam8(args.seed, errs)
+    phase("pipe rank: the fused 8-bit Adam over stages [0, 2) of 4")
     checkpoint_phases(args.seed, windows)
     phase("checkpoint")
     log(f"[phase] whole script {time.perf_counter() - t_start:.1f}s")

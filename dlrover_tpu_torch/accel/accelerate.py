@@ -69,11 +69,13 @@ logits), an ``nn.Embedding`` whose vocab rows they put there a
 ``VocabParallelEmbedding``, and FSDP2 shards every parameter as it
 shards an annotated model's, each block a unit (the items of its
 ``nn.ModuleList``s, or else its direct children that hold layers).
-The rules are JAX's for a model without ``cfg.vocab_size``: the vocab
-rule has no divisibility guard, so the embedding's rows and the
-planned head's are sharded whatever the vocab (``torch.chunk``'s
-uneven split where the degree does not divide it, a split JAX's jit
-refuses for its parameters).
+Any other parameter the rules put on the tensor axis (a conv's
+weight, a bare ``nn.Parameter``) is stored as its shard and gathered
+whole before its module's forward (``models/tensor_parallel.py``'s
+``gather_in_forward``): the module computes on the whole tensor. The
+rules are JAX's for a model without ``cfg.vocab_size``: the vocab rule
+has no divisibility guard, and a dim the tensor degree does not divide
+raises ``ValueError`` at placement, as JAX's jit refuses the split.
 Its blocks must take their head count from the local width
 (``view(b, s, -1, head_dim)``): a rank's tensors are local, not
 DTensors.
@@ -82,9 +84,9 @@ An MoE layer on any mesh routes as JAX routes the global batch (capacity
 from the global token count, buffer positions offset by the earlier
 ranks' tokens). Not yet: ``seq`` or ``expert`` (or an MoE model) with
 ``fsdp`` or ``tensor``, ``seq`` with ``expert``, ``pipe`` (or a
-pipelined model) with ``fsdp``, ``tensor``, ``seq`` or ``expert``, an
-``update_and_apply`` optimizer on pipe ranks, and a ``seq`` degree
-above 1 without ring or Ulysses attention raise ``NotImplementedError``.
+pipelined model) with ``fsdp``, ``tensor``, ``seq`` or ``expert``, and
+a ``seq`` degree above 1 without ring or Ulysses attention raise
+``NotImplementedError``.
 A ``pipe`` or ``expert`` degree on a model without stages or experts
 raises ``ValueError``, as JAX's ``_check_spec_axes_used`` does.
 
@@ -92,13 +94,22 @@ An optimizer with ``update_and_apply`` (``adam8bit``,
 ``bf16_master_weights``) keeps its state whole and replicated, as the
 JAX package's 8-bit Adam does: ``MeshOptimizer`` gathers each sharded
 leaf's gradient and parameter, updates the whole leaf, and writes back
-this rank's shard. A torch optimizer (``adamw``, ``agd``) steps the
-DTensor shards themselves. ``ParallelSpec(data=N, zero=True)`` (ZeRO-1,
-``accel/zero.py``), alone or beside ``fsdp`` and ``tensor``, slices the
-optimizer state over the data ranks instead: each steps its slice of
-every leaf (cut from its fsdp or tensor shard) and all-gathers the
-updated parameters; beside ``seq``, ``expert`` or ``pipe`` it raises
-``NotImplementedError``.
+this rank's shard. On pipe ranks nothing is gathered: a rank's state is
+its stages' and ends' (the 8-bit Adam's table holds its stages' rows of
+each leaf, one fused launch a step; GPT's tied ``wte`` is stepped alike
+on the first and last rank from its summed gradient). A torch optimizer
+(``adamw``, ``agd``) steps the DTensor shards themselves.
+``ParallelSpec(data=N, zero=True)`` (ZeRO-1, ``accel/zero.py``), beside
+any other axis, slices the optimizer state over the data ranks instead:
+each steps its slice of every leaf (cut from its fsdp, tensor, seq or
+expert shard, or from its pipe rank's stages) and all-gathers the
+updated parameters. ``offload_optimizer=True`` keeps the big leaves of
+whichever state a rank holds in host memory between steps
+(``optim/offload.py``).
+
+``devices=`` lists one device per rank of the world (a process drives
+one): rank ``r`` trains on ``devices[r]``, and ``"auto"`` searches over
+``len(devices)`` of them, as JAX's search does.
 
 ``spec="auto"`` runs the JAX package's strategy search
 (``accel/search.py``) for the world's size and the batch: it ranks the
@@ -135,8 +146,6 @@ from dlrover_tpu_torch.optim.offload import OffloadOptimizer
 
 # The mesh axes this slice places a module on, in the JAX package's order.
 MESH_AXES = ("data", "fsdp", "pipe", "seq", "expert", "tensor")
-_ITEM2 = "a later part of the multi-device slice (ROADMAP queue 1, item 2"
-_ZERO_REST = _ITEM2 + ": ZeRO-1's leaves beside seq, expert or pipe)"
 _ITEM6 = ("a later part of ROADMAP queue 1, item 6 (sequence and expert "
           "parallelism's rest: seq or expert beside fsdp or tensor, whose "
           "leaves lie over two mesh axes as fsdp x tensor's do)")
@@ -424,12 +433,6 @@ def _check_spec(spec: Any, carries: Dict[str, bool]) -> ParallelSpec:
             f"collectives={spec.collectives} (a per-axis all-reduce "
             "algorithm) comes with the comms governor (ROADMAP queue 1, "
             "item 5)")
-    if spec.zero and any(n > 1 for a, n in spec.axes()
-                         if a in ("seq", "expert", "pipe")):
-        raise NotImplementedError(
-            f"ZeRO-1 (zero=True) with {dict(spec.axes())}: its optimizer-"
-            "state leaves beside a seq, expert or pipe axis come with "
-            + _ZERO_REST)
     _check_axes(dict(spec.axes()))
     _check_spec_axes_used(spec, carries)
     if spec.total > 1 and spec.total != _world_size():
@@ -478,8 +481,7 @@ def _check_spec_axes_used(spec: ParallelSpec, carries: Dict[str, bool]):
             )
 
 
-def _check_mesh(sizes: Dict[str, int], carries: Dict[str, bool],
-                offload_optimizer: bool):
+def _check_mesh(sizes: Dict[str, int], carries: Dict[str, bool]):
     """What ``accelerate_on_mesh`` refuses on a mesh of ``sizes`` (the
     axes present, of any size) for a model that ``carries`` stages or
     experts."""
@@ -492,14 +494,10 @@ def _check_mesh(sizes: Dict[str, int], carries: Dict[str, bool],
     if carries["expert"] and ("fsdp" in sizes or "tensor" in sizes):
         raise NotImplementedError(
             "an MoE model on an fsdp or tensor axis comes with " + _ITEM6)
-    if offload_optimizer:
-        raise NotImplementedError(
-            "offload_optimizer on a mesh comes with " + _ITEM2
-            + ": the optimizer's host state on a mesh)")
 
 
 def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
-                     optimizer, offload_optimizer: bool, rows: int):
+                     optimizer, rows: int):
     """Whether the port places ``spec`` for a model of ``cfg`` (already
     reconfigured for it) and ``optimizer``: raises what building it
     would raise, before anything is built or any group made."""
@@ -510,7 +508,7 @@ def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
     _check_spec(spec, carries)
     if spec.total == 1:
         return
-    _check_mesh(dict(spec.axes()), carries, offload_optimizer)
+    _check_mesh(dict(spec.axes()), carries)
     if spec.tensor > 1 and cfg is not None:
         counts = {"num_heads": cfg.num_heads, "mlp width": cfg.ff_dim}
         if hasattr(cfg, "kv_heads"):
@@ -519,10 +517,6 @@ def _check_candidate(spec: ParallelSpec, cfg, carries: Dict[str, bool],
             if n % spec.tensor:
                 raise ValueError(f"{what} {n} does not divide by the tensor "
                                  f"degree {spec.tensor}")
-    if spec.pipe > 1 and getattr(optimizer, "takes_named_parameters", False):
-        raise NotImplementedError(
-            "an update_and_apply optimizer (adam8bit, bf16_master_weights) "
-            "on pipe ranks comes with " + _PIPE_REST)
     if spec.zero:
         _sliceable(optimizer)
     shards = spec.data * spec.fsdp
@@ -567,14 +561,15 @@ def auto_accelerate(
     ``registry`` (a ``ShardingRegistry``), or, with ``allow_tensor=True``
     or a tensor degree, by the planner's; ``allow_tensor=True`` lets the
     search of such a model try tensor degrees, as JAX's does.
-    ``devices=`` and ``precision="int8"`` raise, naming the slice that
-    brings them.
+    ``devices`` lists one device per rank of the world (a process of the
+    port drives one): this rank trains on ``devices[rank]``, ``"auto"``
+    searches over ``len(devices)`` devices, and a list of another length
+    than the world's, or a ``device`` that is not this rank's entry,
+    raises ``ValueError``. ``precision="int8"`` raises, naming the slice
+    that brings it.
     """
     if devices is not None:
-        raise NotImplementedError(
-            "auto_accelerate(devices=...): a process of the port drives one "
-            "device (device=); choosing the world's devices comes with "
-            + _ITEM2 + ": devices=)")
+        device = _device_of_rank(devices, device)
     if precision == "int8":
         raise NotImplementedError(
             'precision="int8" comes with the int8 matmul slice of the port '
@@ -593,6 +588,23 @@ def auto_accelerate(
     return _build(module, optimizer, sample_batch, loss,
                   _check_spec(spec, _carries(module)), dev, grad_accum,
                   offload_optimizer, registry, allow_tensor)
+
+
+def _device_of_rank(devices, device: DeviceLike) -> torch.device:
+    """This rank's entry of ``devices`` (one device per rank of the
+    world), held against ``device`` when that is given too."""
+    devices = [torch.device(d) for d in devices]
+    n, world = len(devices), _world_size()
+    if n != world:
+        raise ValueError(f"a world of {world} processes needs {world} "
+                         f"devices, have {n}")
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else int(os.environ.get("RANK", "0"))
+    mine = devices[rank]
+    if device is not None and resolve_device(device) != mine:
+        raise ValueError(f"device={device!r} is not devices[{rank}] "
+                         f"({mine}), the device of rank {rank}")
+    return mine
 
 
 def _build(module, optimizer, sample_batch, loss, spec: ParallelSpec, dev,
@@ -700,8 +712,7 @@ def _auto(module, optimizer, sample_batch, loss, dev, grad_accum,
         carries = {"stage": (getattr(new, "pipeline_stages", 0) or 0) > 1,
                    "expert": (getattr(new, "num_experts", 0) or 0) > 0}
         try:
-            _check_candidate(sp, new, carries, optimizer, offload_optimizer,
-                             rows)
+            _check_candidate(sp, new, carries, optimizer, rows)
         except (NotImplementedError, ValueError, TypeError) as e:
             logger.info("strategy search: skipping %s, which the port does "
                         "not place: %s", sp, e)
@@ -900,33 +911,39 @@ def plain_tensor_parallel(module: nn.Module, mesh, rules, axes
     ``ParallelLinear`` (its bias sharded; all its logits gathered when
     the axis is ``vocab``), one whose in dim they map there a
     row-parallel one, an ``nn.Embedding`` whose rows they map there a
-    ``VocabParallelEmbedding``. Returns the sharded parameters' layouts
-    by name. A ``vocab`` dim may split unevenly (``torch.chunk``'s
-    parts); another dim the degree does not divide raises
-    ``ValueError``, and a parameter the rules put on the tensor axis
-    that is none of those layers ``NotImplementedError``."""
+    ``VocabParallelEmbedding``; any other parameter the rules put there
+    is stored as its shard and gathered whole before its module's
+    forward (``gather_in_forward``). Returns the sharded parameters'
+    layouts by name. A dim the rules put on the tensor axis that the
+    degree does not divide raises ``ValueError`` (JAX's jit refuses
+    that split), the vocab's too."""
     from dlrover_tpu_torch.models.tensor_parallel import (
         ParallelLinear,
         VocabParallelEmbedding,
+        gather_in_forward,
     )
 
     tmesh = mesh["tensor"]
     size = axis_sizes(mesh)["tensor"]
-    claimed = {n for n, a in axes.items()
-               if "tensor" in sharding.mesh_dims(a, rules)}
+    dims = {n: sharding.mesh_dims(a, rules)["tensor"]
+            for n, a in axes.items()
+            if "tensor" in sharding.mesh_dims(a, rules)}
+    shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+    for name, dim in dims.items():
+        if shapes[name][dim] % size:
+            raise ValueError(
+                f"{name} of {shapes[name]}: dim {dim} ({axes[name][dim]}) "
+                f"of {shapes[name][dim]} should be divisible by the tensor "
+                f"degree {size}")
     layouts: Dict[str, Any] = {}
     for mname, m in list(module.named_modules()):
         weight = f"{mname}.weight"
-        if weight not in claimed or not isinstance(m, (nn.Linear,
-                                                       nn.Embedding)):
+        if weight not in dims or not isinstance(m, (nn.Linear,
+                                                    nn.Embedding)):
             continue
-        dim = sharding.mesh_dims(axes[weight], rules)["tensor"]
+        dim = dims[weight]
         if isinstance(m, nn.Embedding) and dim != 0:
             continue
-        if m.weight.shape[dim] % size and axes[weight][dim] != "vocab":
-            raise ValueError(f"{weight} of {tuple(m.weight.shape)}: dim "
-                             f"{dim} does not divide by the tensor degree "
-                             f"{size}")
         layouts[weight] = _shard_param(m, "weight", mesh, dim)
         if isinstance(m, nn.Embedding):
             new = VocabParallelEmbedding(m, tmesh)
@@ -938,13 +955,19 @@ def plain_tensor_parallel(module: nn.Module, mesh, rules, axes
                                  gather=axes[weight][0] == "vocab")
         parent, _, leaf = mname.rpartition(".")
         setattr(module.get_submodule(parent), leaf, new)
-    left = {n for n in claimed if n not in layouts and not (
-        n.endswith(".bias") and n[:-len(".bias")] + ".weight" in layouts)}
-    if left:
-        raise NotImplementedError(
-            f"{sorted(left)}: the rules shard them over the tensor axis, "
-            "but only an nn.Linear's or an nn.Embedding's rows are placed "
-            "there (" + _ITEM2 + ": other modules on the tensor axis)")
+    holders: Dict[str, Dict[str, int]] = {}
+    for name, dim in dims.items():
+        if name in layouts or (name.endswith(".bias") and name[:-len(
+                ".bias")] + ".weight" in layouts):
+            continue
+        mname, _, leaf = name.rpartition(".")
+        holders.setdefault(mname, {})[leaf] = dim
+    for mname, leaves in holders.items():
+        holder = module.get_submodule(mname)
+        for leaf, dim in leaves.items():
+            name = f"{mname}.{leaf}" if mname else leaf
+            layouts[name] = _shard_param(holder, leaf, mesh, dim)
+        gather_in_forward(holder, leaves, tmesh)
     return layouts
 
 
@@ -1185,8 +1208,10 @@ def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
     """Under ZeRO-1 (``zero_rules``: the spec's rules; ``axes``: a plain
     module's logical axes) the optimizer is a ``ZeroOptimizer`` over
     ``mesh``'s data axis, unless no leaf can be sliced; otherwise a
-    ``takes_named_parameters`` optimizer becomes a ``MeshOptimizer``,
-    and a torch optimizer factory gets a param group for the plain
+    ``takes_named_parameters`` optimizer becomes a ``MeshOptimizer``
+    (on pipe ranks it gathers nothing: the parameters it binds are the
+    rank's stages and ends, laid out as such), and a torch optimizer
+    factory gets a param group for the plain
     parameters and one for the DTensors of each mesh (a foreach step
     takes one kind, on one mesh, at a time)."""
     from torch.distributed.tensor import DTensor
@@ -1204,11 +1229,6 @@ def _bind_on_mesh(optimizer, module: nn.Module, layouts, mesh=None,
         if opt is not None:
             return opt
     if getattr(optimizer, "takes_named_parameters", False):
-        if _pipeline(module) is not None:
-            raise NotImplementedError(
-                "an update_and_apply optimizer (adam8bit, "
-                "bf16_master_weights) on pipe ranks comes with "
-                + _PIPE_REST)
         return MeshOptimizer(optimizer, named, layouts)
     if isinstance(optimizer, torch.optim.Optimizer) or hasattr(
             optimizer, "update_and_apply"):
@@ -1246,8 +1266,9 @@ def accelerate_on_mesh(
     axis of size 1 takes its branch, its rules those of a degree above
     1; ``mesh.create_mesh``). Every process passes the same module,
     initialized alike, and the same global ``sample_batch``. ``zero``:
-    ZeRO-1 over the data axis (which the mesh must have; a seq, expert
-    or pipe axis of size above 1 raises). A model without
+    ZeRO-1 over the data axis (which the mesh must have).
+    ``offload_optimizer``: the big leaves of the state this rank holds
+    lie in host memory between steps. A model without
     ``logical_axes()`` is placed by ``registry``, or the planner's (a
     tensor axis, or ``allow_tensor=True``), or the defaults."""
     sizes = axis_sizes(mesh)
@@ -1255,7 +1276,7 @@ def accelerate_on_mesh(
     if other:
         raise ValueError(f"unknown mesh axes {other}; the axes are "
                          f"{MESH_AXES}")
-    _check_mesh(sizes, _carries(module), offload_optimizer)
+    _check_mesh(sizes, _carries(module))
     if zero:
         if "data" not in sizes:
             raise ValueError(f"zero=True needs a data axis; the mesh has "
@@ -1317,12 +1338,15 @@ def accelerate_on_mesh(
         sharding.set_layout(p, layouts[name])
     opt = _bind_on_mesh(optimizer, module, layouts, mesh,
                         rules if zero else None, axes if plain else None)
+    if offload_optimizer:
+        opt = OffloadOptimizer(opt, module.named_parameters())
     state = {"params": dict(module.named_parameters()), "opt": opt,
              "step": 0}
     logger.info("auto_accelerate: %.1fM params on mesh %s (%s), rows "
-                "[%s, %s) of each of %s parts of %s",
+                "[%s, %s) of each of %s parts of %s%s",
                 sum(p.numel() for p in module.parameters()) / 1e6, sizes, dev,
-                shard * width, (shard + 1) * width, parts, rows)
+                shard * width, (shard + 1) * width, parts, rows,
+                ", optimizer state offloaded" if offload_optimizer else "")
     return AccelerateResult(
         spec=spec, device=dev, state=state,
         train_step=make_train_step(module, loss, grad_accum=grad_accum,

@@ -26,18 +26,29 @@ rank's updated slices back into the whole parameters. Losses and
 parameters equal ``ParallelSpec(data=N)``'s bit for bit; the state each
 rank holds is about ``1/N`` of it.
 
-Beside ``fsdp`` and ``tensor`` the same rule picks a dim that neither
+Beside any other axis the same rule picks a dim that no present axis
 claims (a leaf without one the degree divides stays replicated over
-``data``), and a data rank's slice is cut from its local fsdp or tensor
-shard: its layout lies over two or three mesh axes
+``data``), and a data rank's slice is cut from its local shard (fsdp,
+tensor, seq or expert) or from its pipe rank's stages: a stacked
+leaf's layers dim (``L/P``, or a circular bank's ``C`` or
+``L/(P*C)``) may be chosen, never its ``stage`` dim, which the pipe
+axis shards. Its layout lies over two or three mesh axes
 (``sharding.Layout.zero``), in the JAX leaf's global coordinates, so
 the checkpoint's blocks need no new format. A leaf ZeRO leaves whole is
 stepped as the parameter's local shard. On a ``data`` axis of size 1
 the wrapper still runs and owns whole leaves, while ``zero_degree_of``
-is 0 there, as in JAX (what the checkpoint stamps). Beside ``seq``,
-``expert`` or ``pipe`` it is refused (``accelerate._check_spec``).
+is 0 there, as in JAX (what the checkpoint stamps).
+
+``bf16_master_weights(adam8bit)`` is sliced as JAX slices it: the fp32
+masters over ``data``, the 8-bit moments and their scales whole on
+every data rank (``ZeroAdam8Optimizer``). Each rank runs the moment
+update of every whole leaf (one launch of the unfused kernel,
+``Adam8bit.update``, over the whole fp32 gradients) and adds its slice
+of the update to its masters, so a slice may cut a 256-value block
+anywhere: no block's moments are split between ranks.
 """
 
+import itertools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -202,10 +213,12 @@ class _Piece(NamedTuple):
 def _pieces(leaf, dim: int, data: int, coord: int,
             member: Tuple[int, ...]) -> List[_Piece]:
     """Data rank ``coord``'s slices of a JAX leaf (``JaxLeaf``) whose
-    parameters' local tensors (their fsdp or tensor shards) are
-    ``member``, cut along its ``dim`` into ``data`` equal parts."""
+    parameters' local tensors (their fsdp, tensor, seq or expert shards)
+    are ``member``, cut along its ``dim`` into ``data`` equal parts. A
+    dim among the stacked ones (layers, a bank's chunks, stages) gives
+    the parameters whose index along it is in the rank's part, whole."""
     lead = len(leaf.shape) - len(member)
-    size = leaf.shape[dim] if dim < lead else member[dim - lead]
+    size = leaf.local_shape[dim] if dim < lead else member[dim - lead]
     if size % data:
         raise ValueError(
             f"ZeRO-1 cuts dim {dim} of {leaf.names[0]} into {data} slices, "
@@ -215,13 +228,22 @@ def _pieces(leaf, dim: int, data: int, coord: int,
         d = dim - lead
         shape = member[:d] + (n,) + member[d + 1:]
         return [_Piece(name, d, coord * n, n, shape) for name in leaf.names]
-    if lead != 1:
-        raise NotImplementedError(
-            "a ZeRO slice of a pipelined leaf's stage dims comes with a "
-            "later part of the multi-device slice (ROADMAP queue 1, item 2: "
-            "ZeRO-1's leaves beside seq, expert or pipe)")
+    # The names run over the stacked dims in C order.
+    stacked = itertools.product(*(range(k) for k in leaf.local_shape[:lead]))
     return [_Piece(name, None, 0, 0, member)
-            for name in leaf.names[coord * n:(coord + 1) * n]]
+            for name, idx in zip(leaf.names, stacked)
+            if coord * n <= idx[dim] < (coord + 1) * n]
+
+
+def _stacked_part(leaf, dim: int, lead: int, data: int, coord: int):
+    """The region of the ``lead`` stacked dims that data rank
+    ``coord``'s whole parameters of ``leaf`` cover (``_pieces`` along
+    stacked ``dim``), in the leaf's global coordinates."""
+    index = list(leaf.index or ((0, k) for k in leaf.shape[:lead]))
+    lo, hi = index[dim]
+    n = (hi - lo) // data
+    index[dim] = (lo + coord * n, lo + (coord + 1) * n)
+    return tuple(index)
 
 
 class ZeroOptimizer:
@@ -238,6 +260,9 @@ class ZeroOptimizer:
 
         self.params = dict(named_parameters)
         self._names = {id(p): n for n, p in self.params.items()}
+        #: The dim of each JAX leaf (by path) sliced over data (None:
+        #: whole), as JAX's ``apply_zero`` relabels it.
+        self.dims = dict(dims)
         axis = mesh.mesh_dim_names.index("data")
         self.group = mesh.get_group("data")
         self.size = int(mesh.mesh.shape[axis])
@@ -263,11 +288,10 @@ class ZeroOptimizer:
             mine = _pieces(leaf, dim, self.size, coord, member)
             self._layouts[path] = sharding.Layout.zero(
                 layouts[leaf.names[0]], dim - lead if dim >= lead else None)
-            if dim < lead:  # some layers, whole
-                n = leaf.shape[0] // self.size
+            if dim < lead:  # some layers (stages, chunks), whole
                 self._groups[path] = StageBlock(
                     tuple(p.name for p in mine), leaf.shape,
-                    ((coord * n, (coord + 1) * n),))
+                    _stacked_part(leaf, dim, lead, self.size, coord))
             else:
                 self._groups[path] = leaf
         # One buffer a dtype of this rank's slices, one of their grads.
@@ -302,12 +326,15 @@ class ZeroOptimizer:
         self.bound = {n: self.slices.get(n, sharding.local(p))
                       for n, p in self.params.items()
                       if n in self.slices or n not in sliced}
-        self.inner = bind(optimizer, self.bound.items())
+        self.inner = self._bind(optimizer)
         logger.info("ZeRO-1 over data=%s: %s of %s parameters sliced, "
                     "%.1f MB of slices on this rank", self.size,
                     len(self.slices), len(self.params),
                     sum(t.numel() * t.element_size()
                         for t in self._send.values()) / 1e6)
+
+    def _bind(self, optimizer):
+        return bind(optimizer, self.bound.items())
 
     @property
     def jax_groups(self):
@@ -393,30 +420,77 @@ class ZeroFusedOptimizer(ZeroOptimizer):
             self._gather()
 
 
+class ZeroAdam8Optimizer(ZeroOptimizer):
+    """ZeRO-1 around ``bf16_master_weights(adam8bit)`` (see the module's
+    docstring): ``inner`` is a ``Bf16MasterOptimizer`` whose masters are
+    this rank's slices (and the local tensors of the parameters no slice
+    was cut of), and whose inner ``Adam8bitOptimizer`` is bound to the
+    parameters themselves for its leaves and whole moments (their global
+    shapes, a pipe rank's stages); it is stepped through ``update``, never
+    ``update_and_apply``."""
+
+    def _bind(self, optimizer):
+        from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
+        from dlrover_tpu_torch.optim.low_bit import Adam8bitOptimizer
+
+        self._mine = {p.name: p for p in self._own}
+        whole = Adam8bitOptimizer(optimizer.inner, self.params.items())
+        return Bf16MasterOptimizer(whole, self.bound.items())
+
+    def update_and_apply(self, grads, params):
+        named = {self._names[id(p)]: g for g, p in zip(grads, params)}
+        adam = self.inner.inner
+        hp = adam.tx.hp
+        with torch.no_grad():
+            self._refresh()
+            # Every leaf's whole fp32 gradient (zeros without one).
+            whole = {}
+            for n, p in self.params.items():
+                g = named.get(n)
+                whole[n] = (torch.zeros(sharding.local(p).shape,
+                                        dtype=torch.float32,
+                                        device=sharding.local(p).device)
+                            if g is None else sharding.gather_full(
+                                g, sharding.layout_of(p), p.shape).float())
+            updates, _ = adam.tx.update(whole, adam.state,
+                                        leaves=adam._leaves)
+            for n, master in self.inner.master.items():
+                u, lay = updates[n], sharding.layout_of(self.params[n])
+                if lay is not None and lay.sharded_axes():
+                    u = sharding.local_from_full(u, lay)
+                if n in self._mine:
+                    u = self._mine[n].of(u)
+                if hp.wd:
+                    # As Adam8bit.update: lr * wd rounded to the dtype.
+                    c = torch.tensor(hp.lr * hp.wd, dtype=master.dtype).item()
+                    u = u - (c * master).to(u.dtype)
+                master.add_(u)
+                held = self.bound[n]
+                held.add_(master.to(held.dtype) - held)
+            self._gather()
+
+
 def _sliceable(optimizer) -> bool:
     """Whether ``optimizer``'s state is boxed in JAX, so ZeRO slices it:
     a torch optimizer's moments, ``bf16_master_weights``' masters and
-    its inner optimizer's; not the 8-bit Adam's quantized moments. An
-    8-bit Adam under fp32 masters would need the masters sliced and its
-    moments whole (JAX's layout), which the port does not do yet."""
+    its inner optimizer's (of an 8-bit Adam, the masters only); not the
+    bare 8-bit Adam's quantized moments."""
     from dlrover_tpu_torch.optim.bf16 import Bf16MasterWeights
     from dlrover_tpu_torch.optim.low_bit import Adam8bit
 
     if isinstance(optimizer, Adam8bit):
         return False
     if isinstance(optimizer, Bf16MasterWeights):
-        if not _sliceable(optimizer.inner):
-            raise NotImplementedError(
-                "zero=True with an 8-bit Adam under bf16_master_weights "
-                "(JAX slices the masters and keeps the 8-bit moments "
-                "whole) comes with a later part of the multi-device slice "
-                "(ROADMAP queue 1, item 2: the 8-bit Adam under fp32 masters "
-                "with zero=True)")
+        if not isinstance(optimizer.inner, Adam8bit):
+            _sliceable(optimizer.inner)
         return True
     if getattr(optimizer, "takes_named_parameters", False):
-        raise NotImplementedError(
-            f"zero=True with {type(optimizer).__name__} comes with a later "
-            "part of the multi-device slice (ROADMAP queue 1, item 2)")
+        # offload(inner): ZeRO slices inner's state, then offload_optimizer
+        # moves the slices.
+        raise ValueError(
+            f"zero=True with {type(optimizer).__name__}: pass its inner "
+            "optimizer with offload_optimizer=True, which offloads the "
+            "ZeRO slices")
     return True
 
 
@@ -438,6 +512,12 @@ def zero_optimizer(optimizer, module, layouts, mesh, rules, axes=None):
     if not any(d is not None for d in dims.values()):
         logger.warning(NOTHING_SHARDED, data)
         return None
-    fused = getattr(optimizer, "takes_named_parameters", False)
-    cls = ZeroFusedOptimizer if fused else ZeroOptimizer
+    from dlrover_tpu_torch.optim.low_bit import Adam8bit
+
+    if isinstance(getattr(optimizer, "inner", None), Adam8bit):
+        cls = ZeroAdam8Optimizer
+    elif getattr(optimizer, "takes_named_parameters", False):
+        cls = ZeroFusedOptimizer
+    else:
+        cls = ZeroOptimizer
     return cls(optimizer, named, layouts, groups, dims, mesh)

@@ -45,10 +45,12 @@ state converts across with ``adam8bit_state_from_flax`` /
 ``adam8bit_state_to_flax``.
 
 A model the port does not define (a plain module of ``nn.Linear`` /
-``nn.Embedding`` / ``nn.LayerNorm``) carries its flax twin's ``Dense`` /
-``Embed`` / ``LayerNorm`` params at the same paths
+``nn.Embedding`` / ``nn.LayerNorm`` / ``nn.Conv1d`` and bare
+``nn.Parameter``s) carries its flax twin's ``Dense`` / ``Embed`` /
+``LayerNorm`` / ``Conv`` params and ``self.param``s at the same paths
 (``plain_from_flax``, ``flax_from_plain``): a Dense kernel is its
-Linear's weight transposed.
+Linear's weight transposed, a Conv kernel ``[k, in, out]`` its Conv1d's
+``[out, in, k]`` weight with its dims reversed.
 
 ``train_state_leaves`` lays the port's whole train state (``{"params",
 "opt", "step"}``) out as the JAX train state's flattened leaves, keyed
@@ -303,43 +305,54 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor],
 
 # ----------------------------------------------------- plain modules
 
-#: A plain module's leaves: (torch module type, torch leaf, flax leaf).
-_PLAIN = ((torch.nn.Linear, "weight", "kernel"),
-          (torch.nn.Linear, "bias", "bias"),
-          (torch.nn.Embedding, "weight", "embedding"),
-          (torch.nn.LayerNorm, "weight", "scale"),
-          (torch.nn.LayerNorm, "bias", "bias"))
+#: A plain module's leaves: (torch module type, torch leaf, flax leaf,
+#: whether the flax leaf is the torch one with its dims reversed).
+_PLAIN = ((torch.nn.Linear, "weight", "kernel", True),
+          (torch.nn.Linear, "bias", "bias", False),
+          (torch.nn.Conv1d, "weight", "kernel", True),
+          (torch.nn.Conv1d, "bias", "bias", False),
+          (torch.nn.Embedding, "weight", "embedding", False),
+          (torch.nn.LayerNorm, "weight", "scale", False),
+          (torch.nn.LayerNorm, "bias", "bias", False))
 
 
 def _plain_leaves(module: torch.nn.Module):
-    """(port name, flax path, transposed) of each parameter of a plain
-    module made of ``nn.Linear`` / ``nn.Embedding`` / ``nn.LayerNorm``:
-    the flax path is the module's dotted path with ``/`` and the flax
-    leaf's name; a Linear's weight is its flax kernel transposed."""
+    """(port name, flax path, reversed) of each parameter of a plain
+    module made of ``nn.Linear`` / ``nn.Embedding`` / ``nn.LayerNorm`` /
+    ``nn.Conv1d`` and bare parameters: the flax path is the module's
+    dotted path with ``/`` and the flax leaf's name (a bare parameter's
+    own); a Linear's and a Conv1d's weight is its flax kernel with its
+    dims reversed."""
     out = []
     for mname, m in module.named_modules():
-        for kind, port, leaf in _PLAIN:
-            if type(m) is kind and getattr(m, port, None) is not None:
-                prefix = mname.replace(".", "/")
-                out.append((f"{mname}.{port}" if mname else port,
-                            f"{prefix}/{leaf}" if prefix else leaf,
-                            port == "weight" and kind is torch.nn.Linear))
+        prefix = mname.replace(".", "/")
+        known = {port: (leaf, rev) for kind, port, leaf, rev in _PLAIN
+                 if type(m) is kind}
+        for port, _ in m.named_parameters(recurse=False):
+            leaf, rev = known.get(port, (port, False))
+            out.append((f"{mname}.{port}" if mname else port,
+                        f"{prefix}/{leaf}" if prefix else leaf, rev))
     return out
+
+
+def _reversed(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(*reversed(range(t.dim())))
 
 
 def plain_from_flax(tree: Mapping, module: torch.nn.Module
                     ) -> Dict[str, torch.Tensor]:
-    """A flax tree of ``Dense`` / ``Embed`` / ``LayerNorm`` params (arrays)
-    -> the ``state_dict`` of ``module``, its torch twin (``nn.Linear`` /
-    ``nn.Embedding`` / ``nn.LayerNorm`` at the same paths): each Dense
-    kernel transposed into its Linear's weight, every value bit for bit.
-    The counterpart of ``params_from_flax`` for a model the port does not
-    define."""
+    """A flax tree of ``Dense`` / ``Embed`` / ``LayerNorm`` / ``Conv``
+    params and bare ``self.param``s (arrays) -> the ``state_dict`` of
+    ``module``, its torch twin (``nn.Linear`` / ``nn.Embedding`` /
+    ``nn.LayerNorm`` / ``nn.Conv1d`` and ``nn.Parameter``s at the same
+    paths): each Dense or Conv kernel's dims reversed into its layer's
+    weight, every value bit for bit. The counterpart of
+    ``params_from_flax`` for a model the port does not define."""
     flat = dict(_flat(tree))
     out = {}
-    for name, path, transposed in _plain_leaves(module):
+    for name, path, rev in _plain_leaves(module):
         t = _tensor(flat[path])
-        out[name] = t.t().contiguous() if transposed else t
+        out[name] = _reversed(t).contiguous() if rev else t
     return out
 
 
@@ -347,9 +360,9 @@ def flax_from_plain(module: torch.nn.Module) -> Dict:
     """The inverse of ``plain_from_flax``: ``module``'s parameters as the
     flax tree of its twin (numpy arrays)."""
     params = dict(module.named_parameters())
-    return _nest({path: _array(params[name].t() if transposed
+    return _nest({path: _array(_reversed(params[name]) if rev
                                else params[name])
-                  for name, path, transposed in _plain_leaves(module)})
+                  for name, path, rev in _plain_leaves(module)})
 
 
 # ----------------------------------------------------- JAX leaf grouping
@@ -368,6 +381,15 @@ class JaxLeaf(NamedTuple):
         """The region of the stacked dims the parameters cover: None, all
         of them (``StageBlock``: a pipe rank's stages)."""
         return None
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The shape the parameters make together: the leaf's, its
+        stacked dims cut to ``index`` (a pipe rank's stages)."""
+        index = self.index
+        if index is None:
+            return self.shape
+        return tuple(b - a for a, b in index) + self.shape[len(index):]
 
 
 class StageBlock(JaxLeaf):
@@ -613,15 +635,17 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
         # Its inner optimizer's state is over this data rank's slices
         # (and the parameters no slice was cut of), each leaf laid out
         # as its slice.
+        # (The 8-bit moments under sliced masters keep their own.)
         return [leaf._replace(layout=opt.state_layout(leaf.param_path))
+                if leaf.param_path is not None or leaf.layout is None
+                else leaf
                 for leaf in _opt_leaves(opt.inner, prefix, opt.bound,
                                         opt.jax_groups, order)]
     if isinstance(opt, MeshOptimizer):
-        # Its inner optimizer's state is whole, on every rank.
-        whole = sharding.Layout.replicated(
-            next(iter(opt.layouts.values())).mesh)
-        return [leaf._replace(layout=whole) for leaf in _opt_leaves(
-            opt.inner, prefix, opt.full, groups, order)]
+        # Its inner optimizer's state is whole where the parameter is
+        # sharded (its gathered copy has no layout), and laid out as the
+        # parameter elsewhere (a pipe rank's stages and ends).
+        return _opt_leaves(opt.inner, prefix, opt.full, groups, order)
     if isinstance(opt, OffloadOptimizer):
         # JAX's offload keeps its inner transform's state as it is.
         return _opt_leaves(opt.inner, prefix, params, groups, order)
@@ -632,6 +656,7 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
             leaves.append(StateLeaf(keystr(f"{prefix}.master", path),
                                     groups[path].shape, members[0].dtype,
                                     members, param_path=path,
+                                    layout=sharding.layout_of(members[0]),
                                     stacked=groups[path].index))
         return leaves + _opt_leaves(opt.inner, f"{prefix}.inner", opt.master,
                                     groups, order)
@@ -642,11 +667,14 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
         for moment in ("m", "v"):
             tree = getattr(st, moment)
             for path in _in_jax_order(tree):
+                leaf = opt._leaves[path]
+                lay = sharding.layout_of(opt.params[leaf.names[0]])
                 for field in ("q", "scale"):
                     t = getattr(tree[path], field)
+                    shape, layout = _quantized_block(t, leaf, lay)
                     leaves.append(StateLeaf(
                         keystr(f"{prefix}.{moment}", path) + f".{field}",
-                        tuple(t.shape), t.dtype, (t,)))
+                        shape, t.dtype, (t,), layout=layout))
     elif _plain_adam(opt):
         materialize_adam_state(opt)
         leaves.append(StateLeaf(
@@ -669,6 +697,40 @@ def _opt_leaves(opt, prefix: str, params: Mapping[str, torch.Tensor],
             "capturable or fused, and bf16_master_weights and offload "
             "around them")
     return leaves
+
+
+def _quantized_block(t: torch.Tensor, leaf: JaxLeaf, layout):
+    """The JAX shape and the layout of an 8-bit moment's ``q`` or
+    ``scale`` tensor ``t`` of a params leaf laid out as ``layout``: on a
+    pipe rank a stage leaf's state is its stages' rows of the global
+    leaf's (``[P, blocks, ...]``, dim 0 split over the pipe axis, as the
+    rank's stages split the leaf's stage dim); any other leaf's state is
+    whole where its parameter lies (its layout without the dims it
+    shards: the 8-bit moments are never sharded)."""
+    from dlrover_tpu_torch.accel import sharding
+
+    if layout is None:
+        return tuple(t.shape), None
+    if leaf.index is not None:
+        pipe = layout.mesh.mesh_dim_names.index("pipe")
+        shard = tuple(0 if i == pipe else None
+                      for i in range(len(layout.shard)))
+        return ((leaf.shape[0],) + tuple(t.shape[1:]),
+                sharding.Layout(layout.mesh, shard))
+    return tuple(t.shape), dataclasses.replace(
+        layout, shard=(None,) * len(layout.shard), fused=1)
+
+
+def opt_state_leaves(opt, params: Mapping[str, torch.Tensor],
+                     groups: Optional[Dict[str, JaxLeaf]] = None
+                     ) -> List[StateLeaf]:
+    """The leaves of a bound optimizer's state over ``params`` (by name),
+    each with its own tensors as members (not this rank's blocks, which
+    ``train_state_leaves`` cuts on a mesh): what ``optim/offload.py``
+    moves."""
+    if groups is None:
+        groups = param_leaves(params)
+    return _opt_leaves(opt, "['opt']", params, groups, _in_jax_order(groups))
 
 
 def train_state_leaves(state, stacked: bool = True,

@@ -10,6 +10,13 @@ the replicated input of the column-parallel layers (its gradient is
 summed over the tensor group), ``reduce`` sums the row-parallel
 products' partial outputs. With no group both are the identity.
 
+A plain module's parameter that the rules put on the tensor axis but
+that no ``ParallelLinear`` or ``VocabParallelEmbedding`` takes (a
+conv's weight, a bare ``nn.Parameter``) is stored as this rank's shard;
+``gather_in_forward`` gathers it whole before its module's forward, so
+the module computes on the whole tensor, and its gradient comes back
+as the shard's slice.
+
 ``vocab_parallel_lse`` / ``vocab_parallel_target`` compute the
 logsumexp and the target logit of logits whose vocab axis is sharded
 over the group (LLaMA's untied head, GPT's tied one when its vocab
@@ -121,44 +128,37 @@ class _Target(torch.autograd.Function):
 
 
 def _chunk(total: int, n: int, r: int):
-    """``(start, width)`` of part ``r`` of ``n`` of a dim of ``total``,
-    as ``torch.chunk`` (and DTensor's ``Shard``) splits it: parts of
-    ``ceil(total / n)``, the last ones shorter or empty."""
-    size = -(-total // n)
-    start = min(r * size, total)
-    return start, min(size, total - start)
+    """``(start, width)`` of part ``r`` of ``n`` equal parts of a dim of
+    ``total`` (the placement refuses a dim ``n`` does not divide)."""
+    width = total // n
+    return r * width, width
 
 
-def _cat_last(x: torch.Tensor, group: Any, total: int) -> torch.Tensor:
-    """Every rank's ``x``, its ``torch.chunk`` part of a last dim of
-    ``total``, in rank order along the last dim (each padded to the
-    first part's width for the all-gather)."""
-    n = dist.get_world_size(group)
-    size = -(-total // n)
+def _cat(x: torch.Tensor, group: Any, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (its part of ``dim``) in rank order along
+    ``dim``."""
     x = x.contiguous()
-    if x.shape[-1] < size:
-        x = F.pad(x, (0, size - x.shape[-1]))
-    parts = [torch.empty_like(x) for _ in range(n)]
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    out = torch.cat(parts, dim=-1)
-    return out if out.shape[-1] == total else out[..., :total].contiguous()
+    return torch.cat(parts, dim=dim)
 
 
-class _GatherLast(torch.autograd.Function):
-    """This rank's part of the last dim (of ``total``) -> the whole
-    (every rank's in rank order); backward: this rank's part of the
-    gradient."""
+class _Gather(torch.autograd.Function):
+    """This rank's part of ``dim`` -> the whole (every rank's in rank
+    order); backward: this rank's part of the gradient. Every rank runs
+    what follows on the whole tensor alike, so each holds the whole
+    gradient and its part is the gradient of its part."""
 
     @staticmethod
-    def forward(ctx, x, group, total):
-        ctx.group, ctx.total = group, total
-        return _cat_last(x, group, total)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _cat(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        start, width = _chunk(ctx.total, dist.get_world_size(ctx.group),
-                              dist.get_rank(ctx.group))
-        return g.narrow(-1, start, width).contiguous(), None, None
+        n = dist.get_world_size(ctx.group)
+        start, width = _chunk(g.shape[ctx.dim], n, dist.get_rank(ctx.group))
+        return g.narrow(ctx.dim, start, width).contiguous(), None, None
 
 
 class _SplitLast(torch.autograd.Function):
@@ -174,7 +174,7 @@ class _SplitLast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _cat_last(g, ctx.group, ctx.total), None
+        return _cat(g, ctx.group, -1), None
 
 
 class _FirstRank(torch.autograd.Function):
@@ -191,10 +191,9 @@ class _FirstRank(torch.autograd.Function):
         return g, None
 
 
-def gather_last(x: torch.Tensor, group: Any, total: int) -> torch.Tensor:
-    """The whole last dim (of ``total``) from every rank's part
-    (autograd-aware)."""
-    return _GatherLast.apply(x, group, total)
+def gather_last(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The whole last dim from every rank's part (autograd-aware)."""
+    return _Gather.apply(x, group, -1)
 
 
 def split_last(x: torch.Tensor, group: Any) -> torch.Tensor:
@@ -246,8 +245,7 @@ class ParallelLinear(nn.Module):
     rank's out columns), a ``"row"`` layer's weight its in columns, its
     bias replicated. A column layer takes the whole input (its gradient
     summed over the group) and gives its out columns, all of them with
-    ``gather`` (a vocab-parallel head's logits, whose rows may split
-    unevenly, as ``torch.chunk`` splits); a row layer takes its in
+    ``gather`` (a vocab-parallel head's logits); a row layer takes its in
     columns and gives the sum of the ranks' products, the bias in the
     first rank's (so on one rank it is ``nn.Linear``'s product, one
     rounding). Given the other kind of input, a layer gathers or slices
@@ -266,10 +264,9 @@ class ParallelLinear(nn.Module):
             if bias is not None:
                 bias = bias.to_local()
             if x.shape[-1] != self.in_features:
-                x = gather_last(x, group, self.in_features)
+                x = gather_last(x, group)
             y = F.linear(enter(x, group), weight, bias)
-            return gather_last(y, group, self.weight.shape[0]) \
-                if self.gather else y
+            return gather_last(y, group) if self.gather else y
         if x.shape[-1] != weight.shape[-1]:
             x = split_last(x, group)
         if bias is not None:
@@ -288,3 +285,29 @@ class VocabParallelEmbedding(nn.Module):
 
     def forward(self, tokens):
         return embed(self, tokens, self.mesh)
+
+
+def gather_in_forward(module: nn.Module, leaves, mesh):
+    """Gather the parameters ``leaves`` (``{leaf: dim}``) of ``module``,
+    DTensors of this rank's shard along ``dim`` over the tensor axis's
+    1-D ``mesh``, whole before its forward: a forward pre-hook sets each
+    gathered tensor on the module under the parameter's own name (an
+    instance attribute comes before ``nn.Module``'s parameter lookup, so
+    the module's own forward reads it), and a forward hook removes them.
+    The gather is ``_Gather``: the module computes on the whole tensor
+    on every rank alike, and the shard's gradient is its slice of the
+    whole one."""
+    group = mesh.get_group()
+
+    def gather(mod, args):
+        for leaf, dim in leaves.items():
+            p = mod._parameters[leaf]
+            local = p.to_local() if hasattr(p, "to_local") else p
+            mod.__dict__[leaf] = _Gather.apply(local, group, dim)
+
+    def drop(mod, args, out):
+        for leaf in leaves:
+            mod.__dict__.pop(leaf, None)
+
+    module.register_forward_pre_hook(gather)
+    module.register_forward_hook(drop)

@@ -7,6 +7,10 @@ updates the masters, and each param given a gradient is then moved to
 ``bf16(master)`` as the JAX package's emitted update does
 (``p + (bf16(master) - p)``, in the param's dtype), so updates below a
 bf16 ulp accumulate in the masters instead of vanishing.
+
+A master keeps its parameter's mesh layout (``accel.sharding``), so on
+a pipe rank the masters are its stages' and the inner optimizer (the
+8-bit Adam too) holds and steps those stages only.
 """
 
 from typing import Sequence
@@ -37,9 +41,14 @@ class Bf16MasterOptimizer:
     def __init__(self, inner, named_parameters):
         self.params = dict(named_parameters)
         self._names = {id(p): n for n, p in self.params.items()}
+        from dlrover_tpu_torch.accel import sharding
+
         with torch.no_grad():
             self.master = {n: p.detach().to(torch.float32, copy=True)
                            for n, p in self.params.items()}
+        for n, p in self.params.items():
+            if sharding.layout_of(p) is not None:
+                sharding.set_layout(self.master[n], sharding.layout_of(p))
         self.inner = bind(inner, self.master.items())
 
     def update_and_apply(self, grads: Sequence[torch.Tensor],

@@ -32,7 +32,11 @@ from, and writes it back to, its own layer's tensor, so a straddling
 leaf needs no gathered copy. A pipelined leaf ``[P, L/P, ...]``
 quantizes per stage, its layers straddling the stage's blocks: the
 table gives each stage a row of its own, pointing at the stage's
-blocks of the state (``_row_count``).
+blocks of the state (``_row_count``). On a pipe rank the optimizer holds
+only its stages: each leaf is a ``StageBlock`` of the global one, and
+its state is those stages' rows of the global leaf's state, with their
+own blocks and scales (a single stage keeps its row dim), so one launch
+steps exactly the rows the rank owns.
 
 **In place.** Unlike optax, ``update`` and ``update_and_apply`` update
 the state's tensors (and, fused, the parameters) in place: a second
@@ -568,17 +572,33 @@ class Adam8bit:
 
     @staticmethod
     def leaves(params: Mapping[str, torch.Tensor]):
-        """The JAX leaves of ``params`` (path -> ``JaxLeaf``)."""
+        """The JAX leaves of ``params`` (path -> ``JaxLeaf``); on a pipe
+        rank, ``StageBlock``s of its stages (``convert.param_leaves``
+        reads the global stage count from the parameters' layouts)."""
         # models.convert imports this module for the state's types.
-        from dlrover_tpu_torch.models.convert import jax_leaves
+        from dlrover_tpu_torch.models.convert import param_leaves
 
-        return jax_leaves((n, tuple(p.shape)) for n, p in params.items())
+        return param_leaves(params)
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> Adam8bitState:
+    def init(self, params: Mapping[str, torch.Tensor], leaves=None
+             ) -> Adam8bitState:
+        """Zero moments of ``params``' JAX ``leaves`` (``leaves(params)``
+        by default), each over its members (``local_shape``: a pipe
+        rank's stages of a leaf quantized by stage keep their row dim,
+        one stage too)."""
         dev = next(iter(params.values())).device
-        leaves = self.leaves(params)
-        zero = lambda leaf: _quantize_leaf(  # noqa: E731
-            torch.zeros(leaf.shape, device=dev), self.hp.block)
+        if leaves is None:
+            leaves = self.leaves(params)
+        block = self.hp.block
+
+        def zero(leaf):
+            shape = leaf.local_shape
+            qt = _quantize_leaf(torch.zeros(shape, device=dev), block)
+            if _chunked(leaf.shape) and not _chunked(shape):
+                qt = QTensor(qt.q.reshape(shape[0], -1, block),
+                             qt.scale.reshape(shape[0], -1))
+            return qt
+
         return Adam8bitState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             m={k: zero(leaf) for k, leaf in leaves.items()},
@@ -586,23 +606,26 @@ class Adam8bit:
         )
 
     def update(self, grads: Mapping[str, torch.Tensor], state: Adam8bitState,
-               params: Optional[Mapping[str, torch.Tensor]] = None
+               params: Optional[Mapping[str, torch.Tensor]] = None,
+               leaves=None
                ) -> Tuple[Dict[str, torch.Tensor], Adam8bitState]:
         """``(updates, state)``: one step through ``_adam8_kernel``, one
         launch over every leaf; ``weight_decay`` subtracts ``lr * wd * p``
         when ``params`` are given, outside the kernel, as the JAX package
-        does."""
+        does. ``leaves``: the JAX leaves of ``grads`` (``leaves(grads)``
+        by default)."""
         hp = self.hp
         with torch.no_grad():
             bc = self._advance(state)
+            if leaves is None:
+                leaves = self.leaves(grads)
             if _on_cpu(state.step):
-                updates = self._run_plain(self.leaves(grads), grads, state,
-                                          params, bc)
+                updates = self._run_plain(leaves, grads, state, params, bc)
             else:
                 updates = {n: torch.empty(g.shape, dtype=g.dtype,
                                           device=g.device)
                            for n, g in grads.items()}
-                for table in self.step_tables(grads, state):
+                for table in self.step_tables(grads, state, leaves):
                     table.point(table.members(grads),
                                 table.members(updates))
                     table.launch(False, bc, hp)
@@ -615,14 +638,16 @@ class Adam8bit:
         return updates, state
 
     def step_tables(self, grads: Mapping[str, torch.Tensor],
-                    state: Adam8bitState) -> List[_Table]:
+                    state: Adam8bitState, leaves=None) -> List[_Table]:
         """``update``'s tables for ``grads``: built at the first call, and
         again when the grads' names, shapes or dtypes or the state's
         storage change."""
         key = (tuple((n, g.shape, g.dtype) for n, g in grads.items()),
                _state_key(state))
         if self._cache is None or self._cache[0] != key:
-            self._cache = (key, _tables(self.leaves(grads), grads, state))
+            self._cache = (key, _tables(
+                self.leaves(grads) if leaves is None else leaves, grads,
+                state))
         return self._cache[1]
 
     def __call__(self, named_parameters) -> "Adam8bitOptimizer":
@@ -652,9 +677,9 @@ class Adam8bit:
             qm, qv = state.m[path], state.v[path]
             if fused:
                 adam8_fused_update(g, [params[n] for n in leaf.names], qm,
-                                   qv, bc, leaf.shape, self.hp)
+                                   qv, bc, leaf.local_shape, self.hp)
                 continue
-            u = adam8_update(g, qm, qv, bc, leaf.shape, self.hp)
+            u = adam8_update(g, qm, qv, bc, leaf.local_shape, self.hp)
             updates.update(zip(leaf.names, u))
         return updates
 
@@ -679,7 +704,8 @@ def _tables(leaves, tensors: Mapping[str, torch.Tensor],
     for dtype, items in groups.items():
         dev = tensors[items[0][1].names[0]].device
         tables.append(_Table(
-            [(leaf.shape, [tensors[n] for n in leaf.names], state.m[path],
+            [(leaf.local_shape, [tensors[n] for n in leaf.names],
+              state.m[path],
               state.v[path]) for path, leaf in items], dtype, dev,
             names=[leaf.names for _, leaf in items],
             out=tensors if fixed_out else None))
@@ -690,14 +716,16 @@ class Adam8bitOptimizer:
     """``adam8bit`` bound to named parameters; ``update_and_apply(grads,
     params)`` is the train step's fused contract: one fused kernel launch
     over every leaf updates the params and the state in place. Its table
-    is built at the first step, and again if the state is replaced."""
+    is built at the first step, and again if the state is replaced. On a
+    pipe rank the parameters are its stages and ends, and so are the
+    leaves and the state (``Adam8bit.leaves``)."""
 
     def __init__(self, tx: Adam8bit, named_parameters):
         self.tx = tx
         self.params = dict(named_parameters)
         self._names = {id(p): n for n, p in self.params.items()}
         self._leaves = tx.leaves(self.params)
-        self.state = tx.init(self.params)
+        self.state = tx.init(self.params, self._leaves)
         self._cache = None  # (key, the step's tables)
 
     @property

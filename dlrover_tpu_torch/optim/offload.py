@@ -15,6 +15,13 @@ update. So the inner optimizer is one that has a JAX state layout:
 ``adam8bit``, torch Adam/AdamW, and ``bf16_master_weights`` around
 them.
 
+On a mesh (``accel/accelerate.py``) the inner optimizer is whatever the
+rank steps, and what moves is the state it holds, by the same rule on
+the JAX leaf's global shape: under FSDP2 and tensor parallelism its
+DTensor moments' local shards, under ZeRO-1 its slices, under
+``MeshOptimizer`` and on pipe ranks the 8-bit moments (whole, or the
+rank's stages' rows).
+
 A moved tensor keeps its identity: its storage is swapped (``.data``)
 between the host copy and a device copy, so the inner optimizer, the
 train state and the checkpoint engine hold the same objects throughout.
@@ -82,29 +89,31 @@ class OffloadOptimizer:
 
     def __init__(self, inner, named_parameters):
         # models.convert imports the optimizers; import it here.
+        from dlrover_tpu_torch.accel import sharding
         from dlrover_tpu_torch.models.convert import (
-            jax_leaves,
-            train_state_leaves,
+            opt_state_leaves,
+            param_leaves,
         )
 
         self.inner = inner
         params = dict(named_parameters)
-        self.device = next(iter(params.values())).device
+        self.device = sharding.local(next(iter(params.values()))).device
         cuda = self.device.type == "cuda"
-        groups = jax_leaves((n, tuple(p.shape)) for n, p in params.items())
-        leaves = train_state_leaves({"params": params, "opt": inner,
-                                     "step": 0}, groups=groups)
+        groups = param_leaves(params)
+        per_parameter = _per_parameter(inner)
         self.moved: List[torch.Tensor] = []
         self._host: List[torch.Tensor] = []
         owner: Dict[str, List[int]] = {}  # parameter name -> moved indices
         with torch.no_grad():
-            for leaf in leaves:
-                if not (leaf.path.startswith("['opt']") and leaf.members
-                        and offloadable(leaf.shape)):
+            for leaf in opt_state_leaves(inner, params, groups):
+                if not (leaf.members and offloadable(leaf.shape)):
                     continue
-                names = (groups[leaf.param_path].names if leaf.param_path
+                names = (groups[leaf.param_path].names
+                         if per_parameter and leaf.param_path
                          else ("",) * len(leaf.members))
-                for name, t in zip(names, leaf.members):
+                for name, member in zip(names, leaf.members):
+                    # A DTensor's storage is its local shard's.
+                    t = sharding.local(member)
                     host = torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=cuda)
                     host.copy_(t)
@@ -115,7 +124,7 @@ class OffloadOptimizer:
         self.nbytes = sum(t.numel() * t.element_size() for t in self.moved)
         # (parameter names, indices of their moved tensors) a chunk.
         self._chunks: List[Tuple[set, List[int]]] = []
-        if _per_parameter(inner):
+        if per_parameter:
             names, idx, size = set(), [], 0
             for n in params:
                 names.add(n)

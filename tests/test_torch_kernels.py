@@ -920,3 +920,91 @@ def _one_launch_steps(model, cuda_device, dtype, dropped):
             assert not lowbit.adam8_failures(errs), (step, path, errs)
     assert lowbit.LAUNCHES == {"adam8": 0, "adam8_fused": 2}
     assert opt.launches_per_step == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repeats", [1, 2], ids=["gpipe", "circular"])
+def test_adam8_fused_launch_over_a_pipe_ranks_rows(cuda_device, repeats):
+    """Pipe rank 0 of 2 on a 4-stage tiny GPT: its optimizer binds its
+    stages' parameters and its ends (``wte``, ``wpe``), its leaves are
+    ``StageBlock``s of the global ones, and its state is stages [0, 2)'s
+    rows of a whole model's state (views into it). One fused launch
+    steps those rows as the plain version does on the card, leaf by
+    leaf within ``ADAM8_LIMITS``, and leaves the rows of stages [2, 4)
+    untouched, bit for bit."""
+    import dataclasses
+
+    from dlrover_tpu_torch.accel.sharding import Layout, set_layout
+    from dlrover_tpu_torch.models.convert import param_leaves
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), num_layers=8,
+                              pipeline_stages=4, pipeline_microbatches=4,
+                              pipeline_repeats=repeats)
+    model = GPT(cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    whole = {n: p.detach().to(device=cuda_device, dtype=torch.bfloat16)
+             for n, p in model.named_parameters()}
+    ours = ("wte.weight", "wpe")
+    mine = {n: p for n, p in whole.items() if n in ours or any(
+        n.startswith(f"pipeline.{k}.{s}.") for k in ("stages", "bank")
+        for s in (0, 1))}
+    stage = Layout(None, (None,), placed=(0,), stages=4)
+    for n, p in mine.items():
+        if n.startswith("pipeline."):
+            set_layout(p, stage)
+    tx = lowbit.adam8bit(1e-2, weight_decay=0.1)
+    opt = tx(mine.items())
+    # A whole model's state, random, and the rank's rows of it.
+    full = tx.init(whole)
+    for qt in list(full.m.values()) + list(full.v.values()):
+        qt.q.copy_(torch.tensor(rng.integers(-127, 128, qt.q.shape),
+                                dtype=torch.int8))
+        qt.scale.copy_(torch.tensor(rng.uniform(0, 0.1, qt.scale.shape)))
+    rows = {}
+    for path, leaf in opt._leaves.items():
+        if leaf.index is None:
+            rows[path] = (full.m[path], full.v[path])
+        else:
+            lo, hi = leaf.index[0]
+            assert (lo, hi) == (0, 2) and leaf.shape == param_leaves(
+                whole)[path].shape
+            rows[path] = tuple(lowbit.QTensor(qt.q[lo:hi], qt.scale[lo:hi])
+                               for qt in (full.m[path], full.v[path]))
+    assert set(rows) == set(opt.state.m)
+    opt.state = lowbit.Adam8bitState(
+        opt.state.step, {p: r[0] for p, r in rows.items()},
+        {p: r[1] for p, r in rows.items()})
+    others = {path: [t[2:].clone() for qt in (full.m[path], full.v[path])
+                     for t in qt]
+              for path, leaf in opt._leaves.items() if leaf.index}
+    assert others
+    grads = {n: torch.tensor(rng.standard_normal(p.shape) * 1e-2,
+                             dtype=torch.bfloat16, device=cuda_device)
+             for n, p in mine.items()}
+    before = {n: p.clone() for n, p in mine.items()}
+    state = {path: tuple(lowbit.QTensor(qt.q.clone(), qt.scale.clone())
+                         for qt in r) for path, r in rows.items()}
+    lowbit.reset_launch_counts()
+    names = list(mine)
+    opt.update_and_apply([grads[n] for n in names], [mine[n] for n in names])
+    torch.cuda.synchronize()
+    assert lowbit.LAUNCHES == {"adam8": 0, "adam8_fused": 1}
+    bc = 1 - tx._betas[opt.state.step.device] ** opt.state.step
+    for path, leaf in opt._leaves.items():
+        shape = leaf.local_shape
+        ref = lowbit._plain_blocks([grads[n] for n in leaf.names],
+                                   *state[path], bc, shape, tx.hp,
+                                   p=[before[n] for n in leaf.names])
+        # The random moments reach the padding: its outputs are not kept.
+        ref = (lowbit._blocks_of(lowbit._unblocks(ref[0], shape, 256),
+                                 256),) + ref[1:]
+        got = (lowbit._blocks_of(lowbit._leaf(
+            [mine[n] for n in leaf.names], shape), 256),) + tuple(
+            t.reshape(-1, 256) if t.dtype == torch.int8 else t.reshape(-1)
+            for qt in rows[path] for t in qt)
+        errs = lowbit.adam8_errors(got, ref)
+        assert not lowbit.adam8_failures(errs), (path, errs)
+    for path, rest in others.items():
+        now = [t[2:] for qt in (full.m[path], full.v[path]) for t in qt]
+        assert all(torch.equal(a, b) for a, b in zip(now, rest)), path

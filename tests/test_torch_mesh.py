@@ -196,9 +196,9 @@ def test_replica_index_counts_unsharded_axes():
 
 
 @pytest.mark.parametrize("spec,match", [
-    # ZeRO-1 over data, alone or beside fsdp and tensor, trains
-    # (tests/test_torch_zero.py); beside seq, expert or pipe it raises.
-    (ParallelSpec(data=2, seq=2, zero=True), "ZeRO"),
+    # ZeRO-1 over data beside any axis trains (tests/test_torch_zero.py);
+    # a composition it joins is refused as without it.
+    (ParallelSpec(data=2, seq=2, fsdp=2, zero=True), "item 6"),
     (ParallelSpec(collectives=(("data", "lat"),)), "collectives"),
     # seq, expert and pipe degrees place a module
     # (tests/test_torch_seq_expert.py, tests/test_torch_pipeline.py);
@@ -212,6 +212,19 @@ def test_later_specs_raise_naming_their_slice(spec, match):
         auto_accelerate(GPT(GPTConfig.tiny(), device="cpu"), adamw(1e-3),
                         np.zeros((2, 8), np.int64), None, spec=spec,
                         device="cpu")
+
+
+@pytest.mark.parametrize("axis", ["seq", "expert", "pipe"])
+def test_zero_beside_seq_expert_or_pipe_passes_the_spec_check(axis):
+    """ZeRO-1 beside seq, expert or pipe is placed: the spec check lets
+    it through (on a model that carries the axis), and a world of one
+    refuses only its size."""
+    from dlrover_tpu_torch.accel.accelerate import _check_spec
+
+    carries = {"stage": True, "expert": True}
+    spec = ParallelSpec(data=2, zero=True, **{axis: 2})
+    with pytest.raises(ValueError, match="world of 4"):
+        _check_spec(spec, carries)
 
 
 def test_auto_over_several_processes_raises(monkeypatch):

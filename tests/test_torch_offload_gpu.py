@@ -15,7 +15,10 @@ imports no JAX, so it also runs on a machine without it:
   moved leaves pinned host tensors between steps;
 - a ``Trainer(checkpoint_dir=..., offload_optimizer=True)`` snapshot
   restores bit for bit into a fresh trainer, and the moved leaves stay
-  in host memory.
+  in host memory;
+- on an ("fsdp", 1) mesh of an NCCL world of one, ``offload_optimizer``
+  moves the ``MeshOptimizer``'s 8-bit moments and trains bit for bit as
+  the same mesh without it.
 """
 
 import dataclasses
@@ -152,3 +155,62 @@ def test_offloaded_checkpoint_restores_bit_for_bit(cuda_device, tmp_path,
         a.close()
         for path in glob.glob(f"/dev/shm/ckpt_{job}_*"):
             os.unlink(path)
+
+
+@pytest.mark.gpu
+def test_offload_on_an_fsdp_mesh_of_one(cuda_device, monkeypatch):
+    """``accelerate_on_mesh`` on ("fsdp", 1) of an NCCL world of one
+    (MASTER_ADDR / PORT, RANK, WORLD_SIZE set here): with
+    ``offload_optimizer=True`` the 8-bit moments lie pinned on the host
+    between steps, move in and out once a step, and four steps' losses
+    and the parameters equal the same mesh's without offload bit for
+    bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.accel import accelerate_on_mesh
+    from dlrover_tpu_torch.accel import mesh as mesh_mod
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    cfg = dataclasses.replace(GPTConfig.tiny(), param_dtype=torch.bfloat16,
+                              d_model=128, num_heads=2, attn_impl="pallas")
+    batch = np.random.default_rng(1).integers(0, 256, (4, 64))
+    runs = []
+    try:
+        m = mesh_mod.create_mesh([("fsdp", 1)], torch.device("cuda", 0))
+        for offload in (False, True):
+            model = GPT(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(0))
+            res = accelerate_on_mesh(
+                model, adam8bit(1e-2), batch,
+                lambda mod, p, b: loss_fn(mod(b), b), m, device="cuda",
+                offload_optimizer=offload)
+            t = torch.from_numpy(res.local_batch(batch)).cuda()
+            losses = [float(res.train_step(res.state, t)[1]["loss"])
+                      for _ in range(4)]
+            if offload:
+                opt = res.state["opt"]
+                assert type(opt.inner).__name__ == "MeshOptimizer"
+                assert opt.moved and all(x.device.type == "cpu"
+                                         and x.is_pinned()
+                                         for x in opt.moved)
+                stats = opt.take_copy_stats()
+                assert stats["in_bytes"] == stats["out_bytes"] == \
+                    4 * opt.nbytes
+            runs.append((losses, {n: p.detach().clone() for n, p in
+                                  res.module.named_parameters()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert runs[0][0] == runs[1][0] and runs[1][0][-1] < runs[1][0][0]
+    assert all(torch.equal(p.full_tensor() if hasattr(p, "full_tensor")
+                           else p, runs[0][1][n].full_tensor()
+                           if hasattr(runs[0][1][n], "full_tensor")
+                           else runs[0][1][n])
+               for n, p in runs[1][1].items())

@@ -384,7 +384,7 @@ def test_offload_through_trainer_kwargs():
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(precision="int8"), NotImplementedError),
-    (dict(devices=[]), NotImplementedError),
+    (dict(devices=[]), ValueError),
     (dict(registry=ShardingRegistry()), None),
     (dict(precision="fp8"), ValueError),
     (dict(rng=0), TypeError),
@@ -392,9 +392,11 @@ def test_offload_through_trainer_kwargs():
 def test_other_accel_kwargs_raise(kwargs, error, monkeypatch):
     """The keyword arguments ``Trainer`` passes on to ``auto_accelerate``:
     those of later slices raise, naming them; ``registry=`` reaches it
-    (a model that names its own axes trains as without it)."""
+    (a model that names its own axes trains as without it); ``devices``
+    of another length than the world's raises as JAX's "needs N
+    devices, have n"."""
     if error is not None:
-        with pytest.raises(error, match="ROADMAP|precision|rng"):
+        with pytest.raises(error, match="ROADMAP|precision|rng|devices"):
             Trainer(port_model(), adamw(1e-3), token_loss, batches(1)[0],
                     spec=ParallelSpec(), device="cpu", **kwargs)
         return

@@ -37,7 +37,22 @@ steps under ``tensor=2`` (planned with ``allow_tensor=True``, and
 placed by a ``registry=`` of one registered MLP pair), ``fsdp=2`` and
 ``fsdp=2 x tensor=2`` (planned): losses within 2e-5 of the JAX package's
 ``auto_accelerate`` of the flax model under the same spec and
-arguments (``tests/test_tp_planner.py``'s tolerance).
+arguments (``tests/test_tp_planner.py``'s tolerance). A vocab the
+tensor degree does not divide is refused by both packages. ``ConvLM``
+(a causal ``Conv1d`` and a bare parameter its registry puts on the
+tensor axis) trains under ``tensor=2`` and ``fsdp=2 x tensor=2``: the
+shards gathered whole in the forward, its losses and parameters JAX's
+within 2e-5, a rank's checkpoint blocks its shards.
+
+``offload_optimizer=True`` on a mesh (``OFFLOAD``: AdamW under fsdp=2,
+tensor=2 and ZeRO over data=2, the 8-bit Adam under fsdp=2 and the
+fp32 masters of the 8-bit Adam under ZeRO) trains bit for bit as the
+same mesh without it, with state moved to the host, and is held to the
+JAX package's losses of the same mesh (2e-5): JAX's offloaded step
+does not run on its CPU mesh (XLA's SPMD partitioner refuses the
+host-placement custom call, "Side-effect HLO must have sharding"), and
+offload moves bytes, not math, so JAX's losses without it are the
+reference, not its placement.
 
 Every world has a deadline: on expiry its ranks are killed and the test
 fails with their logs.
@@ -85,13 +100,33 @@ PLAIN = ([(m, {"tensor": 2}, False) for m in PLAIN_MODELS]
          + [(m, {"fsdp": 2, "tensor": 2}, False) for m in PLAIN_MODELS])
 
 
+# A conv and a bare parameter on the tensor axis (placed by ConvLM's
+# registry): (model, spec, registry).
+PLAIN_CONV = [("conv", {"tensor": 2}, True),
+              ("conv", {"fsdp": 2, "tensor": 2}, True)]
+# offload_optimizer=True on a world of 2: (family, optimizer, spec, the
+# train case of the same mesh without it, held to JAX's offload run).
+OFFLOAD = [("gpt", "adamw", {"fsdp": 2}, "gpt-adamw-fsdp2", True),
+           ("gpt", "adamw", {"tensor": 2}, "gpt-adamw-tensor2", True),
+           ("gpt", "adamw", {"data": 2, "zero": True}, "gpt-adamw-data2",
+            False),
+           ("gpt", "adam8bit", {"fsdp": 2}, "gpt-adam8bit-fsdp2", False),
+           ("gpt", "bf16_adam8bit", {"data": 2, "zero": True},
+            "gpt-bf16_adam8bit-data2-zero", False)]
+
+
 def plain_name(model, spec, registry):
     return f"plain-{model}{'-registry' if registry else ''}-{spec_id(spec)}"
+
+
+def offload_name(family, opt, spec):
+    return f"offload-{family}-{opt}-{spec_id(spec)}"
 REMAT_CASES = (("gpt", {"fsdp": 2}), ("llama", {"tensor": 2}))
 
 
 def spec_id(spec: dict) -> str:
-    return "-".join(f"{k}{v}" for k, v in spec.items())
+    return "-".join(f"{k}{v}" if k != "zero" else "zero"
+                    for k, v in spec.items() if v)
 
 
 def global_batches():
@@ -103,13 +138,16 @@ def global_batches():
 # ------------------------------------------------------ the port side
 
 
-def port_model(family: str, seed: int = 0, policy: str = "none"):
+def port_model(family: str, seed: int = 0, policy: str = "none",
+               bf16: bool = False):
     from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
     from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
 
     gen = torch.Generator().manual_seed(seed)
     remat = dict(remat=policy != "none",
                  remat_policy="nothing" if policy == "none" else policy)
+    if bf16:
+        remat["param_dtype"] = torch.bfloat16
     if family == "gpt":
         cfg = dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32,
                                   **remat)
@@ -126,25 +164,29 @@ def port_loss(module, params, batch):
 
 
 def port_opt(opt: str):
-    from dlrover_tpu_torch.optim import adam8bit, adamw
+    from dlrover_tpu_torch.optim import adam8bit, adamw, bf16_master_weights
 
+    if opt == "bf16_adam8bit":
+        return bf16_master_weights(adam8bit(LR["adam8bit"]))
     return adamw(LR[opt]) if opt == "adamw" else adam8bit(LR[opt])
 
 
-def port_train(family, opt, spec: dict, init=None):
+def port_train(family, opt, spec: dict, init=None, offload=False):
     """Three steps of the global batches under ``spec`` (one device when
     empty): losses, the whole parameters, the 8-bit Adam state (numpy,
-    JAX's layout) and, on a mesh, what this rank holds."""
+    JAX's layout) and, on a mesh, what this rank holds; offloaded, the
+    bytes of state moved and whether they lie on the host."""
     from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
     from dlrover_tpu_torch.accel import sharding
     from dlrover_tpu_torch.models import convert
 
-    model = port_model(family)
+    model = port_model(family, bf16=opt.startswith("bf16"))
     if init is not None:
         model.load_state_dict(convert.params_from_flax(init))
     batches = global_batches()
     res = auto_accelerate(model, port_opt(opt), batches[0], port_loss,
-                          spec=ParallelSpec(**spec), device="cpu")
+                          spec=ParallelSpec(**spec), device="cpu",
+                          offload_optimizer=offload)
     local = {n: tuple(sharding.local(p).shape)
              for n, p in res.state["params"].items()}
     heads = {type(m).__name__: (m.heads, getattr(m, "kv_heads", None))
@@ -156,14 +198,24 @@ def port_train(family, opt, spec: dict, init=None):
         losses.append(float(metrics["loss"]))
     with torch.no_grad():
         full = {n: sharding.gather_full(p, sharding.layout_of(p), p.shape)
-                .numpy().copy() for n, p in res.state["params"].items()}
+                .float().numpy().copy()
+                for n, p in res.state["params"].items()}
     opt_state = None
-    if opt == "adam8bit":
+    if opt == "adam8bit" and not offload:
         opt_state = convert.adam8bit_state_to_flax(res.state["opt"].state)
-    return {"losses": losses, "params": full, "adam8": opt_state,
-            "local": local, "heads": heads,
-            "global": {n: tuple(p.shape)
-                       for n, p in res.state["params"].items()}}
+    out = {"losses": losses, "params": full, "adam8": opt_state,
+           "local": local, "heads": heads,
+           "global": {n: tuple(p.shape)
+                      for n, p in res.state["params"].items()}}
+    if offload:
+        opt = res.state["opt"]
+        out["moved"] = opt.nbytes
+        out["on_host"] = all(t.device.type == "cpu" and t.data_ptr() ==
+                             h.data_ptr() for t, h in zip(opt.moved,
+                                                          opt._host))
+        out["inner"] = type(opt.inner).__name__
+        out["copies"] = opt.take_copy_stats()
+    return out
 
 
 def plain_batches():
@@ -174,10 +226,11 @@ def plain_batches():
 
 def port_plain_train(model, spec: dict, init, registry: bool):
     """A plain twin from the flax ``init``, placed by the planner
-    (``allow_tensor=True``) or by ``port_registry()``: three AdamW steps
-    of ``plain_batches``; the losses, what this rank holds and the
-    roles of its layers, and the whole bias of each row-parallel layer
-    (which the tensor ranks hold replicated)."""
+    (``allow_tensor=True``) or by ``port_registry(model)``: three AdamW
+    steps of ``plain_batches``; the losses, what this rank holds and the
+    roles of its layers, the whole bias of each row-parallel layer
+    (which the tensor ranks hold replicated), the whole parameters, and
+    this rank's checkpoint blocks of the conv's and ``gain``'s leaves."""
     from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
     from dlrover_tpu_torch.accel import sharding
     from dlrover_tpu_torch.models.convert import plain_from_flax
@@ -189,7 +242,7 @@ def port_plain_train(model, spec: dict, init, registry: bool):
     res = auto_accelerate(twin, port_opt("adamw"), batches[0], token_loss,
                           spec=ParallelSpec(**spec), device="cpu",
                           allow_tensor=not registry,
-                          registry=port_registry() if registry else None)
+                          registry=port_registry(model) if registry else None)
     losses = []
     for b in batches:
         _, metrics = res.train_step(res.state, torch.from_numpy(
@@ -205,7 +258,12 @@ def port_plain_train(model, spec: dict, init, registry: bool):
             if getattr(m, "role", None) == "row" and m.bias is not None}
     from torch.distributed.fsdp import FSDPModule
 
-    return {"losses": losses, "row_bias": row_bias,
+    with torch.no_grad():
+        whole = {n: sharding.gather_full(p, sharding.layout_of(p), p.shape)
+                 .numpy().copy() for n, p in params.items()}
+    return {"losses": losses, "row_bias": row_bias, "params": whole,
+            "conv_blocks": [b for b in blocks_of(res.state)
+                            if "conv" in b[0] or "gain" in b[0]],
             "fsdp_units": sorted(n for n, m in res.module.named_modules()
                                  if isinstance(m, FSDPModule)),
             "local": {n: tuple(sharding.local(p).shape)
@@ -330,14 +388,26 @@ def case_agent_save(case, inputs):
 
 
 def case_plain(case, inputs):
-    return port_plain_train(case["model"], case["spec"],
-                            inputs["plain_init"][case["model"]],
-                            case["registry"])
+    """A plain model's run; a placement the port refuses (a dim the
+    tensor degree does not divide), its error."""
+    try:
+        return port_plain_train(case["model"], case["spec"],
+                                inputs["plain_init"][case["model"]],
+                                case["registry"])
+    except ValueError as e:
+        return {"refused": str(e)}
+
+
+def case_offload(case, inputs):
+    return port_train(case["family"], case["opt"], case["spec"],
+                      inputs["init"].get(case["family"])
+                      if case["opt"] != "bf16_adam8bit" else None,
+                      offload=case.get("offload", True))
 
 
 CASES = {"train": case_train, "save": case_save, "restore": case_restore,
          "remat": case_remat, "agent_save": case_agent_save,
-         "plain": case_plain}
+         "plain": case_plain, "offload": case_offload}
 
 
 def worker(path):
@@ -522,7 +592,8 @@ def jax_train(family, opt, spec: dict):
 def jax_plain_train(model, spec: dict, registry: bool):
     """The JAX package's ``auto_accelerate`` of the flax plain model under
     ``spec`` over the first N host devices, planned (``allow_tensor``)
-    or with ``jax_registry()``: the losses of three AdamW steps."""
+    or with ``jax_registry(model)``: the losses of three AdamW steps
+    (``ConvLM``: and its final params, numpy)."""
     J = _jax()
     from dlrover_tpu.accel import auto_accelerate
     from test_torch_registry import flax_models, jax_loss, jax_registry
@@ -533,26 +604,27 @@ def jax_plain_train(model, spec: dict, registry: bool):
         flax_models()[model](), J.optax.adamw(LR["adamw"]), batches[0],
         jax_loss, spec=s, devices=J.jax.devices()[:s.total],
         allow_tensor=not registry,
-        registry=jax_registry() if registry else None)
+        registry=jax_registry(model) if registry else None)
     state, losses = res.state, []
     for b in batches:
         state, m = res.train_step(state, J.jax.device_put(
             b, res.batch_sharding))
         losses.append(float(m["loss"]))
+    if model == "conv":
+        return losses, J.jax.tree_util.tree_map(np.asarray, state["params"])
     return losses
 
 
 def jax_plain_ref(model, spec: dict, registry: bool):
     """``jax_plain_train``'s losses under ``spec``; for ``odd_vocab``,
     whose embedding and head JAX's rules shard over a tensor degree that
-    does not divide them, JAX's refusal (its message) and its losses on
-    one device."""
+    does not divide them, JAX's refusal (its message)."""
     if model != "odd_vocab":
         return jax_plain_train(model, spec, registry)
     try:
         jax_plain_train(model, spec, registry)
     except ValueError as e:
-        return str(e), jax_plain_train(model, {}, registry)
+        return str(e)
     raise AssertionError(f"JAX trained {model} under {spec}")
 
 
@@ -603,7 +675,7 @@ def _runs(root, job, jax_bytes, port_bytes):
     from test_torch_registry import flax_init
 
     plain_init = {m: flax_init(m, plain_batches()[0].astype(np.int32))[1]
-                  for m in PLAIN_MODELS}
+                  for m in PLAIN_MODELS + ("conv",)}
     dirs = {k: str(root / k) for k in ("fsdp", "fsdp8", "one", "tensor",
                                        "data", "jax_fsdp", "agent",
                                        "fsdp_tensor", "jax_fsdp_tensor")}
@@ -647,9 +719,16 @@ def _runs(root, job, jax_bytes, port_bytes):
     def plain_cases(n):
         return [dict(kind="plain", name=plain_name(m, spec, r), model=m,
                      spec=spec, registry=r)
-                for m, spec, r in PLAIN if math.prod(spec.values()) == n]
+                for m, spec, r in PLAIN + PLAIN_CONV
+                if math.prod(spec.values()) == n]
 
     w2_cases += plain_cases(2)
+    w2_cases += [dict(kind="offload", name=offload_name(f, o, s), family=f,
+                      opt=o, spec=s) for f, o, s, _, _ in OFFLOAD]
+    # The masters of the 8-bit Adam under ZeRO without offload.
+    w2_cases += [dict(kind="offload", name="gpt-bf16_adam8bit-data2-zero",
+                      family="gpt", opt="bf16_adam8bit",
+                      spec={"data": 2, "zero": True}, offload=False)]
     w4_cases = train_cases(WORLD4) + plain_cases(4) + [
         dict(kind="save", name="save-fsdp-tensor", spec=TWO_AXES,
              opt="adamw", dir=dirs["fsdp_tensor"]),
@@ -680,7 +759,9 @@ def _runs(root, job, jax_bytes, port_bytes):
             for fam in FAMILIES[::-1] for spec in WORLD2 + WORLD4]
     todo += [((fam, "adamw", spec_id(spec)), spec) for fam in FAMILIES
              for spec in WORLD8]
-    todo += [(("plain", m, r, spec_id(spec)), spec) for m, spec, r in PLAIN]
+    todo += [(("plain", m, r, spec_id(spec)), spec)
+             for m, spec, r in PLAIN + PLAIN_CONV]
+
     for k in range(JAX_PROCS):
         path = str(root / f"jax{k}.pkl")
         with open(path, "wb") as f:
@@ -869,18 +950,21 @@ def test_plain_models_train_as_jax(runs, model, spec, registry):
     a column-parallel kernel holds half its rows (torch's ``[out, in]``),
     a row-parallel one half its columns, and fsdp halves the other dim
     (its ``embed`` dim; under fsdp alone nothing is tensor-parallel).
-    The embedding's rows split over tensor whatever the vocab, as JAX's
-    do (rank 0 holds ``ceil(V / 2)`` of an odd vocab): where JAX refuses
-    that uneven split, the port's losses are JAX's on one device. A
-    row-parallel bias, which only the first tensor rank adds, is stepped
-    alike on every rank. Under fsdp each block is an FSDP2 unit."""
+    A vocab the tensor degree does not divide (129) is refused by both
+    packages, at placement, on every rank. A row-parallel bias, which
+    only the first tensor rank adds, is stepped alike on every rank.
+    Under fsdp each block is an FSDP2 unit."""
     name = plain_name(model, spec, registry)
     world = runs[f"w{math.prod(spec.values())}"]
     got = world[0][name]
     want = runs["jax"]["plain", model, registry, spec_id(spec)]
     if model == "odd_vocab":
-        refused, want = want
-        assert "should be divisible by 2" in refused, refused
+        assert "should be divisible by 2" in want, want
+        for rank in world:
+            refused = rank[name]["refused"]
+            assert "should be divisible by the tensor degree 2" in refused
+            assert "wte.weight" in refused, refused
+        return
     np.testing.assert_allclose(got["losses"], want, rtol=LOSS_TOL,
                                atol=LOSS_TOL)
     for rank in world[1:]:
@@ -909,6 +993,75 @@ def test_plain_models_train_as_jax(runs, model, spec, registry):
     assert loc[down] == (g[down][0] // f, g[down][1] // t), loc[down]
     assert loc["wte.weight"] == (-(-g["wte.weight"][0] // t),
                                  g["wte.weight"][1] // f)
+
+
+@pytest.mark.parametrize("model,spec,registry", PLAIN_CONV, ids=[
+    plain_name(m, s, r) for m, s, r in PLAIN_CONV])
+def test_conv_and_bare_parameter_train_as_jax(runs, model, spec, registry):
+    """``ConvLM``'s conv weight (``[out, in, k]``), its bias and its bare
+    ``gain``, which the registry puts on the tensor axis: a rank stores
+    half of each along the out channels (and fsdp halves that half again,
+    dim 0 being each one's only sharded dim), the module
+    computes on the whole tensors, and the losses and final parameters
+    are the JAX package's GSPMD run's within 2e-5, every rank alike; a
+    rank's checkpoint blocks of them are its shards (``gain``'s ``[16]``
+    of ``[32]`` under tensor=2), each written once."""
+    from dlrover_tpu_torch.models.convert import plain_from_flax
+    from test_torch_registry import torch_model
+
+    name = plain_name(model, spec, registry)
+    world = runs[f"w{math.prod(spec.values())}"]
+    losses, jparams = runs["jax"]["plain", model, registry, spec_id(spec)]
+    got = world[0][name]
+    np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    want = plain_from_flax(jparams, torch_model("conv"))
+    for n, t in want.items():
+        np.testing.assert_allclose(got["params"][n], t.numpy(),
+                                   rtol=PARAM_TOL, atol=PARAM_TOL,
+                                   err_msg=n)
+    t, f = spec["tensor"], spec.get("fsdp", 1)
+    for rank in world:
+        r = rank[name]
+        assert r["losses"] == got["losses"]
+        for n in ("block_0.conv.weight", "block_0.conv.bias",
+                  "block_0.gain"):
+            assert r["local"][n][0] == r["global"][n][0] // (t * f), n
+        (gain,) = [b for b in r["conv_blocks"]
+                   if b[0].startswith("['params']") and "gain" in b[0]]
+        assert gain[2] == (32,) and gain[3] == (32 // (t * f),)
+    written = [(b[0], b[1]) for rank in world
+               for b in rank[name]["conv_blocks"] if b[5]]
+    assert len(written) == len(set(written))
+
+
+@pytest.mark.parametrize("family,opt,spec,base,held", OFFLOAD, ids=[
+    offload_name(f, o, s) for f, o, s, _, _ in OFFLOAD])
+def test_offload_on_a_mesh_trains_bit_for_bit(runs, family, opt, spec, base,
+                                              held):
+    """``offload_optimizer=True`` on a mesh: the state a rank steps (its
+    fsdp or tensor shards' AdamW moments, its ZeRO slices, the 8-bit
+    moments ``MeshOptimizer`` keeps whole, the masters' slices and whole
+    moments of the 8-bit Adam under ZeRO) lies in host memory between
+    steps, moved in and out once a step, and the losses and parameters
+    are the same mesh's without offload bit for bit, every rank alike,
+    and JAX's of that mesh within 2e-5 (the module's docstring: JAX's
+    offloaded step does not run on its CPU mesh)."""
+    name = offload_name(family, opt, spec)
+    for rank in runs["w2"]:
+        got, want = rank[name], rank[base]
+        assert got["moved"] > 0 and got["on_host"]
+        assert got["copies"]["in_bytes"] == STEPS * got["moved"]
+        assert got["copies"]["out_bytes"] == STEPS * got["moved"]
+        assert got["losses"] == want["losses"]
+        for n in want["params"]:
+            assert np.array_equal(got["params"][n], want["params"][n]), n
+    if spec.get("zero"):
+        assert runs["w2"][0][name]["inner"].startswith("Zero")
+    if held:
+        losses = runs["jax"][family, opt, spec_id(spec)][0]
+        np.testing.assert_allclose(runs["w2"][0][name]["losses"], losses,
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
 
 
 # ------------------------------------------------------ checkpoints

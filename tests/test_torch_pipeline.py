@@ -23,6 +23,20 @@ world serves every spec of its size; each has a deadline of its own.
 The worlds and the reference processes start with the module and run
 beside the in-process tests.
 
+The world of 2 also trains GPT tiny under ``pipe=2`` with the
+``update_and_apply`` optimizers (``OPT_RUNS``): the 8-bit Adam and
+``bf16_master_weights`` of AdamW (fp32 parameters) and of the 8-bit
+Adam (bf16 parameters), GPipe and circular. Each trains bit for bit as the port's one device (the same
+arithmetic: a stage's rows of the 8-bit state are blocks of their own),
+each rank holds its stages' rows of the state only and no all-gather
+runs in a step; the 8-bit Adam's pipe=2 snapshot restores at pipe=2 and
+on one device bit for bit. The JAX package's runs of the same specs
+hold the losses (2e-5) and the parameters (AdamW's masters: 2e-5; the
+8-bit Adam's, whose int8 rounds the gradients' last bits move:
+``tests/test_torch_optim.py``'s largest and median difference); JAX
+runs the 8-bit Adam's Pallas kernel in interpret mode, the port its
+plain version.
+
 Tolerances: logits and aux within 1e-5 and gradients within 2e-5 of
 JAX's (fp32, the order of sums only); losses and parameters within
 2e-5 of JAX's under the same spec and of the port's one-device run
@@ -72,6 +86,19 @@ RUNS = (
      "gpipe", 2, 4, 0.5),
 )
 CKPT = dict(family="gpt", schedule="gpipe", stages=2, experts=0, cf=1.25)
+OPTS = ("adam8bit", "bf16", "bf16_adam8bit")
+# GPT tiny on pipe=2 under each update_and_apply optimizer: (name,
+# schedule, optimizer, held to JAX's run).
+OPT_RUNS = tuple(
+    (f"gpt-pipe2-{sched}-{opt}", sched, opt, opt != "bf16_adam8bit")
+    for opt in OPTS for sched in SCHEDULES)
+# The runs with bf16 parameters; the others' are fp32. (Trained bf16
+# parameters are held to JAX's only on the same gradients,
+# tests/test_torch_optim_more.py: the two packages round a few bf16
+# gradients to the other side of a tie, and Adam's division turns that
+# into a percent of a step. The fp32 masters' placement and arithmetic
+# are the same with fp32 parameters.)
+BF16_PARAMS = ("bf16_adam8bit",)
 
 
 def config_kw(schedule="gpipe", stages=2, experts=0, cf=1.25, layers=4,
@@ -83,6 +110,15 @@ def config_kw(schedule="gpipe", stages=2, experts=0, cf=1.25, layers=4,
                 scan_layers=scan)
 
 
+def port_opt(opt="adamw"):
+    from dlrover_tpu_torch.optim import adam8bit, adamw, bf16_master_weights
+
+    return {"adamw": lambda: adamw(LR), "adam8bit": lambda: adam8bit(LR),
+            "bf16": lambda: bf16_master_weights(adamw(LR)),
+            "bf16_adam8bit": lambda: bf16_master_weights(adam8bit(LR))
+            }[opt]()
+
+
 def global_batches():
     rng = np.random.default_rng(11)
     return [rng.integers(0, 256, (ROWS, SEQ), dtype=np.int64)
@@ -92,13 +128,15 @@ def global_batches():
 # ------------------------------------------------------ the port side
 
 
-def port_model(family, seed=0, **kw):
+def port_model(family, seed=0, bf16=False, **kw):
     from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
     from dlrover_tpu_torch.models.llama import Llama, LlamaConfig
 
     cls, cfg = ((GPT, GPTConfig.tiny()) if family == "gpt"
                 else (Llama, LlamaConfig.tiny()))
     cfg = dataclasses.replace(cfg, dtype=torch.float32, **config_kw(**kw))
+    if bf16:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
     return cls(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
 
 
@@ -110,31 +148,73 @@ def port_loss(module, params, batch):
         else loss_fn(out, batch)
 
 
-def port_train(family, spec, schedule, stages, experts, cf):
-    """Three AdamW steps under ``spec`` (one device when empty): losses,
-    ticks, this rank's parameters and their names."""
+def port_train(family, spec, schedule, stages, experts, cf, opt="adamw"):
+    """Three steps under ``spec`` (one device when empty): losses, ticks,
+    this rank's parameters (fp32) and their names, the all-gathers the
+    steps ran, and the optimizer's state by JAX leaf path (the 8-bit
+    moments: ``q`` and ``scale``; the fp32 masters)."""
+    import torch.distributed as dist
+
     from dlrover_tpu_torch.accel import ParallelSpec, auto_accelerate
-    from dlrover_tpu_torch.optim import adamw
 
     batches = global_batches()
     model = port_model(family, schedule=schedule, stages=stages,
-                       experts=experts, cf=cf)
-    res = auto_accelerate(model, adamw(LR), batches[0], port_loss,
+                       experts=experts, cf=cf, bf16=opt in BF16_PARAMS)
+    res = auto_accelerate(model, port_opt(opt), batches[0], port_loss,
                           spec=ParallelSpec(**spec), device="cpu")
-    losses = [float(res.train_step(res.state, torch.from_numpy(
-        res.local_batch(b)))[1]["loss"]) for b in batches]
+    gathers = []
+    real = {f: getattr(dist, f) for f in ("all_gather",
+                                          "all_gather_into_tensor")}
+
+    def spy(f):
+        def call(*args, **kwargs):
+            gathers.append(f)
+            return real[f](*args, **kwargs)
+        return call
+
+    for f in real:
+        setattr(dist, f, spy(f))
+    try:
+        losses = [float(res.train_step(res.state, torch.from_numpy(
+            res.local_batch(b)))[1]["loss"]) for b in batches]
+    finally:
+        for f, fn in real.items():
+            setattr(dist, f, fn)
     return {"losses": losses, "ticks": res.module.pipeline.ticks,
-            "params": {n: p.detach().numpy().copy()
-                       for n, p in res.state["params"].items()}}
+            "params": {n: p.detach().float().numpy().copy()
+                       for n, p in res.state["params"].items()},
+            "gathers": gathers, "state": opt_state(res.state["opt"])}
 
 
-def ckpt_trainer(spec, ckpt_dir, seed=0):
+def opt_state(opt) -> dict:
+    """The state an ``update_and_apply`` optimizer holds (numpy, by JAX
+    leaf path): the 8-bit moments' ``q`` and ``scale``, and the masters
+    (by parameter name); empty for AdamW."""
+    from dlrover_tpu_torch.accel.accelerate import MeshOptimizer
+    from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
+
+    out = {}
+    if isinstance(opt, MeshOptimizer):
+        opt = opt.inner
+    if isinstance(opt, Bf16MasterOptimizer):
+        out.update({("master", n): t.numpy().copy()
+                    for n, t in opt.master.items()})
+        opt = opt.inner
+    st = getattr(opt, "state", None)
+    if hasattr(st, "m"):
+        for moment in ("m", "v"):
+            for path, qt in getattr(st, moment).items():
+                out[(moment, path)] = (qt.q.numpy().copy(),
+                                       qt.scale.numpy().copy())
+    return out
+
+
+def ckpt_trainer(spec, ckpt_dir, seed=0, opt="adamw"):
     from dlrover_tpu_torch.accel import ParallelSpec
-    from dlrover_tpu_torch.optim import adamw
     from dlrover_tpu_torch.train.trainer import Trainer
 
     kw = {k: v for k, v in CKPT.items() if k != "family"}
-    return Trainer(port_model("gpt", seed, **kw), adamw(LR), port_loss,
+    return Trainer(port_model("gpt", seed, **kw), port_opt(opt), port_loss,
                    global_batches()[0], spec=ParallelSpec(**spec),
                    device="cpu", checkpoint_dir=ckpt_dir, persist_every=2,
                    report_metrics=False)
@@ -151,7 +231,8 @@ def wait_done(ckpt_dir: str, timeout: float = 200):
 
 def case_train(case, inputs):
     return port_train(case["family"], case["spec"], case["schedule"],
-                      case["stages"], case["experts"], case["cf"])
+                      case["stages"], case["experts"], case["cf"],
+                      case.get("opt", "adamw"))
 
 
 def case_save(case, inputs):
@@ -159,13 +240,14 @@ def case_save(case, inputs):
     another seed restores it; the eval loss of both."""
     import torch.distributed as dist
 
-    t = ckpt_trainer(case["spec"], case["dir"])
+    opt = case.get("opt", "adamw")
+    t = ckpt_trainer(case["spec"], case["dir"], opt=opt)
     t.fit(iter(global_batches()[:2]), steps=2, start_step=0)
     saved = blocks_of(t.state)
     dist.barrier()
     if dist.get_rank() == 0:
         open(case["dir"] + ".done", "w").close()
-    fresh = ckpt_trainer(case["spec"], case["dir"], seed=5)
+    fresh = ckpt_trainer(case["spec"], case["dir"], seed=5, opt=opt)
     step = fresh.restore()
     evals = [tr.evaluate(iter(global_batches()[2:]))["eval_loss"]
              for tr in (t, fresh)]
@@ -225,13 +307,26 @@ def _jax():
         auto_accelerate=auto_accelerate)
 
 
-def jax_model(family, **kw):
+def jax_model(family, bf16=False, **kw):
     J = _jax()
     mod = J.gpt if family == "gpt" else J.llama
     cls, cfg = ((mod.GPT, mod.GPTConfig) if family == "gpt"
                 else (mod.Llama, mod.LlamaConfig))
-    return cls(dataclasses.replace(cfg.tiny(), dtype=J.jnp.float32,
-                                   **config_kw(**kw)))
+    cfg = dataclasses.replace(cfg.tiny(), dtype=J.jnp.float32,
+                              **config_kw(**kw))
+    if bf16:
+        cfg = dataclasses.replace(cfg, param_dtype=J.jnp.bfloat16)
+    return cls(cfg)
+
+
+def jax_opt(opt="adamw"):
+    J = _jax()
+    from dlrover_tpu.optim.bf16 import bf16_master_weights
+    from dlrover_tpu.optim.low_bit import adam8bit
+
+    return {"adamw": lambda: J.optax.adamw(LR),
+            "adam8bit": lambda: adam8bit(LR),
+            "bf16": lambda: bf16_master_weights(J.optax.adamw(LR))}[opt]()
 
 
 def jax_loss(m, p, b):
@@ -259,25 +354,36 @@ def jax_apply(family, params, tokens, **kw):
         params, tokens.astype(np.int32))
 
 
-def jax_train(family, spec, schedule, stages, experts, cf, init):
+def jax_train(family, spec, schedule, stages, experts, cf, init,
+              opt="adamw"):
     """(losses, params) of the JAX package's run under ``spec`` from the
-    params ``init`` (numpy, in place of its own initial ones)."""
+    params ``init`` (numpy, in place of its own initial ones; a
+    ``bf16_master_weights`` run's masters start from them too, and its
+    params are the fp32 masters, of which the bf16 ones are roundings)."""
     J = _jax()
     jax = J.jax
     s = J.ParallelSpec(**spec)
     batches = [b.astype(np.int32) for b in global_batches()]
+    tx = jax_opt(opt)
     res = J.auto_accelerate(
-        jax_model(family, schedule=schedule, stages=stages, experts=experts,
-                  cf=cf), J.optax.adamw(LR), batches[0], jax_loss, spec=s,
-        devices=jax.devices()[:s.total])
+        jax_model(family, opt in BF16_PARAMS, schedule=schedule,
+                  stages=stages, experts=experts, cf=cf), tx, batches[0],
+        jax_loss, spec=s, devices=jax.devices()[:s.total])
     state, losses = dict(res.state), []
     state["params"] = jax.tree_util.tree_map(
         lambda cur, new: jax.device_put(new, cur.sharding), state["params"],
         init)
+    # Fresh buffers: fp32 masters would alias the params, which the step
+    # donates.
+    state["opt"] = jax.tree_util.tree_map(
+        lambda cur, new: jax.device_put(np.asarray(new), cur.sharding),
+        state["opt"], tx.init(state["params"]))
     for b in batches:
         state, m = res.train_step(state, jax.device_put(b, res.batch_sharding))
         losses.append(float(m["loss"]))
-    return losses, jax.tree_util.tree_map(np.asarray, state["params"])
+    params = state["opt"].master if opt == "bf16" else state["params"]
+    return losses, jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), params)
 
 
 def jax_ckpt_trainer(ckpt_dir):
@@ -565,6 +671,49 @@ def test_adam8_table_walks_pipelined_leaves_by_stage(schedule):
         [0] + [r.nblocks for r in rows[:-1]]))
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_adam8_table_of_a_pipe_rank_walks_its_stages_rows(schedule):
+    """On pipe rank r of 2 the 8-bit Adam's leaves are ``StageBlock``s of
+    its stages (``param_leaves``, from the stage layouts' global count),
+    and its table's rows walk exactly stage ``r``'s rows of the whole
+    model's table: the kernel steps the rows the rank owns, with their
+    own blocks and scales."""
+    from dlrover_tpu_torch.accel.sharding import Layout, set_layout
+    from dlrover_tpu_torch.models import convert
+    from dlrover_tpu_torch.optim import low_bit
+    from test_torch_mesh import FakeMesh
+
+    model = port_model("gpt", schedule=schedule, layers=8)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    whole = convert.param_leaves(params)
+    rows = low_bit.leaf_rows([(leaf.shape, len(leaf.names),
+                               params[leaf.names[0]].numel())
+                              for leaf in whole.values()])
+    walk = low_bit.walk_rows(rows, [params[n] for leaf in whole.values()
+                                    for n in leaf.names])
+    by_leaf, it = {}, iter(walk)
+    for path, leaf in whole.items():
+        k = low_bit._row_count(leaf.shape, len(leaf.names))
+        by_leaf[path] = [next(it) for _ in range(k)]
+    for r in range(2):
+        mesh = FakeMesh({"pipe": 2}, [r])
+        mine = {n: t.clone() for n, t in params.items()
+                if n.startswith(f"pipeline.stages.{r}.")
+                or n.startswith(f"pipeline.bank.{r}.")}
+        for t in mine.values():
+            set_layout(t, Layout(mesh, (None,), placed=(0,), stages=2))
+        leaves = convert.param_leaves(mine)
+        assert all(leaf.index[0] == (r, r + 1) for leaf in leaves.values())
+        state = low_bit.adam8bit(LR).init(mine, leaves)
+        for path, leaf in leaves.items():
+            assert leaf.shape == whole[path].shape
+            assert state.m[path].q.shape[0] == 1
+            own = low_bit.leaf_rows([(leaf.local_shape, len(leaf.names),
+                                      mine[leaf.names[0]].numel())])
+            got = low_bit.walk_rows(own, [mine[n] for n in leaf.names])
+            assert torch.equal(torch.cat(got), by_leaf[path][r]), path
+
+
 # ------------------------------------------------------ the pipe worlds
 
 
@@ -603,7 +752,8 @@ def _start(started, job):
     from dlrover_tpu_torch.models import convert
 
     root = started["root"]
-    dirs = started["dirs"] = {k: str(root / k) for k in ("pipe2", "jax")}
+    dirs = started["dirs"] = {k: str(root / k)
+                              for k in ("pipe2", "jax", "pipe2_adam8bit")}
     todo = [(8, ("ckpt",), (dirs["jax"],))]
     for _, name, fam, spec, sched, stages, experts, cf in RUNS:
         init = convert.flax_from_params(port_model(
@@ -611,6 +761,15 @@ def _start(started, job):
             cf=cf).state_dict())
         todo.append((6, ("train", name),
                      (fam, spec, sched, stages, experts, cf, init)))
+    _jax()  # numpy's bfloat16, for the bf16 weights' arrays
+    for name, sched, opt, held in OPT_RUNS:
+        if held:
+            init = convert.flax_from_params(port_model(
+                "gpt", schedule=sched, bf16=opt in BF16_PARAMS)
+                .state_dict())
+            todo.append((10 if opt == "adam8bit" else 6, ("train", name),
+                         ("gpt", {"pipe": 2}, sched, 2, 0, 1.25, init,
+                          opt)))
     todo.append((6, ("restore",), (dirs["pipe2"],)))
     share = [[0, []] for _ in range(JAX_PROCS)]
     for cost, key, args in todo:
@@ -629,8 +788,14 @@ def _start(started, job):
             kind="train", name=name, family=fam, spec=spec,
             schedule=sched, stages=stages, experts=experts, cf=cf))
     cases[2] += [
+        dict(kind="train", name=name, family="gpt", spec={"pipe": 2},
+             schedule=sched, stages=2, experts=0, cf=1.25, opt=opt)
+        for name, sched, opt, _ in OPT_RUNS]
+    cases[2] += [
         dict(kind="save", name="save-pipe2", spec={"pipe": 2},
              dir=dirs["pipe2"]),
+        dict(kind="save", name="save-pipe2-adam8bit", spec={"pipe": 2},
+             dir=dirs["pipe2_adam8bit"], opt="adam8bit"),
         dict(kind="restore", name="jax-to-pipe2", spec={"pipe": 2},
              dir=dirs["jax"])]
     for n in (2, 4):
@@ -655,6 +820,9 @@ def runs(worlds):
             for _, name, fam, _, sched, stages, experts, cf in RUNS:
                 out["one"][name] = port_train(fam, {}, sched, stages,
                                               experts, cf)
+            for name, sched, opt, _ in OPT_RUNS:
+                out["one"][name] = port_train("gpt", {}, sched, 2, 0, 1.25,
+                                              opt)
         finally:
             torch.set_num_threads(threads)
     finally:
@@ -665,9 +833,13 @@ def runs(worlds):
     out["jax_ckpt"] = out["jax"].pop(("ckpt",))
     out["jax_restored"] = out["jax"].pop(("restore",))
     out["w2"], out["w4"] = results[JAX_PROCS:]
-    # The pipe=2 checkpoint on one device, here.
+    # The pipe=2 checkpoints on one device, here.
     t = ckpt_trainer({}, worlds["dirs"]["pipe2"], seed=5)
     out["one_restored"] = (t.restore(), port_bytes(t.state))
+    t.close()
+    t = ckpt_trainer({}, worlds["dirs"]["pipe2_adam8bit"], seed=5,
+                     opt="adam8bit")
+    out["one_restored_adam8bit"] = (t.restore(), port_bytes(t.state))
     t.close()
     return out
 
@@ -763,6 +935,98 @@ def test_pipe_checkpoint_restores_at_pipe2_and_on_one_device(runs):
     assert runs["one_restored"] == (2, saved)
     for r in w2:
         a, b = r["save-pipe2"]["eval"]
+        assert a == b
+
+
+@pytest.mark.parametrize("name,schedule,opt,held", OPT_RUNS,
+                         ids=[r[0] for r in OPT_RUNS])
+def test_pipe_optimizers_train_bit_for_bit_as_one_device(runs, name,
+                                                         schedule, opt,
+                                                         held):
+    """pipe=2 under the 8-bit Adam and fp32 masters: every rank's losses
+    and the ranks' parameters (the tied ``wte`` equal on both) are the
+    one device's bit for bit; a rank's state is its stages' (and ends')
+    only, the stages' rows of the one device's state, bit for bit; the
+    steps ran no all-gather; the losses and parameters are JAX's (2e-5;
+    the 8-bit Adam's parameters to the fit test's bounds; under fp32
+    masters the masters)."""
+    from dlrover_tpu_torch.models.convert import params_from_flax
+
+    ranks, one = runs["w2"], runs["one"][name]
+    for rank in ranks:
+        assert rank[name]["losses"] == one["losses"]
+        assert rank[name]["gathers"] == []
+    whole = _whole(ranks, name)
+    assert whole.keys() == one["params"].keys()
+    for n, v in whole.items():
+        assert np.array_equal(v, one["params"][n]), n
+    # Each rank's state: its stage's rows of every stage leaf's.
+    stage = "pipeline/"
+    for r, rank in enumerate(ranks):
+        got = rank[name]["state"]
+        assert got
+        for key, val in got.items():
+            want = one["state"][key]
+            if key[0] == "master":
+                assert np.array_equal(val, want), key
+                continue
+            for a, b in zip(val, want):
+                if key[1].startswith(stage):
+                    assert a.shape[0] == b.shape[0] // 2, key
+                    b = b[r * a.shape[0]:(r + 1) * a.shape[0]]
+                assert np.array_equal(a, b), key
+        paths = {k[1] for k in got if k[0] != "master"}
+        everywhere = {k[1] for k in one["state"] if k[0] != "master"}
+        ends = {"wte/embedding", "wpe"} if r == 0 else {
+            "wte/embedding", "ln_f/scale", "ln_f/bias"}
+        if opt != "bf16":
+            assert paths == {p for p in everywhere
+                             if p.startswith(stage)} | ends, paths
+    if not held:
+        return
+    jax_losses, jax_params = runs["jax"][("train", name)]
+    np.testing.assert_allclose(one["losses"], jax_losses, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    want = {n: t.float().numpy() for n, t in
+            params_from_flax(jax_params).items()}
+    if opt == "adam8bit":
+        from test_torch_optim import FIT_PARAM_MAX, FIT_PARAM_MEDIAN
+
+        diffs = np.concatenate([np.abs(whole[n] - want[n]).reshape(-1)
+                                for n in want])
+        assert diffs.max() <= FIT_PARAM_MAX, diffs.max()
+        assert np.median(diffs) <= FIT_PARAM_MEDIAN, np.median(diffs)
+    else:
+        # JAX's masters against the port's (the bf16 parameters are
+        # their roundings, one ulp apart where a master sits on an edge).
+        masters = {}
+        for rank in ranks:
+            masters.update({k[1]: v for k, v in rank[name]["state"].items()
+                            if k[0] == "master"})
+        for n in want:
+            np.testing.assert_allclose(masters[n], want[n], rtol=LOSS_TOL,
+                                       atol=LOSS_TOL, err_msg=n)
+
+
+def test_pipe_adam8bit_checkpoint_restores_bit_for_bit(runs):
+    """The 8-bit Adam's pipe=2 snapshot of step 2: each rank writes its
+    stages' rows of every stage leaf's moments (blocks of the global
+    ``[P, blocks, 256]`` leaf), a fresh pipe=2 trainer restores them bit
+    for bit, and so does one device; the eval losses agree."""
+    w2 = runs["w2"]
+    saved = assemble([r["save-pipe2-adam8bit"]["saved"] for r in w2])
+    assert assemble([r["save-pipe2-adam8bit"]["restored"] for r in w2]) \
+        == saved
+    q = ("['opt'].m['pipeline']['ticks']['stages']['stage']['blocks']"
+         "['qkv']['kernel'].q")
+    for g, rank in enumerate(w2):
+        blocks = [b for b in rank["save-pipe2-adam8bit"]["saved"]
+                  if b[0] == q]
+        assert [(b[1][0], b[2][0], b[5]) for b in blocks] == \
+            [((g, g + 1), 2, True)]
+    assert runs["one_restored_adam8bit"] == (2, saved)
+    for r in w2:
+        a, b = r["save-pipe2-adam8bit"]["eval"]
         assert a == b
 
 

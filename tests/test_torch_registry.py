@@ -16,6 +16,11 @@ torch's order: the defaults, registered rules, their left padding and
 the rank-mismatch error. ``plan_tp``'s roles and rules equal JAX's
 ``plan_tp``'s, parameter by parameter, for the four models.
 
+A fifth, ``ConvLM``, holds a causal ``Conv1d`` (flax's ``nn.Conv``)
+and a bare parameter (flax's ``self.param``), which its registry puts
+on the tensor axis (their ``mlp`` channels): the converter carries
+both, and its twin's logits are flax's within 1e-5.
+
 The models train on gloo ranks in ``tests/test_torch_parallel.py``'s
 worlds (``allow_tensor=True`` and ``registry=`` under ``tensor=2`` and
 ``fsdp=2 x tensor=2``) and ``tests/test_torch_search.py``'s (``"auto"``
@@ -38,6 +43,7 @@ MODELS = ("mha", "gqa", "swiglu", "two_heads")
 # tests/test_torch_parallel.py's uneven vocab-parallel case).
 ODD_VOCAB = VOCAB + 1
 TOL = 1e-5  # the twin's logits against flax's, fp32
+CONV_K = 3  # ConvLM's causal kernel
 
 
 # ------------------------------------------------------ torch twins
@@ -107,6 +113,33 @@ class LM(nn.Module):
         return self.lm_head(x)
 
 
+class ConvBlock(nn.Module):
+    """A causal conv over the sequence (kernel ``CONV_K``, left-padded)
+    and a bare per-channel ``gain``: ``x + gelu(conv(ln(x))) * gain``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ln = nn.LayerNorm(D, eps=1e-6)
+        self.conv = nn.Conv1d(D, D, CONV_K)
+        self.gain = nn.Parameter(torch.ones(D))
+
+    def forward(self, x):
+        y = F.pad(self.ln(x).transpose(1, 2), (CONV_K - 1, 0))
+        y = self.conv(y).transpose(1, 2)
+        return x + F.gelu(y, approximate="tanh") * self.gain
+
+
+class ConvLM(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.wte = nn.Embedding(VOCAB, D)
+        self.block_0 = ConvBlock()
+        self.lm_head = nn.Linear(D, VOCAB)
+
+    def forward(self, tokens):
+        return self.lm_head(self.block_0(self.wte(tokens)))
+
+
 class TwoHeads(nn.Module):
     def __init__(self):
         super().__init__()
@@ -123,7 +156,8 @@ def torch_model(name: str) -> nn.Module:
     return {"mha": lambda: LM(), "gqa": lambda: LM(KV_HEADS, swiglu=True),
             "swiglu": lambda: LM(swiglu=True),
             "two_heads": TwoHeads,
-            "odd_vocab": lambda: LM(vocab=ODD_VOCAB)}[name]()
+            "odd_vocab": lambda: LM(vocab=ODD_VOCAB),
+            "conv": ConvLM}[name]()
 
 
 def token_loss(module, params, batch):
@@ -136,12 +170,18 @@ def token_loss(module, params, batch):
     return torch.mean(lse - tgt)
 
 
-def port_registry():
+def port_registry(model: str = "mha"):
     """A registry of one registered Megatron pair (each block's GELU
     MLP: ``up`` column-, ``down`` row-parallel) in torch's order; the
-    rest falls to the defaults."""
+    rest falls to the defaults. ``ConvLM``'s puts its conv's out
+    channels, its bias and its ``gain`` on ``mlp`` (the tensor axis)."""
     from dlrover_tpu_torch.accel.registry import ShardingRegistry
 
+    if model == "conv":
+        return (ShardingRegistry()
+                .register(r"conv\.weight$", ("mlp", None, None))
+                .register(r"conv\.bias$", ("mlp",))
+                .register(r"gain$", ("mlp",)))
     return (ShardingRegistry()
             .register(r"block_\d+\.up\.weight$", ("mlp", "embed"))
             .register(r"block_\d+\.up\.bias$", ("mlp",))
@@ -202,6 +242,23 @@ def flax_models():
                 x = FBlock(self.kv_heads, self.swiglu, name=f"block_{i}")(x)
             return fnn.Dense(self.vocab, name="lm_head")(x)
 
+    class FConvLM(fnn.Module):
+        @fnn.compact
+        def __call__(self, tokens):
+            x = fnn.Embed(VOCAB, D, name="wte")(tokens)
+
+            class FConvBlock(fnn.Module):
+                @fnn.compact
+                def __call__(self, x):
+                    y = fnn.LayerNorm(name="ln")(x)
+                    y = fnn.Conv(D, (CONV_K,), padding=[(CONV_K - 1, 0)],
+                                 name="conv")(y)
+                    gain = self.param("gain", fnn.initializers.ones, (D,))
+                    return x + fnn.gelu(y) * gain
+
+            x = FConvBlock(name="block_0")(x)
+            return fnn.Dense(VOCAB, name="lm_head")(x)
+
     class FTwoHeads(fnn.Module):
         @fnn.compact
         def __call__(self, tokens):
@@ -211,7 +268,7 @@ def flax_models():
 
     return {"mha": lambda: FLM(), "gqa": lambda: FLM(KV_HEADS, True),
             "swiglu": lambda: FLM(swiglu=True), "two_heads": FTwoHeads,
-            "odd_vocab": lambda: FLM(vocab=ODD_VOCAB)}
+            "odd_vocab": lambda: FLM(vocab=ODD_VOCAB), "conv": FConvLM}
 
 
 def flax_init(name: str, tokens):
@@ -223,10 +280,15 @@ def flax_init(name: str, tokens):
     return model, jax.tree_util.tree_map(np.asarray, params)
 
 
-def jax_registry():
+def jax_registry(model: str = "mha"):
     """``port_registry``'s rules in JAX's paths and order."""
     from dlrover_tpu.accel.registry import ShardingRegistry
 
+    if model == "conv":
+        return (ShardingRegistry()
+                .register(r"conv/kernel$", (None, None, "mlp"))
+                .register(r"conv/bias$", ("mlp",))
+                .register(r"gain$", ("mlp",)))
     return (ShardingRegistry()
             .register(r"block_\d+/up/kernel$", ("embed", "mlp"))
             .register(r"block_\d+/up/bias$", ("mlp",))
@@ -283,11 +345,64 @@ def pair(request):
 
 
 def test_converter_carries_the_flax_init_both_ways(pair):
+    _round_trip(*pair[1:])
+
+
+def _conv_pair():
+    from dlrover_tpu_torch.models.convert import plain_from_flax
+
+    tokens = np.random.default_rng(0).integers(0, VOCAB, (2, 8)).astype(
+        np.int32)
+    model, params = flax_init("conv", tokens)
+    # A gain of ones would hide a dropped multiply.
+    params["block_0"]["gain"] = np.linspace(0.5, 1.5, D, dtype=np.float32)
+    twin = torch_model("conv")
+    twin.load_state_dict(plain_from_flax(params, twin))
+    return model, params, twin, tokens
+
+
+def test_conv_and_bare_parameter_cross_both_ways():
+    """``ConvLM``: the Conv kernel ``[k, in, out]`` becomes the Conv1d's
+    ``[out, in, k]`` weight and back, the bare ``gain`` is its own leaf,
+    bit for bit; the twin's logits are flax's within 1e-5."""
+    model, params, twin, tokens = _conv_pair()
+    assert tuple(twin.block_0.conv.weight.shape) == (D, D, CONV_K)
+    _round_trip(model, params, twin, tokens)
+
+
+def test_conv_registry_puts_the_channels_on_tensor_as_jax():
+    """The conv registries of both packages give every ``ConvLM`` leaf the
+    same axes (the torch order's reversed for a kernel), and the rules of
+    ``tensor=2`` put the conv's out channels, its bias and ``gain`` on
+    the tensor axis, beside the embedding's vocab (the defaults')."""
+    from dlrover_tpu_torch.accel import ParallelSpec
+    from dlrover_tpu_torch.accel.sharding import mesh_dims
+
+    _, params, twin, _ = _conv_pair()
+    jreg, preg = jax_registry("conv"), port_registry("conv")
+    axes = preg.axes_of(twin)
+    for path, shape in _flax_leaves(params).items():
+        name = path.replace("/", ".")
+        if path.endswith("/kernel"):
+            name = name[:-len("kernel")] + "weight"
+        elif path.endswith("/embedding") or path.endswith("/scale"):
+            name = name.rsplit(".", 1)[0] + ".weight"
+        want = jreg.axes_for(path, shape)
+        got = axes[name]
+        assert got == (tuple(reversed(want)) if path.endswith("/kernel")
+                       else want), path
+    rules = ParallelSpec(tensor=2).rules()
+    on_tensor = {n for n, a in axes.items()
+                 if "tensor" in mesh_dims(a, rules)}
+    assert on_tensor == {"block_0.conv.weight", "block_0.conv.bias",
+                         "block_0.gain", "wte.weight"}
+
+
+def _round_trip(model, params, twin, tokens):
     import jax
 
     from dlrover_tpu_torch.models.convert import _flat, flax_from_plain
 
-    name, model, params, twin, tokens = pair
     back = dict(_flat(flax_from_plain(twin)))
     want = dict(_flat(params))
     assert set(back) == set(want)

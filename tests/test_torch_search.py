@@ -27,7 +27,13 @@ ranks as JAX ranks it (its profile from the parameter count, a head
 count of the world's size, no names on its state), is planned and
 placed, and its losses are JAX's ``auto_accelerate`` of the flax model
 under the chosen spec within 2e-5 (``tests/test_tp_planner.py``'s
-tolerance).
+tolerance). ``devices=`` (one device a rank: four CPU devices) searches
+over ``len(devices)`` as JAX's does, ranks as JAX's ``search_spec`` of
+4 devices, and trains as the spec it chooses; a list of another length
+than the world's, or a ``device`` that is not the rank's entry, raises
+as JAX's "needs N devices, have n" does. The search admits the pipelined
+candidates of the ``update_and_apply`` optimizers (the 8-bit Adam, fp32
+masters), which the port now places on pipe ranks.
 """
 
 import contextlib
@@ -676,6 +682,15 @@ def worker(path):
     out["plain"] = {"spec": spec_key(res.spec),
                     "ranking": [spec_key(s) for s, _ in res.search_ranking],
                     "losses": _train(res, plain_batches())}
+    # devices=: this rank's entry of one device a rank; "auto" over 4.
+    twin = torch_model("mha")
+    twin.load_state_dict(plain_from_flax(inputs["plain_init"], twin))
+    res = auto_accelerate(twin, adamw(1e-3), plain_batches()[0], plain_loss,
+                          allow_tensor=True,
+                          devices=[torch.device("cpu")] * 4)
+    out["devices"] = {"spec": spec_key(res.spec), "device": str(res.device),
+                      "ranking": [spec_key(s) for s, _ in res.search_ranking],
+                      "losses": _train(res, plain_batches())}
     with open(f"{path}.rank{rank}", "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
@@ -729,6 +744,75 @@ def test_auto_on_a_plain_module_chooses_as_jax_and_trains(world4):
     np.testing.assert_allclose(
         world4[0]["plain"]["losses"],
         jax_plain_losses(want[0], plain_batches()), rtol=2e-5, atol=2e-5)
+
+
+def test_devices_search_over_their_count_and_train(world4):
+    """``devices=`` of four CPU devices on the world of 4 (the plain
+    module, ``allow_tensor=True``): every rank trains on its entry, the
+    ranking is JAX's ``search_spec`` of 4 devices, and the losses are
+    ``"auto"``'s without ``devices`` bit for bit, which
+    ``test_auto_on_a_plain_module_chooses_as_jax_and_trains`` holds to
+    JAX's ``auto_accelerate(devices=jax.devices()[:4])`` of that spec."""
+    want = jax_plain_choice(4, ROWS)
+    for rank in world4:
+        got = rank["devices"]
+        assert got["device"] == "cpu"
+        assert got["ranking"] == want and got["spec"] == want[0]
+        assert got["losses"] == rank["plain"]["losses"]
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(devices=[]), "needs 1 devices, have 0"),
+    (dict(devices=["cpu", "cpu"]), "needs 1 devices, have 2"),
+    (dict(devices=["meta"], device="cpu"), "not devices"),
+])
+def test_devices_of_another_count_or_device_raise(kwargs, match):
+    """One process is a world of one: ``devices`` must list one device,
+    and ``device`` (when given too) must be that entry."""
+    with pytest.raises(ValueError, match=match):
+        auto_accelerate(GPT(GPTConfig.tiny(), device="cpu"), adamw(1e-3),
+                        np.zeros((2, 16), np.int64), token_loss, **kwargs)
+
+
+def test_devices_of_one_trains_on_its_entry():
+    res = auto_accelerate(GPT(GPTConfig.tiny(), device="cpu"), adamw(1e-3),
+                          np.zeros((2, 16), np.int64), token_loss,
+                          devices=[torch.device("cpu")])
+    assert res.device == torch.device("cpu") and res.spec == ParallelSpec()
+
+
+@pytest.mark.parametrize("opt", ["adam8bit", "bf16"])
+def test_pipelined_candidates_of_fused_optimizers_are_placed(opt):
+    """Every candidate of 8 devices with a pipe degree, on the model the
+    search reconfigures for it, meets the port's placement check under
+    the 8-bit Adam and fp32 masters exactly as under AdamW (they train on
+    pipe ranks: tests/test_torch_pipeline.py): pipe alone or with data
+    is placed (in a world of one only the world's size refuses it),
+    pipe with another axis is refused for item 6 under each."""
+    from dlrover_tpu_torch.accel import accelerate
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), num_layers=8)
+    tx = {"adam8bit": lambda: adam8bit(1e-3),
+          "bf16": lambda: bf16_master_weights(adamw(1e-3))}[opt]()
+    prof = search.ModelProfile.from_config(cfg)
+    specs = [sp for sp in search.enumerate_specs(prof, 8, batch_size=16)
+             if sp.pipe > 1]
+
+    def outcome(sp, optimizer):
+        new = search.reconfigured_cfg(cfg, sp, 16)
+        carries = {"stage": new.pipeline_stages > 1, "expert": False}
+        try:
+            accelerate._check_candidate(sp, new, carries, optimizer, 16)
+        except (NotImplementedError, ValueError) as e:
+            return type(e).__name__, str(e)
+        return None
+
+    placed = 0
+    for sp in specs:
+        got = outcome(sp, tx)
+        assert got == outcome(sp, adamw(1e-3)), sp
+        placed += got is not None and "needs a world of 8" in got[1]
+    assert placed
 
 
 def test_allow_tensor_false_strips_tensor_candidates(world4):

@@ -28,10 +28,30 @@ device and the JAX package at degrees 2 and 4; JAX's ``data=2`` ZeRO
 checkpoint restores into the port at 2 and 4; slices that do not cover
 the requested degree raise ``ZeroDegreeMismatchError`` naming both
 degrees.
+
+Beside pipe, seq and expert (``BESIDE_MORE``, a world of 4 at degree 2
+each): GPT tiny pipelined (GPipe and circular, 4 layers in 2 stages),
+with ring attention, and with 4 experts (LLaMA tiny too) train bit for
+bit as the same spec without ``zero``, each leaf sliced along the dim
+JAX's ``apply_zero`` relabels (never a stage dim), a rank's state
+smaller than without ZeRO. ``bf16_master_weights(adam8bit)`` under
+``zero=True`` (``ADAM8_MASTERS``: data=2, and data=2 beside fsdp=2 and
+pipe=2) slices the fp32 masters and keeps the 8-bit moments whole:
+losses and parameters the spec's without ``zero`` bit for bit, the
+moments equal on every data rank and to the unsliced run's, each
+master slice the unsliced run's slice, slices that cut the 256-value
+quantization blocks (GPT's ``[32, 96]`` kernels cut at column 48).
+The JAX package's runs of data=2 beside pipe=2, seq=2 and expert=2 and
+of the 8-bit Adam under sliced masters (the port's initial weights
+carried across; the 8-bit Adam's Pallas kernel in interpret mode, the
+port's plain version) hold the losses within 2e-5 and the parameters
+within 2e-5 (AdamW) or to ``tests/test_torch_optim.py``'s fit bounds
+(the 8-bit Adam, whose int8 rounds the gradients' last bits move).
 """
 
 import contextlib
 import dataclasses
+import functools
 import glob
 import logging
 import math
@@ -71,6 +91,34 @@ JAX_RUNS = [(f, o, n) for n in (2, 4) for f in FAMILIES
 # ZeRO-1 beside another axis on 4 ranks: (axis, family, optimizer).
 BESIDE = [(a, f, o) for a in ("fsdp", "tensor") for f in FAMILIES
           for o in ("adamw", "bf16")]
+# Models that carry a pipe, seq or expert axis, by variant: the config
+# fields each sets (both packages), and the mesh axis it takes.
+VARIANTS = {
+    "pipe": (dict(num_layers=4, pipeline_stages=2,
+                  pipeline_microbatches=4), "pipe"),
+    "circular": (dict(num_layers=4, pipeline_stages=2, pipeline_repeats=2,
+                      pipeline_microbatches=4), "pipe"),
+    "seq": (dict(attn_impl="ring"), "seq"),
+    "expert": (dict(num_experts=4), "expert"),
+}
+# ZeRO-1 beside pipe, seq or expert on 4 ranks: (variant, family,
+# optimizer, held to JAX's run).
+BESIDE_MORE = [("pipe", "gpt", "adamw", True), ("pipe", "gpt", "bf16", False),
+               ("pipe", "llama", "adamw", False),
+               ("circular", "gpt", "adamw", False),
+               ("seq", "gpt", "adamw", True), ("seq", "llama", "adamw", False),
+               ("expert", "gpt", "adamw", True),
+               ("expert", "llama", "adamw", False)]
+# bf16_master_weights(adam8bit) under zero=True: (world, variant or
+# another axis, family, optimizer, held to JAX's run). "f32a8" is the
+# same optimizer over fp32 parameters: trained bf16 parameters are held
+# to JAX's only on the same gradients (tests/test_torch_optim_more.py:
+# the packages round a few bf16 gradients to the other side of a tie).
+ADAM8_MASTERS = [(2, None, "gpt", "f32a8", True),
+                 (2, None, "gpt", "bf16a8", False),
+                 (2, None, "llama", "bf16a8", False),
+                 (4, "fsdp", "gpt", "bf16a8", False),
+                 (4, "pipe", "gpt", "bf16a8", False)]
 
 
 @contextlib.contextmanager
@@ -101,7 +149,7 @@ def global_batches():
 DEEP = 40
 
 
-def port_model(family, bf16=False, seed=0, init=None):
+def port_model(family, bf16=False, seed=0, init=None, variant=None):
     from dlrover_tpu_torch.models import convert
 
     cls, cfg = ((GPT, GPTConfig.tiny()) if family in ("gpt", "deep")
@@ -111,6 +159,8 @@ def port_model(family, bf16=False, seed=0, init=None):
         param_dtype=torch.bfloat16 if bf16 else torch.float32)
     if family == "deep":
         cfg = dataclasses.replace(cfg, num_layers=DEEP)
+    if variant in VARIANTS:
+        cfg = dataclasses.replace(cfg, **VARIANTS[variant][0])
     model = cls(cfg, device="cpu",
                 generator=torch.Generator().manual_seed(seed))
     if init is not None:
@@ -124,11 +174,17 @@ def port_opt(name):
 
     return {"adamw": lambda: adamw(LR), "agd": lambda: agd(LR),
             "bf16": lambda: bf16_master_weights(adamw(LR)),
-            "adam8bit": lambda: adam8bit(1e-2)}[name]()
+            "adam8bit": lambda: adam8bit(1e-2),
+            "bf16a8": lambda: bf16_master_weights(adam8bit(1e-2)),
+            "f32a8": lambda: bf16_master_weights(adam8bit(1e-2))}[name]()
 
 
 def token_loss(module, params, batch):
-    return loss_fn(module(batch), batch)
+    from dlrover_tpu_torch.models.gpt import moe_loss_fn
+
+    out = module(batch)
+    return moe_loss_fn(out, batch) if isinstance(out, tuple) \
+        else loss_fn(out, batch)
 
 
 def opt_state_bytes(opt) -> int:
@@ -172,12 +228,13 @@ def opt_array_bytes(opt) -> int:
                for t in st.values() if torch.is_tensor(t) and t.dim())
 
 
-def port_train(family, opt, spec, init=None):
+def port_train(family, opt, spec, init=None, variant=None):
     from dlrover_tpu_torch.accel import auto_accelerate
 
     batches = global_batches()
     with port_log() as records:
-        res = auto_accelerate(port_model(family, opt == "bf16", init=init),
+        res = auto_accelerate(port_model(family, opt.startswith("bf16"),
+                                         init=init, variant=variant),
                               port_opt(opt), batches[0], token_loss,
                               spec=ParallelSpec(**spec), device="cpu")
     losses = []
@@ -189,11 +246,42 @@ def port_train(family, opt, spec, init=None):
         params = {n: sharding.gather_full(p, sharding.layout_of(p), p.shape)
                   .float().numpy().copy()
                   for n, p in res.state["params"].items()}
-    return {"losses": losses, "params": params,
-            "opt_bytes": opt_state_bytes(res.state["opt"]),
-            "opt_array_bytes": opt_array_bytes(res.state["opt"]),
-            "opt": type(res.state["opt"]).__name__,
-            "log": [r.getMessage() for r in records]}
+    opt = res.state["opt"]
+    out = {"losses": losses, "params": params,
+           "opt_bytes": opt_state_bytes(opt),
+           "opt_array_bytes": opt_array_bytes(opt),
+           "opt": type(opt).__name__, "dims": getattr(opt, "dims", None),
+           "log": [r.getMessage() for r in records]}
+    if spec.get("zero") is not None and opt_name_is_masters(opt):
+        out.update(_masters_and_moments(opt))
+    return out
+
+
+def opt_name_is_masters(opt) -> bool:
+    from dlrover_tpu_torch.optim.bf16 import Bf16MasterOptimizer
+    from dlrover_tpu_torch.optim.low_bit import Adam8bitOptimizer
+
+    inner = getattr(opt, "inner", None)
+    return isinstance(inner, Bf16MasterOptimizer) and isinstance(
+        inner.inner, Adam8bitOptimizer)
+
+
+def _masters_and_moments(opt):
+    """Under ``bf16_master_weights(adam8bit)``: the 8-bit moments (numpy,
+    by leaf path) and each master as this rank's ZeRO slice of it (the
+    whole master sliced the same way without ZeRO), with each slice's
+    first value's place in its layer's 256-value blocks."""
+    from dlrover_tpu_torch.accel.zero import ZeroOptimizer
+
+    inner = opt.inner
+    moments = {(m, path): (qt.q.numpy().copy(), qt.scale.numpy().copy())
+               for m in ("m", "v")
+               for path, qt in getattr(inner.inner.state, m).items()}
+    masters = {n: t.numpy().copy() for n, t in inner.master.items()}
+    return {"moments": moments, "masters": masters,
+            "pieces": {p.name: (p.dim, p.start, p.length, p.shape)
+                       for p in opt._own}
+            if isinstance(opt, ZeroOptimizer) else {}}
 
 
 def ckpt_trainer(spec, ckpt_dir, seed=0, init=None, family="gpt"):
@@ -207,9 +295,13 @@ def ckpt_trainer(spec, ckpt_dir, seed=0, init=None, family="gpt"):
 
 
 def case_train(case, inputs):
-    init = inputs["init"].get(case["family"]) if case["opt"] != "bf16" \
-        else None
-    out = port_train(case["family"], case["opt"], case["spec"], init)
+    # A variant's or bf16 run's JAX twin starts from the port's weights.
+    variant = case.get("variant")
+    init = (inputs["init"].get(case["family"])
+            if case["opt"] in ("adamw", "agd", "adam8bit") and variant is None
+            else None)
+    out = port_train(case["family"], case["opt"], case["spec"], init,
+                     variant)
     if case["family"] == "deep" and case["spec"]["zero"]:
         # Which leaves this rank holds some layers of, whole.
         from dlrover_tpu_torch.accel import auto_accelerate
@@ -316,6 +408,8 @@ def jax_refs(path):
                 b, res.batch_sharding))
             losses.append(float(m["loss"]))
         out[family, opt, n] = losses
+    for name, family, variant, opt, spec, init in todo.get("carried", ()):
+        out[name] = jax_carried(family, variant, opt, spec, init)
     for name, n, ckpt_dir, save in todo.get("ckpt", ()):
         t = jax_ckpt_trainer(n, ckpt_dir)
         if save:
@@ -326,6 +420,57 @@ def jax_refs(path):
         t.close()
     with open(f"{path}.rank0", "wb") as f:
         pickle.dump(out, f)
+
+
+def jax_carried(family, variant, opt, spec, init):
+    """(losses, params) of the JAX package's run of ``family`` configured
+    as ``variant`` under ``spec``, from the port's initial params
+    ``init`` (a flax tree of numpy; an optimizer's state built on
+    them)."""
+    from test_torch_parallel import _jax
+
+    J = _jax()
+    jax = J.jax
+    from dlrover_tpu.accel import auto_accelerate
+    from dlrover_tpu.models import llama as jllama
+    from dlrover_tpu.optim.bf16 import bf16_master_weights
+    from dlrover_tpu.optim.low_bit import adam8bit
+
+    mod = J.gpt if family == "gpt" else jllama
+    cfg = (J.gpt.GPTConfig if family == "gpt" else jllama.LlamaConfig).tiny()
+    cfg = dataclasses.replace(
+        cfg, dtype=J.jnp.float32,
+        param_dtype=J.jnp.bfloat16 if opt.startswith("bf16")
+        else J.jnp.float32, **VARIANTS.get(variant, ({},))[0])
+    model = (mod.GPT if family == "gpt" else mod.Llama)(cfg)
+    tx = {"adamw": lambda: J.optax.adamw(LR),
+          "bf16": lambda: bf16_master_weights(J.optax.adamw(LR)),
+          "bf16a8": lambda: bf16_master_weights(adam8bit(1e-2)),
+          "f32a8": lambda: bf16_master_weights(adam8bit(1e-2))}[opt]()
+
+    def lossf(m, p, b):
+        out = m.apply({"params": p}, b)
+        return J.gpt.moe_loss_fn(out, b) if isinstance(out, tuple) \
+            else J.gpt.loss_fn(out, b)
+
+    batches = [b.astype(np.int32) for b in global_batches()]
+    s = J.ParallelSpec(**spec)
+    res = auto_accelerate(model, tx, batches[0], lossf, spec=s,
+                          devices=jax.devices()[:s.total])
+    state = dict(res.state)
+    put = functools.partial(jax.tree_util.tree_map,
+                            lambda cur, new: jax.device_put(new, cur.sharding))
+    state["params"] = put(state["params"], init)
+    # Fresh buffers: fp32 masters would alias the params, which the step
+    # donates.
+    state["opt"] = put(state["opt"], jax.tree_util.tree_map(
+        np.asarray, tx.init(state["params"])))
+    losses = []
+    for b in batches:
+        state, m = res.train_step(state, jax.device_put(b, res.batch_sharding))
+        losses.append(float(m["loss"]))
+    return losses, jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), state["params"])
 
 
 def jax_ckpt_trainer(n, ckpt_dir):
@@ -411,6 +556,14 @@ def runs(tmp_path_factory):
             os.unlink(path)
 
 
+def more_name(variant, family, opt, zero):
+    return f"{family}-{opt}-{zero}-{variant}"
+
+
+def masters_name(other, family, opt, zero):
+    return f"{family}-{opt}-{zero}-data2" + (f"-{other}2" if other else "")
+
+
 def _runs(root, job):
     from test_torch_parallel import jax_init
 
@@ -437,10 +590,41 @@ def _runs(root, job):
     beside = [dict(kind="train", name=f"{f}-{o}-{z}-{a}", family=f, opt=o,
                    spec={"data": 2, a: 2, "zero": z})
               for a, f, o in BESIDE for z in (False, True)]
-    first = _worlds({2: at(2) + save, 4: at(4) + beside,
+    beside += [dict(kind="train", name=more_name(v, f, o, z), family=f,
+                    opt=o, variant=v, spec={"data": 2, VARIANTS[v][1]: 2,
+                                            "zero": z})
+               for v, f, o, _ in BESIDE_MORE for z in (False, True)]
+    masters = {2: [], 4: []}
+    for world, other, f, o, _ in ADAM8_MASTERS:
+        v = other if other in VARIANTS else None
+        extra = {} if other is None else {VARIANTS[v][1] if v else other: 2}
+        masters[world] += [dict(kind="train",
+                                name=masters_name(other, f, o, z),
+                                family=f, opt=o, variant=v,
+                                spec=dict(data=2, zero=z, **extra))
+                           for z in (False, True)]
+    # The JAX runs from the port's weights (a third and a fourth process).
+    from dlrover_tpu_torch.models import convert
+
+    carried = []
+    for v, f, o, held in BESIDE_MORE:
+        if held:
+            carried.append((more_name(v, f, o, True), f, v, o,
+                            {"data": 2, VARIANTS[v][1]: 2, "zero": True}))
+    for world, other, f, o, held in ADAM8_MASTERS:
+        if held:
+            carried.append((masters_name(other, f, o, True), f, None, o,
+                            {"data": 2, "zero": True}))
+    carried = [job + (convert.flax_from_params(port_model(
+        job[1], job[3].startswith("bf16"), variant=job[2]).state_dict()),)
+        for job in carried]
+    first = _worlds({2: at(2) + save + masters[2],
+                     4: at(4) + beside + masters[4],
                      "a": {"train": JAX_RUNS[:half],
                            "ckpt": [("jax-save", 2, dirs["jax2"], True)]},
-                     "b": {"train": JAX_RUNS[half:]}},
+                     "b": {"train": JAX_RUNS[half:]},
+                     "c": {"carried": carried[::2]},
+                     "d": {"carried": carried[1::2]}},
                     root, job, "1", init)
     _cut(dirs["port2"], dirs["cut"])
 
@@ -457,7 +641,8 @@ def _runs(root, job):
                                      ("port-in-jax-4", 4, dirs["port2"],
                                       False)]}},
                      root, job, "2", init)
-    jax = {**first["a"][0], **first["b"][0], **second["c"][0]}
+    jax = {**first["a"][0], **first["b"][0], **first["c"][0],
+           **first["d"][0], **second["c"][0]}
     return {"w2": first[2], "w4": first[4], "r2": second[2],
             "r4": second[4], "jax": jax, "dirs": dirs}
 
@@ -465,7 +650,7 @@ def _runs(root, job):
 # ------------------------------------------------------ the dim choice
 
 
-def _jax_abstract(family, opt, bf16):
+def _jax_abstract(family, opt, bf16, variant=None):
     import jax
     import jax.numpy as jnp
     import optax
@@ -477,11 +662,12 @@ def _jax_abstract(family, opt, bf16):
     from dlrover_tpu.optim.low_bit import adam8bit
 
     pd = jnp.bfloat16 if bf16 else jnp.float32
+    over = VARIANTS[variant][0] if variant else {}
     model = (jgpt.GPT(dataclasses.replace(jgpt.GPTConfig.tiny(),
-                                          param_dtype=pd))
+                                          param_dtype=pd, **over))
              if family == "gpt" else
              jllama.Llama(dataclasses.replace(jllama.LlamaConfig.tiny(),
-                                              param_dtype=pd)))
+                                              param_dtype=pd, **over)))
     tx = {"adamw": lambda: optax.adamw(LR), "agd": lambda: agd(LR),
           "bf16": lambda: bf16_master_weights(optax.adamw(LR)),
           "adam8bit": lambda: adam8bit(LR)}[opt]()
@@ -590,34 +776,46 @@ def test_zero_degree_of_is_jax():
                                   dict(seq=2), dict(expert=2), dict(pipe=2)],
                          ids=["fsdp", "tensor", "seq", "expert", "pipe"])
 def test_zero_with_another_axis_raises_naming_the_item(world_of_one, spec):
-    """Beside seq, expert or pipe ZeRO-1 raises, naming what is left of
-    item 2; beside fsdp or tensor it is placed (4 ranks train it below):
-    on a one-rank mesh of data and that axis, the optimizer is a
-    ``ZeroOptimizer`` and the losses the one device's bit for bit."""
+    """ZeRO-1 beside any other axis is placed (4 ranks train it below):
+    the spec check passes it (a world of one then refuses its degrees,
+    and nothing names a later item), and on a one-rank mesh of data and
+    that axis, with a model that carries it (pipelined, ring attention,
+    experts), the optimizer is a ``ZeroOptimizer`` and the losses the
+    one device's bit for bit."""
     from dlrover_tpu_torch.accel import accelerate, auto_accelerate, mesh
     from dlrover_tpu_torch.accel.zero import ZeroOptimizer
 
     (axis,) = spec
-    if axis in ("seq", "expert", "pipe"):
-        with pytest.raises(NotImplementedError,
-                           match="seq, expert or pipe.*item 2"):
-            auto_accelerate(port_model("gpt"), port_opt("adamw"),
-                            global_batches()[0], token_loss,
-                            spec=ParallelSpec(data=2, zero=True, **spec),
-                            device="cpu")
-        return
+    variant = {"seq": "seq", "expert": "expert", "pipe": "pipe"}.get(axis)
+    with pytest.raises(ValueError, match="world of 4"):
+        auto_accelerate(port_model("gpt", variant=variant),
+                        port_opt("adamw"), global_batches()[0], token_loss,
+                        spec=ParallelSpec(data=2, zero=True, **spec),
+                        device="cpu")
     batches = global_batches()
-    one = auto_accelerate(port_model("gpt"), port_opt("adamw"), batches[0],
-                          token_loss, spec=ParallelSpec(), device="cpu")
+    one = auto_accelerate(port_model("gpt", variant=variant),
+                          port_opt("adamw"), batches[0], token_loss,
+                          spec=ParallelSpec(), device="cpu")
     m = mesh.create_mesh([("data", 1), (axis, 1)], torch.device("cpu"))
     res = accelerate.accelerate_on_mesh(
-        port_model("gpt"), port_opt("adamw"), batches[0], token_loss, m,
-        device="cpu", zero=True)
+        port_model("gpt", variant=variant), port_opt("adamw"), batches[0],
+        token_loss, m, device="cpu", zero=True)
     assert isinstance(res.state["opt"], ZeroOptimizer)
     for b in batches:
         _, a = res.train_step(res.state, torch.from_numpy(b))
         _, w = one.train_step(one.state, torch.from_numpy(b))
         assert float(a["loss"]) == float(w["loss"])
+
+
+def test_zero_with_an_explicit_offload_asks_for_offload_optimizer():
+    """``offload(inner)`` passed as the optimizer under ``zero=True``: the
+    port slices ``inner``'s state and offloads the slices when given
+    ``offload_optimizer=True``, and says so."""
+    from dlrover_tpu_torch.accel.zero import _sliceable
+    from dlrover_tpu_torch.optim import adamw, offload
+
+    with pytest.raises(ValueError, match="offload_optimizer=True"):
+        _sliceable(offload(adamw(LR)))
 
 
 def test_a_shared_shard_refuses_a_zero_state():
@@ -834,6 +1032,134 @@ def test_zero_beside_another_axis_trains_bit_for_bit(runs, axis, family, opt):
                                                           everywhere)
     assert len({tuple(r[f"{family}-{opt}-True-{axis}"]["losses"])
                 for r in runs["w4"]}) == 1
+
+
+def _jax_zero_dims(family, opt, variant, spec):
+    """JAX's ZeRO dim of each params leaf (by ``/``-path; None: whole):
+    where ``apply_zero`` puts ``zero_dp`` on the leaf's first optimizer
+    state that mirrors it (AdamW's ``mu``, the masters)."""
+    from dlrover_tpu.accel import ParallelSpec as JSpec
+    from dlrover_tpu.accel import zero as jzero
+
+    jspec = JSpec(**spec)
+    names = _jax_opt_names(jzero.apply_zero(
+        _jax_abstract(family, opt, opt.startswith("bf16"), variant), jspec,
+        jspec.rules(), warn=False))
+    head = "['opt'].master" if opt.startswith("bf16") else "['opt'][0].mu"
+    out = {}
+    for path, n in names.items():
+        if path.startswith(head):
+            leaf = "/".join(re.findall(r"\['([^']*)'\]", path[len(head):]))
+            out[leaf] = n.index(ZERO_AXIS) if ZERO_AXIS in n else None
+    return out
+
+
+@pytest.mark.parametrize("variant,family,opt,held", BESIDE_MORE,
+                         ids=[more_name(*c[:3], "") + "data2"
+                              for c in BESIDE_MORE])
+def test_zero_beside_pipe_seq_expert_trains_bit_for_bit(runs, variant,
+                                                        family, opt, held):
+    """ZeRO-1 over data=2 beside pipe=2 (GPipe, circular), seq=2 (ring)
+    or expert=2: losses and parameters the same spec's without ``zero``
+    bit for bit, every rank alike; each leaf sliced along the dim JAX's
+    ``apply_zero`` relabels (never a pipelined leaf's stage dim: the
+    pipe axis shards it); a rank's state smaller than without ZeRO; the
+    JAX package's losses and parameters within 2e-5."""
+    from dlrover_tpu_torch.models.convert import params_from_flax
+
+    axis = VARIANTS[variant][1]
+    spec = {"data": 2, axis: 2, "zero": True}
+    want_dims = _jax_zero_dims(family, opt, variant, spec)
+    for rank in runs["w4"]:
+        z = rank[more_name(variant, family, opt, True)]
+        d = rank[more_name(variant, family, opt, False)]
+        assert z["opt"].startswith("Zero") and not d["opt"].startswith("Zero")
+        assert z["losses"] == d["losses"]
+        for n in d["params"]:
+            assert np.array_equal(z["params"][n], d["params"][n]), n
+        assert z["opt_array_bytes"] < d["opt_array_bytes"]
+        assert z["dims"] == {p: want_dims[p] for p in z["dims"]}
+        assert any(dim is not None for dim in z["dims"].values())
+        if variant in ("pipe", "circular"):
+            assert all(dim != 0 for p, dim in z["dims"].items()
+                       if p.startswith("pipeline/"))
+    assert len({tuple(r[more_name(variant, family, opt, True)]["losses"])
+                for r in runs["w4"]}) == 1
+    if not held:
+        return
+    jax_losses, jax_params = runs["jax"][more_name(variant, family, opt,
+                                                   True)]
+    got = runs["w4"][0][more_name(variant, family, opt, True)]
+    np.testing.assert_allclose(got["losses"], jax_losses, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    # Every rank's parameters (a pipe rank's: its stages and ends).
+    want = params_from_flax(jax_params)
+    for rank in runs["w4"]:
+        for n, v in rank[more_name(variant, family, opt, True)][
+                "params"].items():
+            np.testing.assert_allclose(v, want[n].float().numpy(),
+                                       rtol=LOSS_TOL, atol=LOSS_TOL,
+                                       err_msg=n)
+
+
+@pytest.mark.parametrize(
+    "world,other,family,opt,held", ADAM8_MASTERS,
+    ids=[f"{f}-{o}-data2" + (f"-{x}2" if x else "")
+         for _, x, f, o, _ in ADAM8_MASTERS])
+def test_eight_bit_adam_under_sliced_masters(runs, world, other, family,
+                                             opt, held):
+    """``bf16_master_weights(adam8bit)`` with ``zero=True``: the masters
+    sliced over data, the 8-bit moments whole, equal on every rank and
+    to the unsliced run's bit for bit; losses and parameters the same
+    spec's without ``zero`` bit for bit; each master slice the unsliced
+    run's slice of the master; GPT's slices cut its 256-value blocks
+    (the qkv kernel's rows of 96 cut at 48, so a block's values lie on
+    both ranks); JAX's losses within 2e-5 and its parameters to the fit
+    test's bounds (over fp32 parameters)."""
+    from dlrover_tpu_torch.models.convert import params_from_flax
+    from test_torch_optim import FIT_PARAM_MAX, FIT_PARAM_MEDIAN
+
+    z_name = masters_name(other, family, opt, True)
+    d_name = masters_name(other, family, opt, False)
+    ranks = runs[f"w{world}"]
+    cuts = 0
+    for r, rank in enumerate(ranks):
+        z, d = rank[z_name], rank[d_name]
+        # Its data peer of rank 0's (or 1's) pipe coordinate: the mesh is
+        # (data, pipe), so pipe ranks hold their stages' moments.
+        moments = ranks[r % 2 if other == "pipe" else 0][d_name]["moments"]
+        assert z["opt"] == "ZeroAdam8Optimizer", z["opt"]
+        assert z["losses"] == d["losses"]
+        for n in d["params"]:
+            assert np.array_equal(z["params"][n], d["params"][n]), n
+        for key, (q, scale) in moments.items():
+            for a, b in zip(z["moments"][key], (q, scale)):
+                assert np.array_equal(a, b), key
+            for a, b in zip(d["moments"][key], (q, scale)):
+                assert np.array_equal(a, b), key
+        assert z["pieces"]
+        if other == "fsdp":
+            continue  # (slices of the rank's fsdp shard)
+        for n, (dim, start, length, shape) in z["pieces"].items():
+            whole = d["masters"][n]
+            want = whole if dim is None else np.take(
+                whole, range(start, start + length), axis=dim)
+            assert np.array_equal(z["masters"][n], want), n
+            if dim is not None and dim > 0:
+                cuts += (start * math.prod(shape[dim + 1:])) % 256 != 0
+    if family == "gpt" and other != "fsdp":
+        assert cuts
+    if not held:
+        return
+    jax_losses, jax_params = runs["jax"][z_name]
+    got = ranks[0][z_name]
+    np.testing.assert_allclose(got["losses"], jax_losses, rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    diffs = np.concatenate([
+        np.abs(got["params"][n] - t.float().numpy()).reshape(-1)
+        for n, t in params_from_flax(jax_params).items()])
+    assert diffs.max() <= FIT_PARAM_MAX, diffs.max()
+    assert np.median(diffs) <= FIT_PARAM_MEDIAN, np.median(diffs)
 
 
 @pytest.mark.parametrize("world", [2, 4])
