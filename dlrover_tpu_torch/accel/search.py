@@ -53,6 +53,8 @@ from dlrover_tpu_torch.common.log import logger
 # a step) and 25.51% under "dots" (260.39 ms), medians of two rounds;
 # their geometric mean. estimate().step_s is then within +-30% of both
 # (pinned by tests/test_torch_search.py::TestCalibratedAgainstChip).
+# chip_smoke.py holds it against the card's time a step (a traced step's
+# kernels): where the host is slower, the host sets these steps.
 # Remat's recompute is inside the derate: flops_per_token counts the
 # algorithmic FLOPs only.
 MFU_DERATE = 0.2871

@@ -13,15 +13,17 @@ and reads exactly those names without importing that package:
 - ``loads`` maps those names back to the port's classes, allows a few
   builtins a meta's ``objects`` may hold, and refuses any other global.
 
+Both are a ``common.wire.Codec``, as the master's wire is.
+
 Fields, defaults and name helpers are the JAX package's, so either side
 fills the fields later slices use (``index``, ``global_shape``,
 ``zero_degree``, ``mesh_axes``).
 """
 
-import io
-import pickle
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
+
+from dlrover_tpu_torch.common.wire import Codec
 
 # Names of the on-host shared objects (namespaced per job by the socket
 # dir, and per node rank so same-host multi-agent tests never collide).
@@ -127,51 +129,10 @@ class SaveEvent:
 
 #: The module the JAX package's pickles name for these classes.
 WIRE_MODULE = "dlrover_tpu.common.ckpt_meta"
-_CLASSES = (TensorMeta, StripeMeta, ShardMeta, SaverRegistration, SaveEvent)
-_WIRE_NAME = {cls: cls.__name__ for cls in _CLASSES}
-_BY_NAME = {cls.__name__: cls for cls in _CLASSES}
-
-# Python objects a meta's ``objects`` may hold beyond what pickle writes
-# without naming a class (numbers, strings, tuples, lists, dicts, sets).
-_BUILTINS = frozenset(("bytearray", "complex", "range", "slice"))
-
-
-class _Pickler(pickle._Pickler):
-    """The pure-Python pickler (the C one checks every class name by
-    importing it), with the port's meta classes written under
-    ``WIRE_MODULE``: the opcodes the C pickler writes for the JAX
-    package's classes."""
-
-    def save_global(self, obj, name=None):
-        wire = _WIRE_NAME.get(obj)
-        if wire is None:
-            return super().save_global(obj, name)
-        self.save(WIRE_MODULE)  # protocol >= 4, as ``dumps`` writes
-        self.save(wire)
-        self.write(pickle.STACK_GLOBAL)
-        self.memoize(obj)
-
-
-class _Unpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        if module == WIRE_MODULE and name in _BY_NAME:
-            return _BY_NAME[name]
-        if module == "builtins" and name in _BUILTINS:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(
-            f"checkpoint metadata may not name {module}.{name}"
-        )
-
-
-def dumps(obj) -> bytes:
-    """Pickle ``obj`` as the JAX package would pickle its twin."""
-    out = io.BytesIO()
-    _Pickler(out, protocol=pickle.DEFAULT_PROTOCOL).dump(obj)
-    return out.getvalue()
-
-
-def loads(data) -> Any:
-    """Unpickle metadata written by either package into the port's
-    classes; any global outside the metas' classes and a few builtins
-    raises ``pickle.UnpicklingError``."""
-    return _Unpickler(io.BytesIO(data)).load()
+_CODEC = Codec(
+    {__name__: WIRE_MODULE},
+    (TensorMeta, StripeMeta, ShardMeta, SaverRegistration, SaveEvent),
+    "checkpoint metadata",
+)
+dumps = _CODEC.dumps
+loads = _CODEC.loads

@@ -1,13 +1,72 @@
-"""Launch-contract names and the checkpoint file layout — the port's
-copy of ``NodeEnv`` and ``CheckpointConstant``
-(``dlrover_tpu/common/constants.py``), limited to what the port reads."""
+"""Shared enums, launch-contract names and the checkpoint file layout —
+the port's copy of the part of ``dlrover_tpu/common/constants.py`` that
+the port reads. Values are the JAX package's: they travel on the
+master's wire and in its state files."""
 
 from dlrover_tpu_torch.common import env_utils as _env
 
 
-class NodeEnv:
-    """Environment variables the launcher/agent sets for every worker."""
+class NodeType:
+    """Roles a node can play in a job."""
 
+    MASTER = "master"
+    WORKER = "worker"
+    PS = "ps"
+    CHIEF = "chief"
+    EVALUATOR = "evaluator"
+
+
+class NodeStatus:
+    INITIAL = "initial"
+    PENDING = "pending"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    DELETED = "deleted"
+    BREAKDOWN = "breakdown"
+    UNKNOWN = "unknown"
+
+
+class NodeExitReason:
+    KILLED = "killed"
+    OOM = "oom"
+    FATAL_ERROR = "fatal-error"
+    HARDWARE_ERROR = "hardware-error"
+    PREEMPTED = "preempted"
+    SUCCEEDED = "succeeded"
+    UNKNOWN = "unknown"
+
+
+class JobStage:
+    INIT = "init"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    STOPPING = "stopping"
+
+
+class RendezvousName:
+    """Named rendezvous rounds managed by the master."""
+
+    TRAINING = "elastic-training"
+    DEVICE_CHECK = "device-check"
+
+
+class TrainingExceptionLevel:
+    RDZV_ERROR = "rdzv_error"
+    PROCESS_ERROR = "process_error"
+    NODE_ERROR = "node_error"
+    WARNING = "warning"
+    INFO = "info"
+
+
+class NodeEnv:
+    """Environment variables the launcher/agent sets for every process."""
+
+    JOB_NAME = _env.JOB_NAME.name
+    MASTER_ADDR = _env.MASTER_ADDR.name
+    NODE_ID = _env.NODE_ID.name
+    NODE_RANK = _env.NODE_RANK.name
     COORDINATOR_ADDR = _env.COORDINATOR_ADDR.name
     PROCESS_ID = _env.PROCESS_ID.name
     NUM_PROCESSES = _env.NUM_PROCESSES.name

@@ -67,7 +67,15 @@ STRAGGLER_PHASES = EnvVar(
     "Keep the trainer's per-step phase breakdown.")
 CHAOS = EnvVar(
     "DLROVER_TPU_CHAOS", str, "",
-    "Fault plan; unset = chaos off. The port has no chaos sites yet.")
+    "Fault plan: inline JSON or @/path/to/plan.json; unset = chaos off. "
+    "The port's sites are the RPC client, server and servicer's.")
+CHAOS_LOG = EnvVar(
+    "DLROVER_TPU_CHAOS_LOG", str, "",
+    "Journal of fired chaos events (one JSON line each).")
+LOCKDEP = EnvVar(
+    "DLROVER_TPU_LOCKDEP", bool, False,
+    "Arm the runtime lock-order detector: instrumented locks record the "
+    "acquisition graph and fail fast on a cycle.")
 
 # ---------------- flash checkpoint ----------------
 JOB_NAME = EnvVar(
@@ -96,3 +104,33 @@ CKPT_INCREMENTAL = EnvVar(
 COPY_THREADS = EnvVar(
     "DLROVER_TPU_COPY_THREADS", int, 8,
     "Worker threads in the fastcopy pool (checksum + read pipeline).")
+
+# ---------------- master / control plane ----------------
+NODE_ID = EnvVar(
+    "DLROVER_TPU_NODE_ID", int, 0,
+    "Stable node id assigned by the launcher (master-side identity).")
+HANG_DETECTION_SECS = EnvVar(
+    "DLROVER_TPU_HANG_DETECTION_SECS", float, 1800.0,
+    "No step progress for this long marks the job hung.")
+HEARTBEAT_TIMEOUT = EnvVar(
+    "DLROVER_TPU_HEARTBEAT_TIMEOUT", float, 60.0,
+    "Agent heartbeat silence after which the master declares the node "
+    "dead.")
+NODE_MONITOR_INTERVAL = EnvVar(
+    "DLROVER_TPU_NODE_MONITOR_INTERVAL", float, 2.0,
+    "Master-side node-liveness sweep interval.")
+DEVICE_CHECK_TIMEOUT = EnvVar(
+    "DLROVER_TPU_DEVICE_CHECK_TIMEOUT", float, 300.0,
+    "Wall-clock budget for a whole device-check rendezvous round.")
+AUTO_PARAL = EnvVar(
+    "DLROVER_TPU_AUTO_PARAL", bool, False,
+    "Opt-in: master pushes tuned dataloader configs to workers.")
+METRICS_PORT = EnvVar(
+    "DLROVER_TPU_METRICS_PORT", int, -1,
+    "Port of the master's /metrics exporter; the port's master has no "
+    "exporter (ROADMAP queue 1, item 5) and refuses a set value.")
+MASTER_HA_DIR = EnvVar(
+    "DLROVER_TPU_MASTER_HA_DIR", str, "",
+    "Shared directory of the master hot standby; the port's master has "
+    "no standby (ROADMAP queue 1, item 10's rest) and refuses a set "
+    "value.")

@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: no JAX, the card by default, sm_90a.
 
 - No module of ``dlrover_tpu_torch/``, and not ``chip_smoke.py``, imports
-  jax, flax, optax, ml_dtypes or anything of ``dlrover_tpu``.
+  jax, flax, optax, ml_dtypes or anything of ``dlrover_tpu``: the master
+  core, its wire, chaos and observability included.
 - Entry points run on CUDA unless the caller asks for the CPU; without
   a card they raise instead of falling back.
 - The kernel build targets Hopper's ``sm_90a`` (checked without nvcc).
@@ -68,6 +69,28 @@ def test_walk_sees_the_whole_package():
     assert "dlrover_tpu_torch/train/checkpoint/engine.py" in names
     assert "dlrover_tpu_torch/agent/ckpt_saver.py" in names
     assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("sub", ["master", "master/monitor", "chaos",
+                                 "observability", "common", "agent"])
+def test_walk_sees_the_control_plane(sub):
+    """The master core, its wire and what it imports are walked by the
+    import check like the rest of the package."""
+    names = {os.path.relpath(p, REPO) for p in port_sources()}
+    pkg = os.path.join(REPO, "dlrover_tpu_torch", sub)
+    mods = sorted(f for f in os.listdir(pkg) if f.endswith(".py"))
+    assert mods, sub
+    for f in mods:
+        assert f"dlrover_tpu_torch/{sub}/{f}" in names
+    want = {"master": ("servicer.py", "master.py", "main.py", "rendezvous.py",
+                       "state_store.py", "node_manager.py", "kv_store.py"),
+            "master/monitor": ("speed_monitor.py", "error_monitor.py"),
+            "chaos": ("injector.py", "sites.py"),
+            "observability": ("events.py",),
+            "common": ("rpc.py", "wire.py", "messages.py", "node.py",
+                       "lockdep.py"),
+            "agent": ("master_client.py",)}[sub]
+    assert set(want) <= set(mods), sub
 
 
 def test_import_check_catches_a_planted_import(tmp_path):

@@ -54,8 +54,12 @@ host-placement custom call, "Side-effect HLO must have sharding"), and
 offload moves bytes, not math, so JAX's losses without it are the
 reference, not its placement.
 
-Every world has a deadline: on expiry its ranks are killed and the test
-fails with their logs.
+A world or process of JAX references is killed when one of its
+processes fails, when none gains CPU time for ``WORLD_STALL_S`` (hung)
+or at ``WORLD_DEADLINE_S`` from its start. The references start first,
+on one XLA thread each, and the worlds run in two waves of at most 8
+ranks beside them. A world or reference process that fails fails only
+the tests that read its results, with its processes' logs.
 """
 
 import dataclasses
@@ -74,14 +78,22 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD_DEADLINE_S = 300
+# A world (or a process of JAX references) is hung when none of its
+# processes gains CPU time for WORLD_STALL_S seconds, and cut at
+# WORLD_DEADLINE_S seconds from its start whatever it does. On a loaded
+# machine a process gets a small share of a core, so its wall time says
+# little and its CPU time says whether it moves.
+WORLD_STALL_S = 120
+WORLD_DEADLINE_S = 900
 LOSS_TOL = PARAM_TOL = 2e-5
 STEPS, ROWS, SEQ = 3, 8, 16
 FAMILIES = ("gpt", "llama")
 OPTS = ("adamw", "adam8bit")
 LR = {"adamw": 1e-3, "adam8bit": 1e-2}
 MESH_FLIP_SHARE, MESH_SCALE_REL = 2e-2, 1e-2
-JAX_PROCS = 5
+# Twelve 8-bit Adam runs (its Pallas kernel interpreted: the slowest),
+# two in each process, dealt first.
+JAX_PROCS = 6
 WORLD2 = ({"data": 2}, {"fsdp": 2}, {"tensor": 2})
 WORLD4 = ({"data": 2, "fsdp": 2}, {"data": 2, "tensor": 2},
           {"fsdp": 2, "tensor": 2})
@@ -455,15 +467,46 @@ def join_world():
                             world_size=int(os.environ["WORLD_SIZE"]))
 
 
+def cpu_ticks(pids):
+    """The CPU time the processes have used (user + system clock ticks,
+    from ``/proc``); None where it cannot be read."""
+    total = 0
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            total += int(fields[11]) + int(fields[12])
+        except (OSError, IndexError, ValueError):
+            return None
+    return total
+
+
+class WorldFailed(Exception):
+    """A world's process failed, or the world hung or missed its
+    deadline; the message holds every process's exit code and log
+    tail."""
+
+
+# XLA's flags for a JAX reference process on one thread: XLA's CPU
+# client otherwise runs each op on a pool as wide as the machine, so
+# the reference processes beside the gloo ranks and the other test
+# workers ask for several times the cores there are.
+ONE_THREAD_XLA = ("--xla_cpu_multi_thread_eigen=false "
+                  "intra_op_parallelism_threads=1")
+
+
 class World:
     """``n`` worker processes of ``script`` (this file by default) on
-    ``inputs`` (a pickle path; ``--jax``: one process of JAX references);
-    a worker joins the group with ``join_world`` (a file rendezvous
-    beside the inputs); ``join`` waits up to the deadline, kills
-    every process on expiry or failure, and raises with their logs."""
+    ``inputs`` (a pickle path; ``--jax``: one process of JAX references,
+    on one XLA thread with ``one_thread``); a worker joins the group with
+    ``join_world`` (a file rendezvous beside the inputs); ``collect``
+    waits for them, kills every process when one fails, when none gains
+    CPU time for ``WORLD_STALL_S`` or at the deadline, and raises
+    ``WorldFailed`` with their logs (``join``: ``pytest.fail`` with
+    them)."""
 
     def __init__(self, n: int, inputs: str, job: str, jax_refs=False,
-                 script: str = __file__):
+                 script: str = __file__, one_thread: bool = False):
         self.n, self.inputs, self.job = n, inputs, job
         self.procs, self.logs = [], []
         for r in range(n):
@@ -472,6 +515,9 @@ class World:
                        WORLD_INIT=f"file://{os.path.abspath(inputs)}.rdzv",
                        OMP_NUM_THREADS="1", DLROVER_TPU_JOB_NAME=job,
                        PYTHONPATH=REPO)
+            if one_thread:
+                env["XLA_FLAGS"] = " ".join(
+                    (env.get("XLA_FLAGS", ""), ONE_THREAD_XLA)).strip()
             for name in ("DLROVER_TPU_PROCESS_ID", "DLROVER_TPU_NUM_PROCESSES",
                          "DLROVER_TPU_LOCAL_RANK",
                          "DLROVER_TPU_LOCAL_WORLD_SIZE", "MASTER_ADDR",
@@ -485,11 +531,39 @@ class World:
                 env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
         self.t0 = time.monotonic()
 
+    def kill(self):
+        """End every process still running (a world never collected)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in self.logs:
+            log.close()
+
     def join(self, deadline_s: float = WORLD_DEADLINE_S):
         try:
+            return self.collect(deadline_s)
+        except WorldFailed as e:
+            pytest.fail(str(e))
+
+    def collect(self, deadline_s: float = WORLD_DEADLINE_S):
+        why = "failed"
+        try:
+            cpu, moved = None, time.monotonic()
             while any(p.poll() is None for p in self.procs):
                 failed = [p for p in self.procs if p.poll() not in (None, 0)]
-                if failed or time.monotonic() - self.t0 > deadline_s:
+                now = time.monotonic()
+                ticks = cpu_ticks(p.pid for p in self.procs
+                                  if p.poll() is None)
+                if ticks is None or ticks != cpu:
+                    cpu, moved = ticks, now
+                if failed:
+                    break
+                if now - self.t0 > deadline_s:
+                    why = f"missed its {deadline_s:.0f}s deadline"
+                    break
+                if now - moved > WORLD_STALL_S:
+                    why = f"gained no CPU time for {WORLD_STALL_S}s (hung)"
                     break
                 time.sleep(0.1)
         finally:
@@ -506,9 +580,10 @@ class World:
                 log.seek(0)
                 tails.append(f"--- rank {r} (exit {codes[r]}) ---\n"
                              + log.read()[-4000:])
-            pytest.fail(f"{self.n} process(es) of {self.inputs} failed after "
-                        f"{time.monotonic() - self.t0:.0f}s:\n"
-                        + "\n".join(tails))
+            raise WorldFailed(
+                f"{self.n} process(es) of {self.inputs} {why} after "
+                f"{time.monotonic() - self.t0:.0f}s:\n" + "\n".join(tails))
+        self.seconds = time.monotonic() - self.t0
         out = []
         for r in range(self.n):
             with open(f"{self.inputs}.rank{r}", "rb") as f:
@@ -645,9 +720,25 @@ def jax_ckpt_trainer(spec: dict, ckpt_dir: str):
 # ------------------------------------------------------ the runs
 
 
+class Held(dict):
+    """Results by key. A key whose producer (a world, or a process of
+    JAX references) failed raises that failure, with its processes'
+    logs, where a test reads it: a failed world fails only the tests
+    that read it."""
+
+    def __init__(self):
+        super().__init__()
+        self.failures = {}
+
+    def __getitem__(self, key):
+        if key in self.failures:
+            pytest.fail(self.failures[key])
+        return super().__getitem__(key)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both worlds, the JAX references and the checkpoints they share."""
+    """The worlds, the JAX references and the checkpoints they share."""
     from test_torch_checkpoint import jax_bytes, port_bytes
 
     root = tmp_path_factory.mktemp("mesh")
@@ -665,11 +756,62 @@ def runs(tmp_path_factory):
             os.unlink(path)
 
 
+#: The checkpoint dirs each world writes (the others are written here).
+WRITES = {"w2": ("fsdp", "fsdp8", "tensor", "data"), "w4": ("fsdp_tensor",),
+          "agent": ("agent",), "w8": ()}
+
+
 def _runs(root, job, jax_bytes, port_bytes):
+    """The JAX references start first, in ``JAX_PROCS`` processes on one
+    XLA thread each: they take two to three times as long as the
+    largest world. The worlds run in two waves of at most 8 ranks (2 +
+    4 + 2, then 8) beside them, so the ranks, the references and this
+    process ask for about the machine's cores, not several times them.
+    Each world and each reference process is collected on its own: one
+    that fails (or hangs, or misses ``WORLD_DEADLINE_S``) fails the
+    tests that read its results (``Held``), not the module."""
     from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
     from dlrover_tpu_torch.common.comm import clear_job_sockets
 
-    out = {"jax": {}, "one": {}, "dirs": {}}
+    out = Held()
+    out["jax"], out["one"], out["dirs"] = Held(), {}, Held()
+    # The JAX references, the slowest first (the 8-bit Adam's Pallas
+    # kernel is interpreted, LLaMA compiles longest), dealt out in turns.
+    todo = [((fam, opt, spec_id(spec)), spec) for opt in OPTS[::-1]
+            for fam in FAMILIES[::-1] for spec in WORLD2 + WORLD4]
+    todo += [((fam, "adamw", spec_id(spec)), spec) for fam in FAMILIES
+             for spec in WORLD8]
+    todo += [(("plain", m, r, spec_id(spec)), spec)
+             for m, spec, r in PLAIN + PLAIN_CONV]
+    refs, worlds = [], []
+    try:
+        for k in range(JAX_PROCS):
+            path = str(root / f"jax{k}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(todo[k::JAX_PROCS], f)
+            refs.append((World(1, path, f"{job}-j{k}", jax_refs=True,
+                               one_thread=True),
+                         [key for key, _ in todo[k::JAX_PROCS]]))
+        _worlds_and_checkpoints(root, job, out, worlds, jax_bytes,
+                                port_bytes)
+        for world, keys in refs:
+            try:
+                out["jax"].update(world.collect()[0])
+            except WorldFailed as e:
+                out["jax"].failures.update(dict.fromkeys(keys, str(e)))
+    finally:
+        for world, _ in refs:
+            world.kill()
+        for world in worlds:
+            world.kill()
+        AsyncCheckpointSaver.stop()
+        clear_job_sockets(f"{job}-agent")
+    return out
+
+
+def _worlds_and_checkpoints(root, job, out, worlds, jax_bytes, port_bytes):
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+
     # The JAX package's initial weights (the same under every spec).
     init = {f: jax_init(f) for f in FAMILIES}
     from test_torch_registry import flax_init
@@ -679,7 +821,7 @@ def _runs(root, job, jax_bytes, port_bytes):
     dirs = {k: str(root / k) for k in ("fsdp", "fsdp8", "one", "tensor",
                                        "data", "jax_fsdp", "agent",
                                        "fsdp_tensor", "jax_fsdp_tensor")}
-    out["dirs"] = dirs
+    out["dirs"].update(dirs)
     # Checkpoints the worlds restore: one device (port) and fsdp=2 (JAX).
     t = ckpt_trainer("gpt", "adamw", {}, dirs["one"])
     t.fit(iter(global_batches()[:2]), steps=2, start_step=0)
@@ -737,51 +879,37 @@ def _runs(root, job, jax_bytes, port_bytes):
     ]
     agent_cases = [dict(kind="agent_save", name="agent-fsdp",
                         spec={"fsdp": 2}, dir=dirs["agent"])]
-    worlds = []
     w8_cases = [c for c in train_cases(WORLD8) if c["opt"] == "adamw"]
-    for n, tag, cases in ((2, "w2", w2_cases), (4, "w4", w4_cases),
-                          (8, "w8", w8_cases), (2, "agent", agent_cases)):
-        path = str(root / f"{tag}.pkl")
-        with open(path, "wb") as f:
-            pickle.dump({"init": init, "plain_init": plain_init,
-                         "cases": cases}, f)
-        if tag == "agent":
-            # The agent's saver of this world's node, in this process
-            # (it reads the job's name when a registration comes).
-            os.environ["DLROVER_TPU_JOB_NAME"] = f"{job}-{tag}"
-            AsyncCheckpointSaver.start_async_saving_ckpt()
-        worlds.append(World(n, path, f"{job}-{tag}"))
-    # The JAX references, in JAX_PROCS processes beside the worlds (a
-    # JAX run compiles for seconds; one process would take minutes).
-    # The slowest first (the 8-bit Adam's Pallas kernel is interpreted,
-    # LLaMA compiles longest), dealt out in turns.
-    todo = [((fam, opt, spec_id(spec)), spec) for opt in OPTS[::-1]
-            for fam in FAMILIES[::-1] for spec in WORLD2 + WORLD4]
-    todo += [((fam, "adamw", spec_id(spec)), spec) for fam in FAMILIES
-             for spec in WORLD8]
-    todo += [(("plain", m, r, spec_id(spec)), spec)
-             for m, spec, r in PLAIN + PLAIN_CONV]
-
-    for k in range(JAX_PROCS):
-        path = str(root / f"jax{k}.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(todo[k::JAX_PROCS], f)
-        worlds.append(World(1, path, f"{job}-j{k}", jax_refs=True))
-    try:
-        for fam in FAMILIES:
-            for opt in OPTS:
-                out["one"][fam, opt] = port_train(fam, opt, {}, init[fam])
-    finally:
-        try:
-            results = [w.join() for w in worlds]
-        finally:
-            AsyncCheckpointSaver.stop()
-            clear_job_sockets(f"{job}-agent")
-    out["agent"] = results[3]
-    for refs in results[4:]:
-        out["jax"].update(refs[0])
-    out["w2"], out["w4"], out["w8"] = results[:3]
-    return out
+    waves = (((2, "w2", w2_cases), (4, "w4", w4_cases),
+              (2, "agent", agent_cases)), ((8, "w8", w8_cases),))
+    for wave in waves:
+        started = []
+        for n, tag, cases in wave:
+            path = str(root / f"{tag}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump({"init": init, "plain_init": plain_init,
+                             "cases": cases}, f)
+            if tag == "agent":
+                # The agent's saver of this world's node, in this process
+                # (it reads the job's name when a registration comes).
+                os.environ["DLROVER_TPU_JOB_NAME"] = f"{job}-{tag}"
+                AsyncCheckpointSaver.start_async_saving_ckpt()
+            world = World(n, path, f"{job}-{tag}")
+            worlds.append(world)
+            started.append((tag, world))
+        if not out["one"]:
+            # The one-device runs, here while the first wave trains.
+            for fam in FAMILIES:
+                for opt in OPTS:
+                    out["one"][fam, opt] = port_train(fam, opt, {},
+                                                      init[fam])
+        for tag, world in started:
+            try:
+                out[tag] = world.collect()
+            except WorldFailed as e:
+                out.failures[tag] = str(e)
+                out["dirs"].failures.update(dict.fromkeys(WRITES[tag],
+                                                          str(e)))
 
 
 # ------------------------------------------------------ training
